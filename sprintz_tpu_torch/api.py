@@ -1,0 +1,106 @@
+"""Public API: compress/decompress entry points for the port's slice.
+
+Mirrors ``sprintz_tpu/api.py`` for the configurations this port covers so
+far: the delta codec in the row-major layout (ndims > 4 for u8, > 2 for
+u16), u8 and u16, with RLE of zero blocks, and streams short enough to be
+stored verbatim. Every other configuration raises ``NotImplementedError``
+naming the slice of the port that brings it; nothing falls back to another
+codec path.
+
+Entry points run on CUDA unless ``device`` says otherwise; ``"cpu"`` runs
+the kernels' plain PyTorch versions and is meant for tests.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import decoder as _decoder
+from . import encoder as _encoder
+from .errors import CorruptStreamError
+
+__all__ = ["CorruptStreamError", "SprintzCodec", "compress", "decompress"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SprintzCodec:
+    """A configured Sprintz codec.
+
+    Args:
+      codec: "delta" (running difference). "xff" (FIRE) is a later slice.
+      elem_sz: bytes per element: 1 (uint8) or 2 (uint16).
+      entropy: "none". "huffman" (+Huf) is a later slice.
+      device: where the device pass runs; None means "cuda".
+    """
+
+    codec: str = "delta"
+    elem_sz: int = 1
+    entropy: str = "none"
+    device: str | torch.device | None = None
+
+    def __post_init__(self):
+        if self.codec not in ("delta", "xff"):
+            raise ValueError(f"codec must be 'delta' or 'xff', got {self.codec!r}")
+        if self.elem_sz not in (1, 2):
+            raise ValueError(f"elem_sz must be 1 or 2, got {self.elem_sz}")
+        if self.entropy not in ("none", "huffman"):
+            raise ValueError(f"unknown entropy stage {self.entropy!r}")
+        if self.codec == "xff":
+            raise NotImplementedError(
+                "codec='xff' (FIRE) arrives with a later slice of the port")
+        if self.entropy == "huffman":
+            raise NotImplementedError(
+                "entropy='huffman' (+Huf) arrives with a later slice of the "
+                "port")
+
+    def _as_flat(self, data: np.ndarray) -> tuple[np.ndarray, int]:
+        udt = np.uint8 if self.elem_sz == 1 else np.uint16
+        data = np.ascontiguousarray(data)
+        if data.dtype != udt:
+            raise TypeError(f"expected dtype {udt}, got {data.dtype}")
+        if data.ndim == 2:
+            return data.reshape(-1), data.shape[1]
+        if data.ndim == 1:
+            return data, 1
+        raise ValueError("data must be 1-D (univariate) or 2-D (rows, dims)")
+
+    def compress(self, data: np.ndarray, ndims: int | None = None) -> bytes:
+        """Compress a (rows, ndims) array or flat row-major stream."""
+        flat, inferred = self._as_flat(data)
+        ndims = inferred if ndims is None else ndims
+        return _encoder.compress(flat, ndims, codec=self.codec,
+                                 elem_sz=self.elem_sz, device=self.device)
+
+    def decompress(self, buf: bytes, sidecar=None) -> np.ndarray:
+        """Decompress a stream; returns the flat row-major element array.
+
+        Raises ``CorruptStreamError`` when the buffer is truncated or its
+        metadata is inconsistent."""
+        if sidecar is not None:
+            raise NotImplementedError(
+                "checkpoint sidecars arrive with a later slice of the port")
+        return _decoder.decompress(buf, codec=self.codec,
+                                   elem_sz=self.elem_sz, device=self.device)
+
+
+def compress(
+    data: np.ndarray,
+    codec: str = "delta",
+    ndims: int | None = None,
+    device: str | torch.device | None = None,
+) -> bytes:
+    elem_sz = np.asarray(data).dtype.itemsize
+    return SprintzCodec(codec, elem_sz, device=device).compress(
+        data, ndims=ndims)
+
+
+def decompress(
+    buf: bytes,
+    codec: str = "delta",
+    elem_sz: int = 1,
+    device: str | torch.device | None = None,
+) -> np.ndarray:
+    return SprintzCodec(codec, elem_sz, device=device).decompress(buf)

@@ -1,0 +1,38 @@
+"""Format constants of the Sprintz stream, for the PyTorch port.
+
+The stream format is byte-compatible with the reference sprintz
+implementation. Constant provenance (reference sources):
+
+- ``BLOCK_SZ``/``GROUP_SZ_BLOCKS``: sprintz_delta.cpp:73,48
+- header field width 3/4 bits: sprintz_delta.cpp:71
+- ``MAX_RUN_NBLOCKS`` (15-bit run counter): sprintz_delta_rle.cpp:68
+- min compressible size (below which streams are stored verbatim):
+  sprintz_delta_rle.cpp:71,101-109
+- metadata layout: format.h:31-33
+"""
+
+from __future__ import annotations
+
+# Samples (rows) per block. 8 rows x w bits always lands on a byte boundary.
+BLOCK_SZ = 8
+
+# Blocks per group: one group header region covers this many blocks.
+GROUP_SZ_BLOCKS = 2
+
+# Zero-run length cap: lengths are coded as a 7/15-bit varint.
+MAX_RUN_NBLOCKS = 0x7FFF
+
+# Streams shorter than this many elements are stored verbatim (ngroups == 0).
+MIN_DATA_SIZE = 8 * BLOCK_SZ * GROUP_SZ_BLOCKS  # == 128 elements
+
+# {u32 ngroups, u16 remaining_len, u16 ndims}, little-endian (format.h:35-45).
+METADATA_LEN_RLE = 8
+
+# Max dims handled by the column-major low-dimensional layout
+# (sprintz_delta_lowdim.cpp:64-70): sample row must fit in 32 bits.
+LOWDIM_MAX_NDIMS = {1: 4, 2: 2}  # elem_sz -> max ndims
+
+
+def nbits_sz_bits(elem_sz: int) -> int:
+    """Width of one per-dim bitwidth header field: 3 bits (u8), 4 bits (u16)."""
+    return 3 if elem_sz == 1 else 4

@@ -1,0 +1,166 @@
+"""Row-major delta encoder: device pass + host plan/assembly.
+
+Counterpart of ``sprintz_tpu/encoder.py`` for the row-major delta layout.
+
+1. Device: delta forecast of every block, zigzag, per-block per-dim widths
+   and header fields, and the bit-pack of every block into a dense
+   (nb, 8, D * elem_sz) buffer by K3 ``pack_rows``. Forecaster state does
+   not depend on the RLE/group structure, so this is one parallel pass.
+2. Host: the group/RLE emission plan from the per-block zero flags
+   (``planner.build_plan``), O(blocks) bookkeeping.
+3. Host: the final byte stream (headers, payload slices of the dense
+   buffer, run varints, verbatim tail).
+
+Output is byte-identical to the reference and to the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .constants import (
+    BLOCK_SZ,
+    GROUP_SZ_BLOCKS,
+    LOWDIM_MAX_NDIMS,
+    METADATA_LEN_RLE,
+    MIN_DATA_SIZE,
+    nbits_sz_bits,
+)
+from .device import resolve_device
+from .models.forecasters import delta_encode
+from .ops.bitmath import block_widths_rowmajor, header_value
+from .ops.pack_kernels import pack_rows
+from .planner import KIND_DATA, KIND_RUN, EmissionPlan, build_plan, pack_headers
+from .stream_format import copy_ranges, write_metadata_rle
+
+
+def upload_rows(rows: np.ndarray, device: torch.device) -> torch.Tensor:
+    """(N, D) u8/u16 rows -> int32 on ``device``, transferred narrow."""
+    if not rows.flags.writeable:  # torch.from_numpy wants a writable array
+        rows = rows.copy()
+    if rows.dtype == np.uint16:  # transferred as int16, widened on device
+        t = torch.from_numpy(rows.view(np.int16)).to(device)
+        return t.to(torch.int32) & 0xFFFF
+    return torch.from_numpy(rows).to(device).to(torch.int32)
+
+
+def encode_device(rows: torch.Tensor, elem_sz: int):
+    """Device pass: rows (N, D) int32, N divisible by 8 ->
+    (widths (nb, D) int32, hdr (nb, D) int32, dense (nb, 8, D*elem_sz) u8,
+    width_sums (nb,) int32), all on the rows' device."""
+    eb = 8 * elem_sz
+    errs = delta_encode(rows, eb)
+    nb = rows.shape[0] // BLOCK_SZ
+    blocks = errs.reshape(nb, BLOCK_SZ, rows.shape[1])
+    widths = block_widths_rowmajor(blocks.amax(dim=1), elem_sz)
+    dense = pack_rows(blocks, widths, elem_sz)
+    return widths, header_value(widths, eb), dense, widths.sum(
+        dim=1, dtype=torch.int32)
+
+
+def compress(flat: np.ndarray, ndims: int, codec: str = "delta",
+             elem_sz: int | None = None,
+             device: str | torch.device | None = None) -> bytes:
+    """Compress a flat row-major u8/u16 stream; byte-identical to the
+    reference codec.
+
+    ``device``: where the device pass runs, CUDA by default (raises when
+    CUDA is absent); ``"cpu"`` runs the kernels' plain versions (tests).
+    """
+    if codec != "delta":
+        raise NotImplementedError(
+            f"codec={codec!r}: FIRE (xff) arrives with a later slice of the "
+            f"port")
+    flat = np.ascontiguousarray(flat).reshape(-1)
+    elem_sz = flat.dtype.itemsize if elem_sz is None else elem_sz
+    if elem_sz not in (1, 2) or flat.dtype != (
+            np.uint8 if elem_sz == 1 else np.uint16):
+        raise TypeError(f"expected a uint8 or uint16 stream matching "
+                        f"elem_sz={elem_sz}, got {flat.dtype}")
+    if ndims < 1:
+        raise ValueError(f"ndims must be >= 1, got {ndims}")
+    dev = resolve_device(device)
+    n = flat.size
+    if n < MIN_DATA_SIZE:
+        return write_metadata_rle(0, n, ndims) + flat.tobytes()
+    if ndims <= LOWDIM_MAX_NDIMS[elem_sz]:
+        raise NotImplementedError(
+            f"ndims={ndims} at elem_sz={elem_sz} uses the lowdim layout, "
+            f"which arrives with a later slice of the port")
+
+    nb = n // (BLOCK_SZ * ndims)
+    rows = upload_rows(flat[: nb * BLOCK_SZ * ndims].reshape(-1, ndims), dev)
+    widths, hdr, dense, width_sums = encode_device(rows, elem_sz)
+    widths_np = widths.to(torch.uint8).cpu().numpy()
+    hdr_np = hdr.to(torch.uint8).cpu().numpy()
+    dense_np = dense.cpu().numpy()
+    zero_flags = width_sums.cpu().numpy() == 0
+
+    plan = build_plan(zero_flags, n, ndims)
+    return assemble_stream(plan, widths_np, hdr_np, dense_np, ndims, elem_sz,
+                           flat[n - plan.remaining_elems:])
+
+
+def assemble_stream(plan: EmissionPlan, widths_np: np.ndarray,
+                    hdr_np: np.ndarray, dense_np: np.ndarray, ndims: int,
+                    elem_sz: int, tail: np.ndarray) -> bytes:
+    """Final stream assembly with index arithmetic: group g's header
+    precedes slots 2g and 2g+1; a data slot's payload is 8 rows of
+    ceil(sum(widths) / 8) bytes; a run slot is a 1- or 2-byte varint."""
+    hdr_bits = nbits_sz_bits(elem_sz)
+    total_header_bytes = (ndims * hdr_bits * GROUP_SZ_BLOCKS + 7) // 8
+
+    kinds = plan.kinds
+    values = plan.values
+    nslots = plan.nslots
+    data_mask = kinds == KIND_DATA
+    run_mask = kinds == KIND_RUN
+    data_vals = values[data_mask]
+
+    # per-slot payload lengths
+    slot_len = np.ones(nslots, dtype=np.int64)  # run0 -> 1 byte
+    row_nbytes = (widths_np.sum(axis=1, dtype=np.int64) + 7) // 8
+    slot_len[data_mask] = BLOCK_SZ * row_nbytes[data_vals]
+    slot_len[run_mask] = 1 + (values[run_mask] > 0x7F)
+
+    # output offsets: META + headers before/within + payloads before
+    cum_payload = np.concatenate([[0], np.cumsum(slot_len)])
+    slot_off = (METADATA_LEN_RLE
+                + total_header_bytes * (np.arange(nslots) // GROUP_SZ_BLOCKS + 1)
+                + cum_payload[:-1])
+    total = int(slot_off[-1] + slot_len[-1]) if nslots else METADATA_LEN_RLE
+    out = np.zeros(total + tail.nbytes, dtype=np.uint8)
+    out[:METADATA_LEN_RLE] = np.frombuffer(
+        write_metadata_rle(plan.ngroups, plan.remaining_elems, ndims),
+        dtype=np.uint8)
+
+    # headers
+    slot_headers = np.zeros((nslots, ndims), dtype=np.uint8)
+    slot_headers[data_mask] = hdr_np[data_vals]
+    header_bytes = pack_headers(slot_headers, hdr_bits)
+    hdr_off = slot_off[::GROUP_SZ_BLOCKS] - total_header_bytes
+    out[hdr_off[:, None] + np.arange(total_header_bytes)[None, :]] = header_bytes
+
+    # run varints
+    run_off = slot_off[run_mask]
+    run_val = values[run_mask].astype(np.int64)
+    two = run_val > 0x7F
+    out[run_off] = (run_val & 0x7F) | (two.astype(np.int64) << 7)
+    out[run_off[two] + 1] = run_val[two] >> 7
+
+    # data payloads: units are rows, 8 per block, rb bytes each
+    if data_vals.size:
+        doff = slot_off[data_mask]
+        rb = row_nbytes[data_vals]
+        unit_len = np.repeat(rb, BLOCK_SZ)
+        unit_out = (np.repeat(doff, BLOCK_SZ)
+                    + np.tile(np.arange(BLOCK_SZ), rb.size) * unit_len)
+        unit_src = ((data_vals[:, None].astype(np.int64) * BLOCK_SZ
+                     + np.arange(BLOCK_SZ)[None, :]).reshape(-1)
+                    * dense_np.shape[2])
+        copy_ranges(out, unit_out, dense_np.reshape(-1), unit_src, unit_len)
+
+    if tail.nbytes:
+        out[total:] = np.frombuffer(tail.tobytes(), dtype=np.uint8)
+    return out.tobytes()

@@ -1,0 +1,215 @@
+"""Delta decode kernels: payload bytes -> reconstructed values.
+
+Counterpart of ``sprintz_tpu/ops/pallas_decode.py``. Two CUDA kernels
+(``csrc/decode.cu``) and a tiny scan between them:
+
+- K1 ``unpack_zz``: field extraction fused with the zigzag decode,
+  emitting narrow u8/u16 deltas biased to unsigned, plus each tile's
+  per-dim delta total.
+- an exclusive ``torch.cumsum`` over the (ntiles, 1, D) tile totals, as the
+  JAX package does it in XLA (``pallas_decode.py:207``).
+- K2 ``prefix_finish``: each tile's inclusive prefix plus its offset,
+  masked and narrowed.
+
+Each wrapper launches its kernel for a CUDA tensor and runs its plain
+PyTorch version (``*_plain``, computed in int32, narrowed at the end) for a
+CPU tensor; the plain versions are what the CPU tests run and what the
+kernels are held against on the card. A wrapper's ``launches`` attribute
+counts its kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..constants import BLOCK_SZ
+from . import _build
+
+# Blocks per tile: the JAX pipeline's default (decode_delta_contiguous's
+# block_tile), so tile totals match it. K1 sums each tile of TILE_BLOCKS
+# blocks and K2 scans each tile of TILE_ROWS rows: one tile size for both.
+TILE_BLOCKS = 32
+TILE_ROWS = TILE_BLOCKS * BLOCK_SZ
+
+
+def narrow_dtype(elem_bits: int) -> torch.dtype:
+    if elem_bits not in (8, 16):
+        raise ValueError(f"elem_bits must be 8 or 16, got {elem_bits}")
+    return torch.uint8 if elem_bits == 8 else torch.uint16
+
+
+def narrow(x: torch.Tensor, elem_bits: int) -> torch.Tensor:
+    """int32 values in [0, 2^eb) -> u8/u16. uint16 is only a storage type
+    in torch, so u16 values are written through int16 and reinterpreted."""
+    if narrow_dtype(elem_bits) == torch.uint8:
+        return x.to(torch.uint8)
+    return (x - ((x & 0x8000) << 1)).to(torch.int16).view(torch.uint16)
+
+
+def widen(t: torch.Tensor) -> torch.Tensor:
+    """u8/u16 -> int32 (the inverse of ``narrow``)."""
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).to(torch.int32) & 0xFFFF
+    return t.to(torch.int32)
+
+
+def check_args(name: str, device: torch.device, **tensors) -> None:
+    """Raise unless every tensor is a contiguous tensor of the dtype the
+    kernel takes, on ``device`` (CUDA or CPU). ``tensors`` maps an
+    argument name to (tensor, dtype)."""
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: unsupported device {device}")
+    for arg, (t, dtype) in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, not {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def check_payload(name: str, dense: torch.Tensor,
+                  widths: torch.Tensor) -> None:
+    """Checks of an unpack kernel's inputs: dense (nb, 8, MAXB) uint8 and
+    widths (nb, D) int32 on one device."""
+    check_args(name, dense.device, dense=(dense, torch.uint8),
+               widths=(widths, torch.int32))
+    if (dense.dim() != 3 or widths.dim() != 2 or dense.shape[1] != BLOCK_SZ
+            or widths.shape[0] != dense.shape[0] or dense.shape[2] < 1):
+        raise ValueError(f"{name}: dense {tuple(dense.shape)} and widths "
+                         f"{tuple(widths.shape)} are not (nb, 8, MAXB) and "
+                         f"(nb, D)")
+
+
+def extract_fields(dense: torch.Tensor, widths: torch.Tensor) -> torch.Tensor:
+    """Plain field extraction: dense (nb, 8, MAXB) u8, widths (nb, D) ->
+    zigzag fields (nb, 8, D) int32. Bytes at or past MAXB read as 0."""
+    maxb = dense.shape[2]
+    w = widths.to(torch.int32)
+    off = torch.cumsum(w, dim=1, dtype=torch.int32) - w
+    q = (off >> 3).unsqueeze(1).expand(-1, BLOCK_SZ, -1)  # (nb, 8, D)
+    d32 = dense.to(torch.int32)
+    word = torch.zeros(q.shape, dtype=torch.int32, device=dense.device)
+    for k in range(3):  # u16 fields shifted by <= 7 bits span 3 bytes
+        idx = q + k
+        byte = torch.gather(d32, 2, idx.clamp(max=maxb - 1).long())
+        word |= torch.where(idx < maxb, byte, 0) << (8 * k)
+    return (word >> (off & 7).unsqueeze(1)) & ((1 << w) - 1).unsqueeze(1)
+
+
+def tiled(deltas: torch.Tensor) -> torch.Tensor:
+    """(rows, D) -> (ntiles, TILE_ROWS, D), the short last tile padded
+    with zero deltas."""
+    rows, ndims = deltas.shape
+    pad = (-rows) % TILE_ROWS
+    if pad:
+        deltas = torch.cat([deltas, deltas.new_zeros((pad, ndims))])
+    return deltas.reshape(-1, TILE_ROWS, ndims)
+
+
+# ------------------------------------------------------------------ K1
+
+
+def unpack_zz_plain(dense: torch.Tensor, widths: torch.Tensor,
+                    elem_bits: int):
+    """Plain version of ``unpack_zz``."""
+    u = extract_fields(dense, widths)
+    delta = (u >> 1) ^ -(u & 1)
+    nb, _, ndims = u.shape
+    bz = narrow(delta + (1 << (elem_bits - 1)), elem_bits)
+    tots = tiled(delta.reshape(nb * BLOCK_SZ, ndims)).sum(
+        dim=1, keepdim=True, dtype=torch.int32)
+    return bz, tots
+
+
+def unpack_zz(dense: torch.Tensor, widths: torch.Tensor, elem_bits: int):
+    """dense (nb, 8, MAXB) uint8, widths (nb, D) int32 ->
+    (biased deltas (nb, 8, D) u8/u16, tile totals
+    (ceil(nb / TILE_BLOCKS), 1, D) i32).
+
+    MAXB is ``dense.shape[2]``, which may be less than D * elem_sz: bytes
+    at or past it read as zero.
+    """
+    odt = narrow_dtype(elem_bits)
+    check_payload("unpack_zz", dense, widths)
+    if dense.device.type == "cpu":
+        return unpack_zz_plain(dense, widths, elem_bits)
+    nb, _, maxb = dense.shape
+    ndims = widths.shape[1]
+    ntiles = -(-nb // TILE_BLOCKS)
+    bz = torch.empty((nb, BLOCK_SZ, ndims), dtype=odt, device=dense.device)
+    tots = torch.empty((ntiles, 1, ndims), dtype=torch.int32,
+                       device=dense.device)
+    if nb == 0 or ndims == 0:
+        return bz, tots.zero_()
+    off = torch.cumsum(widths, dim=1, dtype=torch.int32) - widths
+    _build.launch("sprintz_unpack_zz", dense, dense.data_ptr(),
+                  widths.data_ptr(), off.data_ptr(), bz.data_ptr(),
+                  tots.data_ptr(), nb, ndims, maxb, TILE_BLOCKS, elem_bits, 0)
+    unpack_zz.launches += 1
+    return bz, tots
+
+
+unpack_zz.launches = 0
+
+
+# ------------------------------------------------------------------ K2
+
+
+def prefix_finish_plain(bz: torch.Tensor, tile_offsets: torch.Tensor,
+                        elem_bits: int) -> torch.Tensor:
+    """Plain version of ``prefix_finish``."""
+    rows, ndims = bz.shape
+    deltas = widen(bz) - (1 << (elem_bits - 1))
+    inner = torch.cumsum(tiled(deltas), dim=1, dtype=torch.int32)
+    vals = (inner + tile_offsets) & ((1 << elem_bits) - 1)
+    return narrow(vals.reshape(-1, ndims)[:rows], elem_bits)
+
+
+def prefix_finish(bz: torch.Tensor, tile_offsets: torch.Tensor,
+                  elem_bits: int) -> torch.Tensor:
+    """bz (rows, D) biased narrow deltas; tile_offsets (ntiles, 1, D) i32,
+    the exclusive prefix entering each TILE_ROWS-row tile -> values
+    (rows, D) narrow. The last tile may be short."""
+    odt = narrow_dtype(elem_bits)
+    check_args("prefix_finish", bz.device, bz=(bz, odt),
+               tile_offsets=(tile_offsets, torch.int32))
+    rows, ndims = bz.shape
+    ntiles = -(-rows // TILE_ROWS)
+    if tuple(tile_offsets.shape) != (ntiles, 1, ndims):
+        raise ValueError(f"prefix_finish: tile_offsets {tuple(tile_offsets.shape)}"
+                         f" != {(ntiles, 1, ndims)}")
+    if bz.device.type == "cpu":
+        return prefix_finish_plain(bz, tile_offsets, elem_bits)
+    out = torch.empty_like(bz)
+    if rows == 0 or ndims == 0:
+        return out
+    _build.launch("sprintz_prefix_finish", bz, bz.data_ptr(),
+                  tile_offsets.data_ptr(), out.data_ptr(), rows, ndims,
+                  TILE_ROWS, elem_bits)
+    prefix_finish.launches += 1
+    return out
+
+
+prefix_finish.launches = 0
+
+
+# ------------------------------------------------------------ pipeline
+
+
+def exclusive_offsets(tots: torch.Tensor) -> torch.Tensor:
+    """Exclusive prefix of (ntiles, 1, D) tile totals, in wrapping int32."""
+    return torch.cumsum(tots, dim=0, dtype=torch.int32) - tots
+
+
+def decode_delta_contiguous(dense: torch.Tensor, widths: torch.Tensor,
+                            elem_bits: int) -> torch.Tensor:
+    """Run-free delta decode: payload -> values (nb*8, D) u8/u16.
+
+    dense (nb, 8, MAXB) uint8; widths (nb, D) int32.
+    """
+    nb = dense.shape[0]
+    ndims = widths.shape[1]
+    bz, tots = unpack_zz(dense, widths, elem_bits)
+    return prefix_finish(bz.reshape(nb * BLOCK_SZ, ndims),
+                         exclusive_offsets(tots), elem_bits)

@@ -1,0 +1,103 @@
+"""Row-major bit-pack and raw unpack kernels.
+
+Counterpart of ``sprintz_tpu/ops/pallas_pack.py``:
+
+- K3 ``pack_rows`` (``csrc/pack.cu``): zigzag errors + widths -> the dense
+  per-block payload rows.
+- K4 ``unpack_rows`` (``csrc/decode.cu``, the raw mode of K1's kernel):
+  dense payload rows + widths -> the raw zigzag fields.
+
+As in ``decode_kernels``, each wrapper launches its kernel for a CUDA
+tensor and runs its plain PyTorch version for a CPU tensor, and counts its
+launches in its ``launches`` attribute.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..constants import BLOCK_SZ
+from . import _build
+from .decode_kernels import TILE_BLOCKS, check_args, check_payload, extract_fields
+
+# ------------------------------------------------------------------ K3
+
+
+def pack_rows_plain(errs_zz: torch.Tensor, widths: torch.Tensor,
+                    elem_sz: int) -> torch.Tensor:
+    """Plain version of ``pack_rows``: each field, masked to its width and
+    shifted by ``off & 7`` (<= 23 bits), adds its 3 bytes at byte
+    ``off >> 3`` of the row. Fields are bit-disjoint, so the sum is an OR."""
+    nb, _, ndims = errs_zz.shape
+    maxb = ndims * elem_sz
+    off = torch.cumsum(widths, dim=1, dtype=torch.int32) - widths
+    mask = ((1 << widths) - 1).unsqueeze(1)
+    c = (errs_zz & mask) << (off & 7).unsqueeze(1)
+    q = (off >> 3).long().unsqueeze(1).expand(-1, BLOCK_SZ, -1)
+    out = torch.zeros((nb, BLOCK_SZ, maxb + 2), dtype=torch.int32,
+                      device=errs_zz.device)
+    for k in range(3):
+        out.scatter_add_(2, q + k, (c >> (8 * k)) & 0xFF)
+    return out[:, :, :maxb].to(torch.uint8)
+
+
+def pack_rows(errs_zz: torch.Tensor, widths: torch.Tensor,
+              elem_sz: int) -> torch.Tensor:
+    """errs_zz (nb, 8, D) int32 zigzag errors, widths (nb, D) int32 legal
+    widths -> dense (nb, 8, MAXB = D * elem_sz) uint8. Row r of block b
+    holds its fields in its first ceil(sum(widths[b]) / 8) bytes, zeros
+    after."""
+    if elem_sz not in (1, 2):
+        raise ValueError(f"elem_sz must be 1 or 2, got {elem_sz}")
+    check_args("pack_rows", errs_zz.device, errs_zz=(errs_zz, torch.int32),
+               widths=(widths, torch.int32))
+    if (errs_zz.dim() != 3 or errs_zz.shape[1] != BLOCK_SZ
+            or tuple(widths.shape) != (errs_zz.shape[0], errs_zz.shape[2])):
+        raise ValueError(f"pack_rows: errs {tuple(errs_zz.shape)} and widths "
+                         f"{tuple(widths.shape)} are not (nb, 8, D), (nb, D)")
+    if errs_zz.device.type == "cpu":
+        return pack_rows_plain(errs_zz, widths, elem_sz)
+    nb, _, ndims = errs_zz.shape
+    out = torch.empty((nb, BLOCK_SZ, ndims * elem_sz), dtype=torch.uint8,
+                      device=errs_zz.device)
+    if nb == 0 or ndims == 0:
+        return out
+    _build.launch("sprintz_pack_rows", errs_zz, errs_zz.data_ptr(),
+                  widths.data_ptr(), out.data_ptr(), nb, ndims, elem_sz)
+    pack_rows.launches += 1
+    return out
+
+
+pack_rows.launches = 0
+
+
+# ------------------------------------------------------------------ K4
+
+
+def unpack_rows_plain(dense: torch.Tensor, widths: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``unpack_rows``."""
+    return extract_fields(dense, widths)
+
+
+def unpack_rows(dense: torch.Tensor, widths: torch.Tensor) -> torch.Tensor:
+    """dense (nb, 8, MAXB) uint8, widths (nb, D) int32 -> zigzag fields
+    (nb, 8, D) int32. Bytes at or past MAXB read as zero; the 3-byte window
+    serves u8 and u16 streams alike."""
+    check_payload("unpack_rows", dense, widths)
+    if dense.device.type == "cpu":
+        return unpack_rows_plain(dense, widths)
+    nb, _, maxb = dense.shape
+    ndims = widths.shape[1]
+    out = torch.empty((nb, BLOCK_SZ, ndims), dtype=torch.int32,
+                      device=dense.device)
+    if nb == 0 or ndims == 0:
+        return out
+    off = torch.cumsum(widths, dim=1, dtype=torch.int32) - widths
+    _build.launch("sprintz_unpack_zz", dense, dense.data_ptr(),
+                  widths.data_ptr(), off.data_ptr(), out.data_ptr(), None, nb,
+                  ndims, maxb, TILE_BLOCKS, 16, 1)
+    unpack_rows.launches += 1
+    return out
+
+
+unpack_rows.launches = 0
