@@ -1,11 +1,12 @@
 """Public API: compress/decompress entry points for the port's slice.
 
 Mirrors ``sprintz_tpu/api.py`` for the configurations this port covers so
-far: the delta codec in the row-major layout (ndims > 4 for u8, > 2 for
-u16), u8 and u16, with RLE of zero blocks, and streams short enough to be
-stored verbatim. Every other configuration raises ``NotImplementedError``
-naming the slice of the port that brings it; nothing falls back to another
-codec path.
+far: the delta and FIRE (xff) codecs in the row-major layout (ndims > 4
+for u8, > 2 for u16), u8 and u16, with RLE of zero blocks, streams short
+enough to be stored verbatim, and the +Huf entropy stage on either codec.
+Every other configuration (the lowdim layout, sidecars, batches) raises
+``NotImplementedError`` naming the slice of the port that brings it;
+nothing falls back to another codec path.
 
 Entry points run on CUDA unless ``device`` says otherwise; ``"cpu"`` runs
 the kernels' plain PyTorch versions and is meant for tests.
@@ -20,6 +21,7 @@ import torch
 
 from . import decoder as _decoder
 from . import encoder as _encoder
+from .entropy.huffman import huff_compress, huff_decompress, is_container
 from .errors import CorruptStreamError
 
 __all__ = ["CorruptStreamError", "SprintzCodec", "compress", "decompress"]
@@ -30,9 +32,10 @@ class SprintzCodec:
     """A configured Sprintz codec.
 
     Args:
-      codec: "delta" (running difference). "xff" (FIRE) is a later slice.
+      codec: "delta" (running difference) or "xff" (FIRE online
+        forecaster).
       elem_sz: bytes per element: 1 (uint8) or 2 (uint16).
-      entropy: "none". "huffman" (+Huf) is a later slice.
+      entropy: "none" or "huffman" (the paper's "+Huf" variants).
       device: where the device pass runs; None means "cuda".
     """
 
@@ -48,13 +51,6 @@ class SprintzCodec:
             raise ValueError(f"elem_sz must be 1 or 2, got {self.elem_sz}")
         if self.entropy not in ("none", "huffman"):
             raise ValueError(f"unknown entropy stage {self.entropy!r}")
-        if self.codec == "xff":
-            raise NotImplementedError(
-                "codec='xff' (FIRE) arrives with a later slice of the port")
-        if self.entropy == "huffman":
-            raise NotImplementedError(
-                "entropy='huffman' (+Huf) arrives with a later slice of the "
-                "port")
 
     def _as_flat(self, data: np.ndarray) -> tuple[np.ndarray, int]:
         udt = np.uint8 if self.elem_sz == 1 else np.uint16
@@ -71,8 +67,23 @@ class SprintzCodec:
         """Compress a (rows, ndims) array or flat row-major stream."""
         flat, inferred = self._as_flat(data)
         ndims = inferred if ndims is None else ndims
-        return _encoder.compress(flat, ndims, codec=self.codec,
-                                 elem_sz=self.elem_sz, device=self.device)
+        stream = _encoder.compress(flat, ndims, codec=self.codec,
+                                   elem_sz=self.elem_sz, device=self.device)
+        if self.entropy == "huffman":
+            return self._entropy_wrap(stream)
+        return stream
+
+    def _entropy_wrap(self, stream: bytes) -> bytes:
+        """+Huf entropy stage with a zero-overhead stored escape: when
+        Huffman coding does not shrink the stream, the plain sprintz
+        stream is emitted verbatim (decompress routes on the strict
+        container check, ``is_container``). A plain stream that would
+        itself parse as a container gets the 12-byte stored wrapper
+        instead."""
+        coded = huff_compress(stream, device=self.device)
+        if len(coded) >= len(stream) and not is_container(stream):
+            return stream
+        return coded
 
     def decompress(self, buf: bytes, sidecar=None) -> np.ndarray:
         """Decompress a stream; returns the flat row-major element array.
@@ -82,8 +93,23 @@ class SprintzCodec:
         if sidecar is not None:
             raise NotImplementedError(
                 "checkpoint sidecars arrive with a later slice of the port")
+        if self.entropy == "huffman" and is_container(buf):
+            buf = huff_decompress(buf, device=self.device).tobytes()
         return _decoder.decompress(buf, codec=self.codec,
                                    elem_sz=self.elem_sz, device=self.device)
+
+    def compress_seekable(self, data, ndims=None, every_groups=16):
+        raise NotImplementedError(
+            "checkpoint sidecars (compress_seekable) arrive with a later "
+            "slice of the port")
+
+    def compress_batch(self, arrays, ndims=None):
+        raise NotImplementedError(
+            "the batch API arrives with a later slice of the port")
+
+    def decompress_batch(self, bufs):
+        raise NotImplementedError(
+            "the batch API arrives with a later slice of the port")
 
 
 def compress(

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 # Samples (rows) per block. 8 rows x w bits always lands on a byte boundary.
 BLOCK_SZ = 8
+LOG2_BLOCK_SZ = 3
 
 # Blocks per group: one group header region covers this many blocks.
 GROUP_SZ_BLOCKS = 2
@@ -31,6 +32,16 @@ METADATA_LEN_RLE = 8
 # Max dims handled by the column-major low-dimensional layout
 # (sprintz_delta_lowdim.cpp:64-70): sample row must fit in 32 bits.
 LOWDIM_MAX_NDIMS = {1: 4, 2: 2}  # elem_sz -> max ndims
+
+# FIRE (xff) hyperparameters (sprintz_xff_rle.cpp:74-76): the coefficient
+# is the learning counter >> FIRE_LEARNING_SHIFT, and the gradient is taken
+# on every 2^FIRE_LOG2_LEARNING_DOWNSAMPLE-th row (the odd rows).
+FIRE_LEARNING_SHIFT = 1
+FIRE_LOG2_LEARNING_DOWNSAMPLE = 1
+
+# Width of FIRE's learning counter: int16 for u8 streams, int32 for u16
+# (sprintz_xff_rle.cpp's counter_t).
+FIRE_COUNTER_BITS = {1: 16, 2: 32}  # elem_sz -> counter bits
 
 
 def nbits_sz_bits(elem_sz: int) -> int:

@@ -1,16 +1,21 @@
 // Row-major delta decode kernels for Hopper (sm_90a), bound with ctypes.
 //
-// unpack_zz_kernel<EB, RAW>  (K1, and K4 as its RAW mode)
+// unpack_zz_kernel<EB, RAW>  (K1, and K4 and K5 as its RAW mode)
 //   Replaces sprintz_tpu/ops/pallas_decode.py:_unpack_zz_kernel (unpack_zz)
 //   and, in RAW mode, sprintz_tpu/ops/pallas_pack.py:_unpack_kernel
-//   (unpack_rows_pallas). For every (block, row, dim) it reads the field at
+//   (unpack_rows_pallas, K4: <16, true>, i32 fields) and _unpack_mxu_kernel
+//   (unpack_rows_pallas_mxu, K5: <8, true>, its bf16 output that is exact
+//   for u8 fields, here u8 fields: a quarter of K4's writes). The TPU's
+//   block-diagonal MXU dot has no counterpart: the GPU reads the field's
+//   bytes at their address. For every (block, row, dim) it reads the field at
 //   bit offset `off` (the exclusive prefix of the block's widths) from a
 //   3-byte window of the row, each byte guarded by `< maxb`, shifts it by
 //   `off & 7` and masks it to `w` bits. A u16 field shifted by up to 7 bits
 //   reaches 23 bits, so the window is 3 bytes for every element size.
 //   Non-raw mode zigzag-decodes the field, stores `delta + 2^(EB-1)` narrow
 //   and writes each tile's per-dim i32 sum of the signed deltas; RAW mode
-//   stores the i32 field.
+//   stores the field, as u8 at EB 8 (fields of u8 streams are at most 8
+//   bits wide) and as i32 at EB 16.
 //   Bound on this card: bytes. It moves the payload, the i32 widths and
 //   offsets once and writes one narrow value per field (about 2.5 bytes of
 //   traffic per u8 value), with about a dozen integer operations per field.
@@ -58,8 +63,12 @@ template <int EB, bool RAW>
 struct UnpackOut {
   using type = typename Narrow<EB>::type;
 };
-template <int EB>
-struct UnpackOut<EB, true> {
+template <>
+struct UnpackOut<8, true> {
+  using type = uint8_t;
+};
+template <>
+struct UnpackOut<16, true> {
   using type = int32_t;
 };
 
@@ -90,7 +99,7 @@ __global__ void unpack_zz_kernel(const uint8_t* __restrict__ dense,
       const uint32_t u = (word >> (o & 7)) & ((1u << w) - 1u);
       const int64_t oi = row * ndims + d;
       if constexpr (RAW) {
-        out[oi] = (int32_t)u;
+        out[oi] = (typename UnpackOut<EB, RAW>::type)u;
       } else {
         const int32_t delta = (int32_t)(u >> 1) ^ -(int32_t)(u & 1u);
         out[oi] = (typename Narrow<EB>::type)(delta + (1 << (EB - 1)));
@@ -140,7 +149,8 @@ extern "C" {
 // dense (nb, 8, maxb) u8; widths, off (nb, ndims) i32.
 // raw == 0: out (nb, 8, ndims) u8/u16 biased deltas, tile_tot
 //           (ceil(nb / tile_blocks), ndims) i32.
-// raw != 0: out (nb, 8, ndims) i32 fields; tile_tot unused.
+// raw != 0: out (nb, 8, ndims) fields, u8 at elem_bits 8 and i32 at 16;
+//           tile_tot unused.
 int sprintz_unpack_zz(const void* dense, const void* widths, const void* off,
                       void* out, void* tile_tot, long long nb, int ndims,
                       int maxb, int tile_blocks, int elem_bits, int raw,
@@ -153,9 +163,14 @@ int sprintz_unpack_zz(const void* dense, const void* widths, const void* off,
   const int32_t* wd = static_cast<const int32_t*>(widths);
   const int32_t* of = static_cast<const int32_t*>(off);
   int32_t* tt = static_cast<int32_t*>(tile_tot);
-  if (raw) {
+  if (raw && elem_bits == 8) {
+    unpack_zz_kernel<8, true><<<grid, block, 0, s>>>(
+        dn, wd, of, static_cast<uint8_t*>(out), tt, nb, ndims, maxb, tile_blocks);
+  } else if (raw && elem_bits == 16) {
     unpack_zz_kernel<16, true><<<grid, block, 0, s>>>(
         dn, wd, of, static_cast<int32_t*>(out), tt, nb, ndims, maxb, tile_blocks);
+  } else if (raw) {
+    return (int)cudaErrorInvalidValue;
   } else if (elem_bits == 8) {
     unpack_zz_kernel<8, false><<<grid, block, 0, s>>>(
         dn, wd, of, static_cast<uint8_t*>(out), tt, nb, ndims, maxb, tile_blocks);

@@ -1,15 +1,18 @@
-"""Row-major delta decoder: host header walk + device reconstruct.
+"""Row-major decoder (delta and FIRE): host header walk + device reconstruct.
 
-Counterpart of ``sprintz_tpu/decoder.py`` for the row-major delta layout.
+Counterpart of ``sprintz_tpu/decoder.py`` for the row-major layout.
 The compressed layout only reveals payload sizes through the group
 headers, so offset recovery is a sequential walk over the headers on the
 host (``walk_headers``); the payload rows are then gathered into one dense
 (ndata, 8, MAXB) buffer (``gather_payloads``) and everything heavy runs on
-the device: K1 ``unpack_zz`` -> exclusive scan of the tile totals -> K2
-``prefix_finish`` (``decode_delta_contiguous``). A stream with zero runs
-first has its payload blocks placed on the block timeline, with run
-blocks of width 0 (the byte-gather timeline of the JAX package's
-``decoder.py:582-612``), and then takes the same two kernels.
+the device. Delta: K1 ``unpack_zz`` -> exclusive scan of the tile totals
+-> K2 ``prefix_finish`` (``decode_delta_contiguous``). FIRE: K4
+``unpack_rows`` (its narrow mode, K5, at u8) -> ``fire_decode``'s serial
+scan. A stream with zero runs first has its payload blocks placed on the
+block timeline, with run blocks of width 0 (the byte-gather timeline of
+the JAX package's ``decoder.py:582-612``), and then takes the same
+kernels: a run block decodes as zero errors, which FIRE runs through as
+the encoder did.
 
 The values come back narrow and the verbatim tail is appended on the host.
 """
@@ -31,8 +34,10 @@ from .constants import (
 )
 from .device import resolve_device
 from .errors import CorruptStreamError
+from .models.forecasters import fire_decode
 from .ops.bitmath import header_to_width
 from .ops.decode_kernels import decode_delta_contiguous
+from .ops.pack_kernels import unpack_rows
 from .planner import unpack_headers
 from .stream_format import copy_ranges, read_metadata_rle
 
@@ -128,7 +133,7 @@ def gather_payloads(buf: bytes, idx: StreamIndex) -> np.ndarray:
 
 def decode_device(dense: torch.Tensor, widths: torch.Tensor,
                   out_rows: torch.Tensor, total_rows: int,
-                  elem_sz: int) -> torch.Tensor:
+                  elem_sz: int, codec: str = "delta") -> torch.Tensor:
     """Device pass: the gathered payload of the data blocks -> the stream's
     rows (total_rows, D), u8/u16, on the payload's device.
 
@@ -137,9 +142,10 @@ def decode_device(dense: torch.Tensor, widths: torch.Tensor,
 
     With runs, the payload blocks are first placed on the block timeline
     (runs are whole blocks, so every block start is 8-aligned): a run
-    block gets width 0 and zero bytes, which unpack to zero deltas, which
-    is exactly what a delta run is. Run-free streams and streams with runs
-    then take the same two kernels.
+    block gets width 0 and zero bytes, which unpack to zero errors, which
+    is exactly what a run is (for FIRE too: a block is a run block when its
+    errors under the forecaster's state are all zero). Run-free streams
+    and streams with runs then take the same kernels.
     """
     ndata, ndims = widths.shape
     if total_rows != ndata * BLOCK_SZ:
@@ -148,20 +154,23 @@ def decode_device(dense: torch.Tensor, widths: torch.Tensor,
         src[out_rows // BLOCK_SZ] = torch.arange(ndata, device=dense.device)
         dense = torch.cat([dense, dense.new_zeros((1,) + dense.shape[1:])])[src]
         widths = torch.cat([widths, widths.new_zeros((1, ndims))])[src]
+    if codec == "xff":
+        errs = unpack_rows(dense, widths, narrow=elem_sz == 1)
+        return fire_decode(errs.reshape(-1, ndims), 8 * elem_sz)
     return decode_delta_contiguous(dense, widths, 8 * elem_sz)
 
 
 def decompress(buf: bytes, codec: str = "delta", elem_sz: int = 1,
                device: str | torch.device | None = None) -> np.ndarray:
-    """Decompress a row-major delta stream; returns the flat elements.
+    """Decompress a row-major delta or FIRE stream; returns the flat
+    elements. The stream does not record its codec: ``codec`` must be the
+    one it was compressed with.
 
     ``device``: where the device pass runs, CUDA by default (raises when
     CUDA is absent); ``"cpu"`` runs the kernels' plain versions (tests).
     """
-    if codec != "delta":
-        raise NotImplementedError(
-            f"codec={codec!r}: FIRE (xff) arrives with a later slice of the "
-            f"port")
+    if codec not in ("delta", "xff"):
+        raise ValueError(f"codec must be 'delta' or 'xff', got {codec!r}")
     if elem_sz not in (1, 2):
         raise ValueError(f"elem_sz must be 1 or 2, got {elem_sz}")
     dev = resolve_device(device)
@@ -196,7 +205,7 @@ def decompress(buf: bytes, codec: str = "delta", elem_sz: int = 1,
         return tail.copy()
     dense = gather_payloads(buf, idx)
     vals = decode_device(*upload_payload(dense, idx, dev), idx.total_rows,
-                         elem_sz)
+                         elem_sz, codec)
     return np.concatenate([download_values(vals), tail])
 
 

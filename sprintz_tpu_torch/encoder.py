@@ -1,11 +1,13 @@
-"""Row-major delta encoder: device pass + host plan/assembly.
+"""Row-major encoder (delta and FIRE): device pass + host plan/assembly.
 
-Counterpart of ``sprintz_tpu/encoder.py`` for the row-major delta layout.
+Counterpart of ``sprintz_tpu/encoder.py`` for the row-major layout.
 
-1. Device: delta forecast of every block, zigzag, per-block per-dim widths
-   and header fields, and the bit-pack of every block into a dense
-   (nb, 8, D * elem_sz) buffer by K3 ``pack_rows``. Forecaster state does
-   not depend on the RLE/group structure, so this is one parallel pass.
+1. Device: the forecast of every block (delta: a shifted subtract; FIRE:
+   ``fire_encode``'s serial scan over rows, parallel over dims), zigzag,
+   per-block per-dim widths and header fields, and the bit-pack of every
+   block into a dense (nb, 8, D * elem_sz) buffer by K3 ``pack_rows``.
+   Forecaster state does not depend on the RLE/group structure, so this is
+   one pass over the blocks.
 2. Host: the group/RLE emission plan from the per-block zero flags
    (``planner.build_plan``), O(blocks) bookkeeping.
 3. Host: the final byte stream (headers, payload slices of the dense
@@ -28,7 +30,7 @@ from .constants import (
     nbits_sz_bits,
 )
 from .device import resolve_device
-from .models.forecasters import delta_encode
+from .models.forecasters import delta_encode, fire_encode
 from .ops.bitmath import block_widths_rowmajor, header_value
 from .ops.pack_kernels import pack_rows
 from .planner import KIND_DATA, KIND_RUN, EmissionPlan, build_plan, pack_headers
@@ -45,12 +47,12 @@ def upload_rows(rows: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(rows).to(device).to(torch.int32)
 
 
-def encode_device(rows: torch.Tensor, elem_sz: int):
+def encode_device(rows: torch.Tensor, elem_sz: int, codec: str = "delta"):
     """Device pass: rows (N, D) int32, N divisible by 8 ->
     (widths (nb, D) int32, hdr (nb, D) int32, dense (nb, 8, D*elem_sz) u8,
     width_sums (nb,) int32), all on the rows' device."""
     eb = 8 * elem_sz
-    errs = delta_encode(rows, eb)
+    errs = (fire_encode if codec == "xff" else delta_encode)(rows, eb)
     nb = rows.shape[0] // BLOCK_SZ
     blocks = errs.reshape(nb, BLOCK_SZ, rows.shape[1])
     widths = block_widths_rowmajor(blocks.amax(dim=1), elem_sz)
@@ -68,10 +70,8 @@ def compress(flat: np.ndarray, ndims: int, codec: str = "delta",
     ``device``: where the device pass runs, CUDA by default (raises when
     CUDA is absent); ``"cpu"`` runs the kernels' plain versions (tests).
     """
-    if codec != "delta":
-        raise NotImplementedError(
-            f"codec={codec!r}: FIRE (xff) arrives with a later slice of the "
-            f"port")
+    if codec not in ("delta", "xff"):
+        raise ValueError(f"codec must be 'delta' or 'xff', got {codec!r}")
     flat = np.ascontiguousarray(flat).reshape(-1)
     elem_sz = flat.dtype.itemsize if elem_sz is None else elem_sz
     if elem_sz not in (1, 2) or flat.dtype != (
@@ -91,13 +91,13 @@ def compress(flat: np.ndarray, ndims: int, codec: str = "delta",
 
     nb = n // (BLOCK_SZ * ndims)
     rows = upload_rows(flat[: nb * BLOCK_SZ * ndims].reshape(-1, ndims), dev)
-    widths, hdr, dense, width_sums = encode_device(rows, elem_sz)
+    widths, hdr, dense, width_sums = encode_device(rows, elem_sz, codec)
     widths_np = widths.to(torch.uint8).cpu().numpy()
     hdr_np = hdr.to(torch.uint8).cpu().numpy()
     dense_np = dense.cpu().numpy()
     zero_flags = width_sums.cpu().numpy() == 0
 
-    plan = build_plan(zero_flags, n, ndims)
+    plan = build_plan(zero_flags, n, ndims, codec == "xff")
     return assemble_stream(plan, widths_np, hdr_np, dense_np, ndims, elem_sz,
                            flat[n - plan.remaining_elems:])
 

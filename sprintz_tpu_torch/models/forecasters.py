@@ -1,16 +1,40 @@
-"""Delta forecaster on int32 tensors.
+"""Delta and FIRE forecasters on int32 tensors.
 
-Counterpart of the delta half of ``sprintz_tpu/models/forecasters.py``.
-Delta is an exact prefix sum: encode is a shifted subtract, decode one
-cumulative sum over rows. The decode path itself runs through the kernels
-of ``ops/decode_kernels.py``; ``delta_decode`` here is the plain reference.
+Counterpart of ``sprintz_tpu/models/forecasters.py``.
+
+- Delta is an exact prefix sum: encode is a shifted subtract, decode one
+  cumulative sum over rows. The decode path itself runs through the
+  kernels of ``ops/decode_kernels.py``; ``delta_decode`` here is the plain
+  reference.
+- FIRE (``codec="xff"``) is the reference's online linear forecaster
+  (``_fire_block_step``, ``forecasters.py:247-300``, with
+  ``truncate_coeffs=True``: the row-major layout's int16 coefficient). Its
+  state is serial over blocks and independent across dims.
+  ``fire_encode``/``fire_decode`` launch ``csrc/fire.cu``'s
+  ``fire_scan_kernel`` (one thread per dim, serial over rows) for a CUDA
+  tensor and run ``fire_*_plain`` (a loop over blocks, vectorised over
+  dims) for a CPU tensor; each counts its launches in ``launches``.
+
+FIRE's state is the (3, D) int32 carry (prev value, prev delta, learning
+counter); ``fire_decode`` takes it as ``init_state`` to enter a stream
+mid-way, as the JAX package's ``fire_decode(init_state=...)`` does.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..constants import (
+    BLOCK_SZ,
+    FIRE_COUNTER_BITS,
+    FIRE_LEARNING_SHIFT,
+    FIRE_LOG2_LEARNING_DOWNSAMPLE,
+    LOG2_BLOCK_SZ,
+)
+from ..ops import _build
 from ..ops.bitmath import sign_extend, zigzag_decode, zigzag_encode
+from ..ops.decode_kernels import check_args, narrow, narrow_dtype
 
 
 def delta_encode(rows: torch.Tensor, elem_bits: int) -> torch.Tensor:
@@ -28,3 +52,146 @@ def delta_decode(errs_zz: torch.Tensor, elem_bits: int) -> torch.Tensor:
     deltas = zigzag_decode(errs_zz, elem_bits)
     return (torch.cumsum(deltas, dim=0, dtype=torch.int32)
             & ((1 << elem_bits) - 1))
+
+
+# ------------------------------------------------------------------ FIRE
+
+
+def _sext(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """The low ``bits`` of int64 values, read as signed: JAX's wrapping
+    int32 arithmetic followed by its ``sign_extend``, without overflow."""
+    half = 1 << (bits - 1)
+    return ((x + half) & ((1 << bits) - 1)) - half
+
+
+def _state_tensor(init_state, device: torch.device,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """A (3, D) carry given as numpy or torch -> a contiguous tensor."""
+    if not torch.is_tensor(init_state):
+        init_state = torch.from_numpy(np.array(init_state, dtype=np.int32))
+    return init_state.to(device, dtype).contiguous()
+
+
+def _fire_scan_plain(blocks: torch.Tensor, elem_bits: int, decode: bool,
+                     init_state=None) -> torch.Tensor:
+    """FIRE over (nb, 8, D) int64 blocks of values (encode) or zigzag
+    errors (decode) -> (nb, 8, D) int64 errors or values: a line-by-line
+    port of ``_fire_block_step`` in int64, one block at a time."""
+    ndims = blocks.shape[2]
+    if init_state is None:
+        state = torch.zeros((3, ndims), dtype=torch.int64, device=blocks.device)
+    else:
+        state = _state_tensor(init_state, blocks.device, torch.int64)
+    prev_val, prev_delta, counter = state[0], state[1], state[2]
+    shft = elem_bits - 4
+    mask = (1 << elem_bits) - 1
+    counter_bits = FIRE_COUNTER_BITS[elem_bits // 8]
+    downsample = 1 << FIRE_LOG2_LEARNING_DOWNSAMPLE
+    out = torch.empty_like(blocks)
+    for b in range(blocks.shape[0]):
+        coef = _sext((counter >> (FIRE_LEARNING_SHIFT + shft)) << shft, 16)
+        grad_sum = torch.zeros_like(prev_delta)
+        for i in range(BLOCK_SZ):
+            prediction = _sext((prev_delta * coef) >> elem_bits, elem_bits)
+            x = blocks[b, i]
+            if decode:
+                err = _sext((x >> 1) ^ -(x & 1), elem_bits)
+                delta = _sext(err + prediction, elem_bits)
+                val = (prev_val + delta) & mask
+                out[b, i] = val
+            else:
+                val = x
+                delta = _sext(val - prev_val, elem_bits)
+                err = _sext(delta - prediction, elem_bits)
+                out[b, i] = ((err << 1) ^ (err >> 63)) & mask
+            if i % downsample == downsample - 1:
+                # icopysign(err, prev_delta) (util.h:63-74)
+                grad = torch.where(err != 0,
+                                   torch.where(err < 0, -prev_delta,
+                                               prev_delta), 0)
+                grad_sum = _sext(grad_sum + grad, elem_bits)
+            prev_val, prev_delta = val, delta
+        counter = _sext(
+            counter + (grad_sum >> (LOG2_BLOCK_SZ
+                                    - FIRE_LOG2_LEARNING_DOWNSAMPLE)),
+            counter_bits)
+    return out
+
+
+def _check_fire(name: str, x: torch.Tensor, elem_bits: int,
+                dtype: torch.dtype) -> None:
+    narrow_dtype(elem_bits)  # raises unless 8 or 16
+    check_args(name, x.device, x=(x, dtype))
+    if x.dim() != 2 or x.shape[0] % BLOCK_SZ:
+        raise ValueError(f"{name}: input {tuple(x.shape)} is not (N, D) with "
+                         f"N a multiple of {BLOCK_SZ}")
+
+
+def fire_encode_plain(rows: torch.Tensor, elem_bits: int) -> torch.Tensor:
+    """Plain version of ``fire_encode``."""
+    n, ndims = rows.shape
+    errs = _fire_scan_plain(rows.to(torch.int64).reshape(-1, BLOCK_SZ, ndims),
+                            elem_bits, decode=False)
+    return errs.reshape(n, ndims).to(torch.int32)
+
+
+def fire_encode(rows: torch.Tensor, elem_bits: int) -> torch.Tensor:
+    """rows (N, D) int32 unsigned values, N a multiple of 8 -> zigzag
+    errors (N, D) int32, from the zero state."""
+    _check_fire("fire_encode", rows, elem_bits, torch.int32)
+    if rows.device.type == "cpu":
+        return fire_encode_plain(rows, elem_bits)
+    n, ndims = rows.shape
+    errs = torch.empty_like(rows)
+    if n == 0 or ndims == 0:
+        return errs
+    _build.launch("sprintz_fire_scan", rows, rows.data_ptr(), None,
+                  errs.data_ptr(), n // BLOCK_SZ, ndims, elem_bits, 0)
+    fire_encode.launches += 1
+    return errs
+
+
+fire_encode.launches = 0
+
+
+def fire_decode_plain(errs_zz: torch.Tensor, elem_bits: int,
+                      init_state=None) -> torch.Tensor:
+    """Plain version of ``fire_decode``."""
+    n, ndims = errs_zz.shape
+    vals = _fire_scan_plain(
+        errs_zz.to(torch.int64).reshape(-1, BLOCK_SZ, ndims), elem_bits,
+        decode=True, init_state=init_state)
+    return narrow(vals.reshape(n, ndims).to(torch.int32), elem_bits)
+
+
+def fire_decode(errs_zz: torch.Tensor, elem_bits: int,
+                init_state=None) -> torch.Tensor:
+    """Zigzag errors (N, D), N a multiple of 8 -> values (N, D) u8/u16.
+
+    The errors are uint8 at elem_bits 8 (``unpack_rows(narrow=True)``) and
+    int32 at 16. ``init_state``: optional (3, D) int32 carry entering the
+    first block (prev value, prev delta, counter), numpy or torch; the
+    zero state when None.
+    """
+    _check_fire("fire_decode", errs_zz, elem_bits,
+                torch.uint8 if elem_bits == 8 else torch.int32)
+    n, ndims = errs_zz.shape
+    if init_state is not None and tuple(np.shape(init_state)) != (3, ndims):
+        raise ValueError(f"fire_decode: init_state {tuple(np.shape(init_state))}"
+                         f" is not (3, {ndims})")
+    if errs_zz.device.type == "cpu":
+        return fire_decode_plain(errs_zz, elem_bits, init_state)
+    vals = torch.empty((n, ndims), dtype=narrow_dtype(elem_bits),
+                       device=errs_zz.device)
+    if n == 0 or ndims == 0:
+        return vals
+    state = (None if init_state is None
+             else _state_tensor(init_state, errs_zz.device, torch.int32))
+    _build.launch("sprintz_fire_scan", errs_zz, errs_zz.data_ptr(),
+                  None if state is None else state.data_ptr(),
+                  vals.data_ptr(), n // BLOCK_SZ, ndims, elem_bits, 1)
+    fire_decode.launches += 1
+    return vals
+
+
+fire_decode.launches = 0

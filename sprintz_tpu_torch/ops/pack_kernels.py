@@ -5,11 +5,15 @@ Counterpart of ``sprintz_tpu/ops/pallas_pack.py``:
 - K3 ``pack_rows`` (``csrc/pack.cu``): zigzag errors + widths -> the dense
   per-block payload rows.
 - K4 ``unpack_rows`` (``csrc/decode.cu``, the raw mode of K1's kernel):
-  dense payload rows + widths -> the raw zigzag fields.
+  dense payload rows + widths -> the raw zigzag fields, int32. Its
+  ``narrow=True`` mode is K5, the counterpart of ``unpack_rows_pallas_mxu``
+  with its bf16 output (exact for u8 fields): for u8 streams, it writes the
+  fields as uint8, a quarter of K4's output bytes.
 
 As in ``decode_kernels``, each wrapper launches its kernel for a CUDA
 tensor and runs its plain PyTorch version for a CPU tensor, and counts its
-launches in its ``launches`` attribute.
+launches in its ``launches`` attribute (``unpack_rows`` counts its narrow
+mode, K5, apart, in ``narrow_launches``).
 """
 
 from __future__ import annotations
@@ -74,30 +78,43 @@ pack_rows.launches = 0
 # ------------------------------------------------------------------ K4
 
 
-def unpack_rows_plain(dense: torch.Tensor, widths: torch.Tensor) -> torch.Tensor:
+def unpack_rows_plain(dense: torch.Tensor, widths: torch.Tensor,
+                      narrow: bool = False) -> torch.Tensor:
     """Plain version of ``unpack_rows``."""
-    return extract_fields(dense, widths)
+    fields = extract_fields(dense, widths)
+    return fields.to(torch.uint8) if narrow else fields
 
 
-def unpack_rows(dense: torch.Tensor, widths: torch.Tensor) -> torch.Tensor:
+def unpack_rows(dense: torch.Tensor, widths: torch.Tensor,
+                narrow: bool = False) -> torch.Tensor:
     """dense (nb, 8, MAXB) uint8, widths (nb, D) int32 -> zigzag fields
-    (nb, 8, D) int32. Bytes at or past MAXB read as zero; the 3-byte window
-    serves u8 and u16 streams alike."""
+    (nb, 8, D) int32, or uint8 with ``narrow=True``. Bytes at or past MAXB
+    read as zero; the 3-byte window serves u8 and u16 streams alike.
+
+    ``narrow=True`` is for u8 streams only: their 3-bit headers decode to
+    widths of at most 8 (``bitmath.header_to_width``), so every field fits
+    a byte. A wider field would be cut to its low byte; the wrapper does
+    not read the widths back to check."""
     check_payload("unpack_rows", dense, widths)
     if dense.device.type == "cpu":
-        return unpack_rows_plain(dense, widths)
+        return unpack_rows_plain(dense, widths, narrow)
     nb, _, maxb = dense.shape
     ndims = widths.shape[1]
-    out = torch.empty((nb, BLOCK_SZ, ndims), dtype=torch.int32,
+    out = torch.empty((nb, BLOCK_SZ, ndims),
+                      dtype=torch.uint8 if narrow else torch.int32,
                       device=dense.device)
     if nb == 0 or ndims == 0:
         return out
     off = torch.cumsum(widths, dim=1, dtype=torch.int32) - widths
     _build.launch("sprintz_unpack_zz", dense, dense.data_ptr(),
                   widths.data_ptr(), off.data_ptr(), out.data_ptr(), None, nb,
-                  ndims, maxb, TILE_BLOCKS, 16, 1)
-    unpack_rows.launches += 1
+                  ndims, maxb, TILE_BLOCKS, 8 if narrow else 16, 1)
+    if narrow:
+        unpack_rows.narrow_launches += 1
+    else:
+        unpack_rows.launches += 1
     return out
 
 
-unpack_rows.launches = 0
+unpack_rows.launches = 0  # K4
+unpack_rows.narrow_launches = 0  # K5

@@ -125,12 +125,15 @@ def test_headers_pack_roundtrip(rng):
 
 def test_outside_the_slice_raises():
     x = np.zeros((64, 9), np.uint8)
-    with pytest.raises(NotImplementedError, match="xff"):
-        compress(x, codec="xff", device="cpu")
-    with pytest.raises(NotImplementedError, match="xff"):
-        decompress(b"\0" * 8, codec="xff", device="cpu")
-    with pytest.raises(NotImplementedError, match="huffman"):
-        SprintzCodec(entropy="huffman", device="cpu")
+    codec = SprintzCodec("xff", entropy="huffman", device="cpu")
+    with pytest.raises(NotImplementedError, match="sidecar"):
+        codec.compress_seekable(x)
+    with pytest.raises(NotImplementedError, match="batch"):
+        codec.compress_batch([x, x])
+    with pytest.raises(NotImplementedError, match="batch"):
+        codec.decompress_batch([compress(x, device="cpu")])
+    with pytest.raises(NotImplementedError, match="lowdim"):
+        compress(np.zeros((64, 3), np.uint8), codec="xff", device="cpu")
     with pytest.raises(NotImplementedError, match="lowdim"):
         compress(np.zeros((64, 4), np.uint8), device="cpu")
     with pytest.raises(NotImplementedError, match="lowdim"):
