@@ -13,11 +13,14 @@ Phases, each of which raises (exit code != 0) when it fails:
 2. kernels: every kernel against its plain PyTorch version on the card,
    bit-exact: K1 unpack_zz, K4 unpack_rows, K5 (K4's narrow mode), K2
    prefix_finish and K3 pack_rows at the main path's shapes and at a
-   ragged shape; FIRE encode and decode (fire_scan_kernel, decode also
-   from a carried state) over the whole main-path streams, u8 and u16 at
-   D 64, and over 512 blocks at D 129 (the plain FIRE is a Python loop
-   over blocks); K6 huff_decode and huff_encode on the 8 MiB headline's
-   sprintz stream at chunk_symbols 128 and on a small stream at 4096;
+   ragged shape; FIRE encode and decode (csrc/fire.cu, decode also from
+   a carried state) over the whole main-path streams, u8 and u16 at D 64
+   and D 129, then at the shapes that stress its ring of row tiles (one
+   block, one block less and more than a tile, fewer tiles than the ring,
+   more than the ring; D 1, 31, 33, 129) and from carried states whose
+   counter wraps within the stream; K6 huff_decode and huff_encode on the
+   8 MiB headline's sprintz stream at chunk_symbols 128 and on a small
+   stream at 4096;
 3. main path: compress then decompress with device="cuda", every kernel's
    launch counter set to 0 before that run and read after it (every kernel
    must have launched): delta on the 8 MiB u8 and u16 random walks, the
@@ -33,7 +36,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    alone, its plain version and, where one exists, one PyTorch call of the
    same function, by CUDA events (median of 25 after warm-up, L2 flushed
    before each run; the plain FIRE is its one full-size run of phase 2,
-   at the same size as the kernel's time); compress and
+   at the same size as the kernel's time). The FIRE rows also carry a
+   chain bound: blocks x the dependent integer operations of a block,
+   counted in csrc/fire.cu's header, x the latency of one dependent
+   multiply-add, which a one-warp probe kernel measures on the card
+   beside the SM clock. Then compress and
    decompress end to end, split into host, H2D, device pass, kernels (the
    part of the device pass inside the kernel launches) and D2H, for delta,
    xff and +Huf.
@@ -68,8 +75,14 @@ CORE_OPS_PER_S = 67e12
 # integer operations per output element (per symbol for the Huffman
 # kernels), counted from the kernels' source
 OPS_PER_ELEM = {"unpack_zz": 12, "unpack_rows": 9, "unpack_rows_narrow": 9,
-                "prefix_finish": 3, "pack_rows": 6, "fire_encode": 22,
-                "fire_decode": 22, "huff_decode": 30, "huff_encode": 12}
+                "prefix_finish": 3, "pack_rows": 6, "fire_encode": 18,
+                "fire_decode": 15, "huff_decode": 30, "huff_encode": 12}
+# FIRE's serial chain: dependent integer operations a block, by elem_bits
+# (the count is in csrc/fire.cu's header), and its tiling
+CHAIN_OPS = {"fire_encode": {8: 15, 16: 14}, "fire_decode": {8: 16, 16: 20}}
+FIRE_TILE_BLOCKS = 16  # csrc/fire.cu TILE_BLOCKS
+FIRE_STAGES = 8  # csrc/fire.cu STAGES: tiles in the ring
+CHAIN_PROBE_ITERS = 1 << 20
 KERNELS = {  # name -> (source, the TPU pass it replaces: file:line)
     "unpack_zz": ("sprintz_tpu_torch/csrc/decode.cu",
                   "sprintz_tpu/ops/pallas_decode.py:99"),
@@ -92,7 +105,6 @@ KERNELS = {  # name -> (source, the TPU pass it replaces: file:line)
     "fire_decode": ("sprintz_tpu_torch/csrc/fire.cu",
                     "sprintz_tpu/models/forecasters.py:303"),
 }
-FIRE_CHECK_BLOCKS = 512  # the plain FIRE is a Python loop over blocks
 HUFF_CS = 128  # bench.py's chunk size for the Huffman kernel rows
 
 
@@ -264,13 +276,11 @@ def main() -> int:
                   pk.unpack_rows_plain(a["dense"], a["dwidths"], True), what)
         check("prefix_finish", dk.prefix_finish(a["bz"], a["toff"], eb),
               dk.prefix_finish_plain(a["bz"], a["toff"], eb), what)
-        # FIRE over the whole stream at the main shapes, so that the
-        # counter's and the coefficient's wraps far into a stream are held
-        # too; its plain version loops over blocks in Python, so it runs
-        # once, and that run is its plain_ms. The ragged shapes take their
-        # first FIRE_CHECK_BLOCKS blocks.
-        nfire = a["rows"].shape[0] if "main" in what else FIRE_CHECK_BLOCKS * 8
-        r, fe = a["rows"][:nfire], a["ferrs"][:nfire]
+        # FIRE over the whole stream, so that the counter's and the
+        # coefficient's wraps far into a stream are held too; its plain
+        # version loops over blocks in Python, so it runs once, and that
+        # run is its plain_ms.
+        r, fe = a["rows"], a["ferrs"]
         want_e, ms_e = once_ms(lambda: fc.fire_encode_plain(r, eb))
         check("fire_encode", fc.fire_encode(r, eb), want_e, what)
         want_d, ms_d = once_ms(lambda: fc.fire_decode_plain(fe, eb))
@@ -290,8 +300,73 @@ def main() -> int:
             raise AssertionError(f"decode_delta_contiguous {what}: values "
                                  f"differ from the input")
         log(f"[kernels] {what}: MAXB {a['dense'].shape[2]}, every row-major "
-            f"kernel equals its plain version (FIRE at {nfire // 8} blocks; "
-            f"its plain encode {ms_e:.1f} ms, decode {ms_d:.1f} ms)")
+            f"kernel equals its plain version (FIRE at {r.shape[0] // 8} "
+            f"blocks; its plain encode {ms_e:.1f} ms, decode {ms_d:.1f} ms)")
+
+    def check_fire(what, vals, eb, state=None, errs=None):
+        """FIRE encode (from the zero state) and decode (from the zero state
+        and from `state`) against their plain versions on the (N, D) int32
+        values `vals`; `errs`: the errors to decode, else the encoder's."""
+        t = torch.from_numpy(vals).to(dev)
+        got = fc.fire_encode(t, eb)
+        check("fire_encode", got, fc.fire_encode_plain(t, eb), what)
+        zz = got if errs is None else errs
+        zz = zz.to(torch.uint8) if eb == 8 else zz
+        for st in (None, state):
+            check("fire_decode", fc.fire_decode(zz, eb, st),
+                  fc.fire_decode_plain(zz, eb, st), what)
+        return fc.fire_decode(zz, eb, state)
+
+    # the shapes that stress the ring: a stream of one block, one block
+    # less and more than a tile, fewer tiles than the ring, more than the
+    # ring; one dim, ragged groups of 32, u8 rows that no copy could align
+    ring_blocks = FIRE_TILE_BLOCKS * FIRE_STAGES
+    nchecked = 0
+    for eb in (8, 16):
+        half = 1 << (eb - 1)
+        for nb in (1, FIRE_TILE_BLOCKS - 1, FIRE_TILE_BLOCKS + 1,
+                   ring_blocks // 3, ring_blocks + 1):
+            for nd in (1, 31, 33, 129):
+                vals = walk_stream(rng, nb * 8, nd, eb // 8).astype(np.int32)
+                if nb == ring_blocks // 3:  # every delta, no forecast holds
+                    vals = rng.integers(0, 2 * half, vals.shape
+                                        ).astype(np.int32)
+                # a carried value, delta and counter; at one length a
+                # delta wider than its element, which the reference takes
+                wide = 1 << 20 if nb == FIRE_TILE_BLOCKS + 1 else half
+                state = torch.from_numpy(np.stack([
+                    rng.integers(0, 2 * half, nd),
+                    rng.integers(-wide, wide, nd),
+                    rng.integers(-(1 << 15), 1 << 15, nd)]).astype(np.int32))
+                check_fire(f"FIRE u{eb} nb {nb} D {nd}", vals, eb, state)
+                nchecked += 1
+    log(f"[kernels] FIRE equals its plain version at {nchecked} ring shapes "
+        f"(tiles of {FIRE_TILE_BLOCKS} blocks, a ring of {FIRE_STAGES})")
+
+    # carried states whose counter wraps inside the stream: steady streams
+    # drive the counter up from 100 blocks below its top (16 bits at u8, 32
+    # at u16); from the zero state the u16 counter passes 2^16, where the
+    # coefficient wraps. The errors are the line-by-line plain version's
+    # from that state, so the decode must return the stream.
+    for eb in (8, 16):
+        nb, nd = 300, 33
+        steps = (np.tile([1, 127], nb * 4) if eb == 8
+                 else np.full(nb * 8, 8000))
+        vals = (np.cumsum(steps) % (1 << eb)).astype(np.int32)[:, None
+                                                               ].repeat(nd, 1)
+        state = np.zeros((3, nd), np.int32)
+        top = (1 << 15) - 1 if eb == 8 else (1 << 31) - 1
+        state[2] = top - 100 * (1 if eb == 8 else 8000)
+        state = torch.from_numpy(state)
+        errs = fc._fire_scan_plain(
+            torch.from_numpy(vals).to(dev).long().reshape(nb, 8, nd), eb,
+            False, state).reshape(nb * 8, nd).to(torch.int32)
+        out = check_fire(f"FIRE u{eb} counter wrap", vals, eb, state, errs)
+        if not np.array_equal(dk.widen(out).cpu().numpy(), vals):
+            raise AssertionError(f"FIRE u{eb} counter wrap: decode from the "
+                                 f"carried state differs from the stream")
+    log("[kernels] FIRE equals its plain version across the counter's and "
+        "the coefficient's wraps")
 
     def huff_inputs(data: np.ndarray, cs: int):
         """Device inputs of both Huffman kernels for the bytes ``data``: the
@@ -488,23 +563,51 @@ def main() -> int:
             times.append(clock.seconds() * 1e3)
         return statistics.median(times)
 
+    def chain_probe(paired: int) -> tuple[float, float]:
+        """(cycles, nanoseconds) of one step of a one-warp loop of
+        dependent integer multiply-adds, each followed by a shift if
+        `paired`, by the SM's clock and the card's global timer."""
+        out = torch.zeros(3, dtype=torch.int64, device=dev)
+        for _ in range(2):  # the second run finds the clock up
+            _build.launch("sprintz_fire_chain_probe", out, out.data_ptr(),
+                          CHAIN_PROBE_ITERS, paired)
+            torch.cuda.synchronize()
+        cycles, ns = (int(v) for v in out[:2])
+        return cycles / CHAIN_PROBE_ITERS, ns / CHAIN_PROBE_ITERS
+
+    imad_cycles, imad_ns = chain_probe(0)
+    pair_cycles, pair_ns = chain_probe(1)
+    sm_hz = imad_cycles / imad_ns * 1e9
+    smi_clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60
+    ).stdout.strip().splitlines()[0]
+    log(f"[timing] chain probe: one dependent multiply-add {imad_cycles:.4f} "
+        f"cycles, {imad_ns:.4f} ns (SM clock {sm_hz / 1e9:.4f} GHz by the "
+        f"card's timers, {smi_clock} by nvidia-smi); with a shift after it "
+        f"{pair_cycles:.4f} cycles, {pair_ns:.4f} ns")
+
     def nbytes(*ts) -> int:
         return sum(t.numel() * t.element_size() for t in ts
                    if isinstance(t, torch.Tensor))
 
-    def row(name, kern, plain, lib, nb_, nops, **extra):
+    def row(name, kern, plain, lib, nb_, nops, chain_steps=0, **extra):
         """plain: the plain version to time, or its time in ms already
-        taken (FIRE's, from its one full-size run in the kernel checks)."""
-        t_bytes = nb_ / mem_rate
-        t_ops = nops / CORE_OPS_PER_S
+        taken (FIRE's, from its one full-size run in the kernel checks).
+        chain_steps: the dependent operations of its serial chain, each
+        bounded by the probe's multiply-add."""
+        bounds = {"bytes": nb_ / mem_rate, "operations": nops / CORE_OPS_PER_S,
+                  "chain": chain_steps * imad_cycles / sm_hz}
+        by = max(bounds, key=bounds.get)  # bytes on a tie
         return {
             "name": name, "route": "cuda", "source": KERNELS[name][0],
             "replaces": KERNELS[name][1], "launches": launches[name],
             "max_abs_err": max_err[name], "ms": time_ms(kern),
             "kernel_ms": launch_ms(kern),
             "plain_ms": time_ms(plain) if callable(plain) else plain,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bounds[by] * 1e3, "bound_by": by,
+            "chain_bound_ms": bounds["chain"] * 1e3 if chain_steps else None,
+            "bytes_bound_ms": bounds["bytes"] * 1e3,
             "library_ms": time_ms(lib) if lib else None, "bytes": nb_,
             **extra}
 
@@ -555,14 +658,17 @@ def main() -> int:
                 None, nbytes(a["dense"], a["dwidths"]) + nvals,
                 OPS_PER_ELEM["unpack_rows_narrow"] * nvals))
         # FIRE: the plain time is its one full-size run in the checks
+        nblocks = a["rows"].shape[0] // 8
         rows += [
             row("fire_encode", lambda: fc.fire_encode(a["rows"], eb),
                 a["fire_plain_ms"]["fire_encode"], None,
-                2 * nbytes(a["rows"]), OPS_PER_ELEM["fire_encode"] * nvals),
+                2 * nbytes(a["rows"]), OPS_PER_ELEM["fire_encode"] * nvals,
+                chain_steps=nblocks * CHAIN_OPS["fire_encode"][eb]),
             row("fire_decode", lambda: fc.fire_decode(a["ferrs"], eb),
                 a["fire_plain_ms"]["fire_decode"], None,
                 nbytes(a["ferrs"], out_fd),
-                OPS_PER_ELEM["fire_decode"] * nvals),
+                OPS_PER_ELEM["fire_decode"] * nvals,
+                chain_steps=nblocks * CHAIN_OPS["fire_decode"][eb]),
         ]
         for r_ in rows:
             if "packing_bytes" in r_:
@@ -595,7 +701,10 @@ def main() -> int:
                 f"its launches {r['kernel_ms']:.4f} ms), plain "
                 f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}, "
-                f"{r['bytes']} B), library "
+                f"{r['bytes']} B"
+                + (f", bytes bound {r['bytes_bound_ms']:.4f} ms, "
+                   f"{r['ms'] / r['chain_bound_ms']:.2f}x its chain bound"
+                   if r["chain_bound_ms"] else "") + "), library "
                 f"{lib if lib is None else round(lib, 4)}"
                 + (f", packing bound {r['packing_bound_ms']:.4f} ms "
                    f"({r['packing_bytes']} B)" if "packing_bytes" in r
@@ -735,7 +844,8 @@ def main() -> int:
     log("[e2e] " + json.dumps({"card": smi, "streams": e2e}))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "chain_bound_ms")
     line = table["u8 main (nb 16384, D 64)"] + table[huff_what]
     assert sorted(r["name"] for r in line) == sorted(KERNELS)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in line]}),

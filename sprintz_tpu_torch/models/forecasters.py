@@ -11,9 +11,20 @@ Counterpart of ``sprintz_tpu/models/forecasters.py``.
   ``truncate_coeffs=True``: the row-major layout's int16 coefficient). Its
   state is serial over blocks and independent across dims.
   ``fire_encode``/``fire_decode`` launch ``csrc/fire.cu``'s
-  ``fire_scan_kernel`` (one thread per dim, serial over rows) for a CUDA
-  tensor and run ``fire_*_plain`` (a loop over blocks, vectorised over
-  dims) for a CPU tensor; each counts its launches in ``launches``.
+  ``fire_encode_kernel``/``fire_decode_kernel`` for a CUDA tensor: a CTA
+  per 32 dims, warp-specialised around a ring of row tiles in shared
+  memory (loader warps, one chain warp that runs only the recurrence,
+  finisher warps). For a CPU tensor they run ``fire_*_plain``, written
+  block-wise on the identities the kernels rest on (below); each wrapper
+  counts its launches in ``launches``. ``_fire_scan_plain`` is the
+  line-by-line port of ``_fire_block_step`` that the tests hold both to.
+
+The identities, all exact in wrapping arithmetic: encode's deltas depend on
+the input alone; a block's eight rows are independent given its
+coefficient; the gradient sum needs one sign extension
+(``sext(sext(a + b) + c) == sext(a + b + c)``); decode's values are the
+running sum of its deltas, and its delta needs one sign extension
+(``sext(err + sext(p)) == sext(err + p)``).
 
 FIRE's state is the (3, D) int32 carry (prev value, prev delta, learning
 counter); ``fire_decode`` takes it as ``init_state`` to enter a stream
@@ -118,6 +129,78 @@ def _fire_scan_plain(blocks: torch.Tensor, elem_bits: int, decode: bool,
     return out
 
 
+def _fire_counter_step(counter: torch.Tensor, err_odd: torch.Tensor,
+                       prev_odd: torch.Tensor, elem_bits: int) -> torch.Tensor:
+    """The learning counter after a block, from its odd rows' errors and
+    the deltas before them ((4, D) each): icopysign(err, prev_delta)
+    (util.h:63-74) summed, sign-extended once."""
+    grad = (torch.sign(err_odd) * prev_odd).sum(dim=0)
+    shift = LOG2_BLOCK_SZ - FIRE_LOG2_LEARNING_DOWNSAMPLE
+    return _sext(counter + (_sext(grad, elem_bits) >> shift),
+                 FIRE_COUNTER_BITS[elem_bits // 8])
+
+
+def _fire_coef(counter: torch.Tensor, elem_bits: int) -> torch.Tensor:
+    shft = elem_bits - 4
+    return _sext((counter >> (FIRE_LEARNING_SHIFT + shft)) << shft, 16)
+
+
+def _fire_encode_blocks(blocks: torch.Tensor, elem_bits: int) -> torch.Tensor:
+    """(nb, 8, D) int64 values -> (nb, 8, D) int64 zigzag errors, from the
+    zero state. The loop over blocks carries only the counter, through the
+    odd rows' errors; everything else is one pass over the stream."""
+    nb, _, ndims = blocks.shape
+    rows = blocks.reshape(-1, ndims)
+    zero = torch.zeros((1, ndims), dtype=torch.int64, device=blocks.device)
+    deltas = _sext(rows - torch.cat([zero, rows[:-1]]), elem_bits)
+    prev = torch.cat([zero, deltas[:-1]]).reshape(nb, BLOCK_SZ, ndims)
+    deltas = deltas.reshape(nb, BLOCK_SZ, ndims)
+    downsample = 1 << FIRE_LOG2_LEARNING_DOWNSAMPLE
+    odd = slice(downsample - 1, None, downsample)
+    coefs = torch.empty((nb, 1, ndims), dtype=torch.int64,
+                        device=blocks.device)
+    counter = zero[0]
+    for b in range(nb):
+        coef = coefs[b, 0] = _fire_coef(counter, elem_bits)
+        prev_odd = prev[b, odd]
+        err_odd = _sext(deltas[b, odd] - ((prev_odd * coef) >> elem_bits),
+                        elem_bits)
+        counter = _fire_counter_step(counter, err_odd, prev_odd, elem_bits)
+    errs = _sext(deltas - ((prev * coefs) >> elem_bits), elem_bits)
+    return ((errs << 1) ^ (errs >> 63)) & ((1 << elem_bits) - 1)
+
+
+def _fire_decode_blocks(blocks: torch.Tensor, elem_bits: int,
+                        init_state=None) -> torch.Tensor:
+    """(nb, 8, D) int64 zigzag errors -> (nb, 8, D) int64 values. The loop
+    over rows carries only the delta, and the one over blocks the counter;
+    the zigzag decode runs before them and the values are a cumulative sum
+    after them."""
+    nb, _, ndims = blocks.shape
+    if init_state is None:
+        state = torch.zeros((3, ndims), dtype=torch.int64,
+                            device=blocks.device)
+    else:
+        state = _state_tensor(init_state, blocks.device, torch.int64)
+    prev_val, prev_delta, counter = state[0], state[1], state[2]
+    errs = _sext((blocks >> 1) ^ -(blocks & 1), elem_bits)
+    downsample = 1 << FIRE_LOG2_LEARNING_DOWNSAMPLE
+    odd = slice(downsample - 1, None, downsample)
+    deltas = torch.empty_like(errs)
+    prev = torch.empty((BLOCK_SZ, ndims), dtype=torch.int64,
+                       device=blocks.device)
+    for b in range(nb):
+        coef = _fire_coef(counter, elem_bits)
+        for i in range(BLOCK_SZ):
+            prev[i] = prev_delta
+            prev_delta = deltas[b, i] = _sext(
+                errs[b, i] + ((prev_delta * coef) >> elem_bits), elem_bits)
+        counter = _fire_counter_step(counter, errs[b, odd], prev[odd],
+                                     elem_bits)
+    vals = prev_val + torch.cumsum(deltas.reshape(-1, ndims), dim=0)
+    return (vals & ((1 << elem_bits) - 1)).reshape(blocks.shape)
+
+
 def _check_fire(name: str, x: torch.Tensor, elem_bits: int,
                 dtype: torch.dtype) -> None:
     narrow_dtype(elem_bits)  # raises unless 8 or 16
@@ -130,8 +213,10 @@ def _check_fire(name: str, x: torch.Tensor, elem_bits: int,
 def fire_encode_plain(rows: torch.Tensor, elem_bits: int) -> torch.Tensor:
     """Plain version of ``fire_encode``."""
     n, ndims = rows.shape
-    errs = _fire_scan_plain(rows.to(torch.int64).reshape(-1, BLOCK_SZ, ndims),
-                            elem_bits, decode=False)
+    if rows.numel() == 0:
+        return rows.to(torch.int32)
+    errs = _fire_encode_blocks(
+        rows.to(torch.int64).reshape(-1, BLOCK_SZ, ndims), elem_bits)
     return errs.reshape(n, ndims).to(torch.int32)
 
 
@@ -158,9 +243,11 @@ def fire_decode_plain(errs_zz: torch.Tensor, elem_bits: int,
                       init_state=None) -> torch.Tensor:
     """Plain version of ``fire_decode``."""
     n, ndims = errs_zz.shape
-    vals = _fire_scan_plain(
+    if errs_zz.numel() == 0:
+        return narrow(errs_zz.to(torch.int32), elem_bits)
+    vals = _fire_decode_blocks(
         errs_zz.to(torch.int64).reshape(-1, BLOCK_SZ, ndims), elem_bits,
-        decode=True, init_state=init_state)
+        init_state)
     return narrow(vals.reshape(n, ndims).to(torch.int32), elem_bits)
 
 

@@ -41,6 +41,7 @@ SIGNATURES = {
     "sprintz_prefix_finish": ("decode", (_P, _P, _P, _L, _I, _I, _I, _P)),
     "sprintz_pack_rows": ("pack", (_P, _P, _P, _L, _I, _I, _P)),
     "sprintz_fire_scan": ("fire", (_P, _P, _P, _L, _I, _I, _I, _P)),
+    "sprintz_fire_chain_probe": ("fire", (_P, _L, _I, _P)),
     "sprintz_huff_decode": ("huffman", (_P, _P, _P, _P, _P, _P, _P, _L, _I,
                                         _L, _P)),
     "sprintz_huff_encode_sizes": ("huffman", (_P, _P, _P, _L, _I, _P)),

@@ -1,7 +1,11 @@
 """FIRE (xff) in the PyTorch port against the JAX package: the forecaster's
 plain versions (what the CPU runs and what ``csrc/fire.cu`` is held to on
-the card), its state carried across, K4's narrow mode (K5) and the
-planner's FIRE run comparator. Every comparison is bit-exact."""
+the card), written block-wise on the identities the kernels rest on and
+held to the line-by-line ``_fire_scan_plain`` too, its state carried
+across, K4's narrow mode (K5) and the planner's FIRE run comparator. Every
+comparison is bit-exact."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -77,13 +81,9 @@ def jax_scan(blocks_in: np.ndarray, eb: int, decode: bool, init_state=None):
     return np.asarray(out).reshape(n, ndims), np.asarray(states)
 
 
-@pytest.mark.parametrize("eb", [8, 16])
-def test_fire_counter_and_coefficient_wrap(eb):
-    """The learning counter wraps at its width (16 bits for u8, 32 for
-    u16), and the u16 coefficient at 16 bits, as JAX's int32 arithmetic
-    does. Steady streams drive the counter over the edge; the 16-bit u8
-    counter and the 32-bit u16 one start near it (a state carried in)."""
-    nb, ndims = 300, 3
+def wrap_stream(eb: int, nb: int = 300, ndims: int = 3):
+    """A steady stream that drives the learning counter up, a state whose
+    counter starts 100 blocks below its top, and that top."""
     if eb == 8:
         # deltas 1, 127: the prediction stays below 64, so every odd-row
         # error is positive and the counter climbs by one a block
@@ -96,7 +96,27 @@ def test_fire_counter_and_coefficient_wrap(eb):
         ndims, 1)
     init = np.zeros((3, ndims), np.int32)
     init[2] = top - 100 * (1 if eb == 8 else 8000)
-    errs, states = jax_scan(x, eb, decode=False, init_state=init)
+    return x, init, top
+
+
+@functools.cache
+def wrap_reference(eb: int):
+    """``wrap_stream(eb)`` through JAX's scan, once a test run (each call of
+    the scan compiles it anew): the stream, the state, the counter's top,
+    and JAX's errors and per-block states from that state and from the
+    zero state."""
+    x, init, top = wrap_stream(eb)
+    return (x, init, top, jax_scan(x, eb, decode=False, init_state=init),
+            jax_scan(x, eb, decode=False))
+
+
+@pytest.mark.parametrize("eb", [8, 16])
+def test_fire_counter_and_coefficient_wrap(eb):
+    """The learning counter wraps at its width (16 bits for u8, 32 for
+    u16), and the u16 coefficient at 16 bits, as JAX's int32 arithmetic
+    does. Steady streams drive the counter over the edge; the 16-bit u8
+    counter and the 32-bit u16 one start near it (a state carried in)."""
+    x, init, top, (errs, states), (jax_errs0, states0) = wrap_reference(eb)
     counter = states[:, 2, 0].astype(np.int64)
     assert (np.diff(counter) < -top).any()  # wrapped from top to bottom
     np.testing.assert_array_equal(port_decode(errs, eb, init), x)
@@ -104,11 +124,97 @@ def test_fire_counter_and_coefficient_wrap(eb):
         port_decode(errs, eb, torch.from_numpy(init)), x)
     if eb == 16:  # from the zero state: the coefficient wraps at 2^16
         errs0 = port_encode(x, eb)
-        _, states0 = jax_scan(x, eb, decode=False)
+        np.testing.assert_array_equal(errs0, jax_errs0)
         assert states0[:, 2, 0].max() > (1 << 16)
         np.testing.assert_array_equal(
             errs0, np.asarray(jf.fire_encode(jnp.asarray(x), eb)))
         np.testing.assert_array_equal(port_decode(errs0, eb), x)
+
+
+def oracle_scan(blocks_in: np.ndarray, eb: int, decode: bool, init_state=None):
+    """The port's line-by-line ``_fire_scan_plain`` over (N, D)."""
+    n, ndims = blocks_in.shape
+    out = fc._fire_scan_plain(
+        torch.from_numpy(blocks_in.astype(np.int64)).reshape(-1, 8, ndims),
+        eb, decode, init_state)
+    return out.reshape(n, ndims).numpy()
+
+
+BLOCKWISE_DIMS = (1, 5, 33, 64, 129)
+BLOCKWISE_BLOCKS = (1, 2, 41)
+
+
+@functools.cache
+def blockwise_reference(eb: int):
+    """One stream of max(BLOCKWISE_BLOCKS) blocks whose dims are the
+    BLOCKWISE_DIMS groups side by side, through JAX's scan once a test run:
+    FIRE keeps one state per dim and is causal in rows, so every case's
+    stream is a slice of it. Returns the stream, a carried state, JAX's
+    errors, and JAX's values decoded from the carried state (from the zero
+    state they are the stream)."""
+    rng = np.random.default_rng(eb)
+    ndims, nb = sum(BLOCKWISE_DIMS), max(BLOCKWISE_BLOCKS)
+    kinds = ("rand", "walk", "steady", "extreme")
+    x = np.concatenate([fire_stream(rng, kinds[d % 4], nb, 1, eb)
+                        for d in range(ndims)], axis=1)
+    half = 1 << (eb - 1)
+    # a value, a delta (every third dim's wider than its element, which no
+    # encoder leaves but JAX's int32 arithmetic takes) and a counter large
+    # enough to give a coefficient
+    wide = np.where(np.arange(ndims) % 3 == 0, 1 << 20, half)
+    init = np.stack([rng.integers(0, 2 * half, ndims),
+                     rng.integers(-wide, wide),
+                     rng.integers(-(1 << 15), 1 << 15, ndims)]
+                    ).astype(np.int32)
+    errs = jax_scan(x, eb, decode=False)[0]
+    return x, init, errs, jax_scan(errs, eb, decode=True, init_state=init)[0]
+
+
+@pytest.mark.parametrize("nb", BLOCKWISE_BLOCKS)
+@pytest.mark.parametrize("ndims", BLOCKWISE_DIMS)
+@pytest.mark.parametrize("eb", [8, 16])
+def test_fire_blockwise_matches_jax_and_the_oracle(eb, ndims, nb):
+    """The block-wise plain FIRE (deltas ahead of the state, a block's rows
+    at once, one sign extension of the gradient sum, values by cumsum)
+    against JAX's ``_fire_scan`` and the line-by-line oracle: encode from
+    the zero state, decode from the zero state and from a carried one; on
+    random errors, which no encoder makes, against the oracle."""
+    x, init, jax_errs, jax_vals_carried = blockwise_reference(eb)
+    first = sum(BLOCKWISE_DIMS[:BLOCKWISE_DIMS.index(ndims)])
+    cut = (slice(0, nb * 8), slice(first, first + ndims))
+    x, init = np.ascontiguousarray(x[cut]), np.ascontiguousarray(init[:, cut[1]])
+    errs = port_encode(x, eb)
+    np.testing.assert_array_equal(errs, oracle_scan(x, eb, decode=False))
+    np.testing.assert_array_equal(errs, jax_errs[cut])
+    for state, want in ((None, x), (init, jax_vals_carried[cut])):
+        got = port_decode(errs, eb, state)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(
+            got, oracle_scan(errs, eb, decode=True, init_state=state))
+    rng = np.random.default_rng(1000 * eb + 10 * ndims + nb)
+    noise = rng.integers(0, 1 << eb, errs.shape).astype(np.int32)
+    for state in (None, init):
+        np.testing.assert_array_equal(
+            port_decode(noise, eb, state),
+            oracle_scan(noise, eb, decode=True, init_state=state))
+
+
+@pytest.mark.parametrize("eb", [8, 16])
+def test_fire_blockwise_on_the_wrap_streams(eb):
+    """The same two versions and JAX where the counter wraps (from a carried
+    state, both widths) and where the u16 coefficient wraps at 2^16 (from
+    the zero state)."""
+    x, init, top, (errs, states), (jax_errs0, _) = wrap_reference(eb)
+    assert (np.diff(states[:, 2, 0].astype(np.int64)) < -top).any()
+    got = port_decode(errs, eb, init)
+    np.testing.assert_array_equal(got, x)
+    np.testing.assert_array_equal(
+        got, oracle_scan(errs, eb, decode=True, init_state=init))
+    errs0 = port_encode(x, eb)
+    np.testing.assert_array_equal(errs0, oracle_scan(x, eb, decode=False))
+    np.testing.assert_array_equal(errs0, jax_errs0)
+    np.testing.assert_array_equal(
+        port_decode(errs0, eb), oracle_scan(errs0, eb, decode=True))
 
 
 @pytest.mark.parametrize("eb,ndims", [(8, 9), (16, 5)])
