@@ -20,7 +20,12 @@ Phases, each of which raises (exit code != 0) when it fails:
    more than the ring; D 1, 31, 33, 129) and from carried states whose
    counter wraps within the stream; K6 huff_decode and huff_encode on the
    8 MiB headline's sprintz stream at chunk_symbols 128 and on a small
-   stream at 4096;
+   stream at 4096; K3 and huff_encode at the encode side's edge shapes
+   (``sprintz_tpu_torch/probes/encode_cases.py``, the list the CPU tests
+   hold the plain versions to: K3 at D 5-1024 over ragged tiles of
+   all-zero, all-maximum and random widths; the encoder at chunk sizes 1,
+   31, 128 and 4096 with a ragged last chunk, fewer symbols than a chunk,
+   only 12-bit codes, one symbol value);
 3. main path: compress then decompress with device="cuda", every kernel's
    launch counter set to 0 before that run and read after it (every kernel
    must have launched): delta on the 8 MiB u8 and u16 random walks, the
@@ -36,7 +41,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    alone, its plain version and, where one exists, one PyTorch call of the
    same function, by CUDA events (median of 25 after warm-up, L2 flushed
    before each run; the plain FIRE is its one full-size run of phase 2,
-   at the same size as the kernel's time). The FIRE rows also carry a
+   at the same size as the kernel's time), at the 8 MiB walks; also K3
+   on the 64 MiB u8 walk, and K6 and huff_encode at chunk size 4096 on
+   the smooth 8 MiB stream's sprintz stream, whose plain decode (a Python
+   loop of 4096 steps) is timed once. The FIRE rows also carry a
    chain bound: blocks x the dependent integer operations of a block,
    counted in csrc/fire.cu's header, x the latency of one dependent
    multiply-add, which a one-warp probe kernel measures on the card
@@ -158,6 +166,7 @@ def main() -> int:
         from sprintz_tpu_torch.ops import pack_kernels as pk
         from sprintz_tpu_torch.ops.bitmath import block_widths_rowmajor
         from sprintz_tpu_torch.planner import build_plan
+        from sprintz_tpu_torch.probes import encode_cases as ec
         from sprintz_tpu_torch.stream_format import read_metadata_rle
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
@@ -409,6 +418,25 @@ def main() -> int:
             (f"small sprintz stream ({small.size} B, cs 4096)", small, 4096)):
         huff[what] = check_huff(what, data, cs)
 
+    # the encode side's edge shapes, the CPU tests' list (from a generator
+    # of their own, so that the streams below stay those of earlier runs)
+    erng = np.random.default_rng(SEED + 1)
+    for nd, es in ec.PACK_CASES:
+        errs, widths = (torch.from_numpy(t).to(dev)
+                        for t in ec.pack_case(erng, nd, es))
+        check("pack_rows", pk.pack_rows(errs, widths, es),
+              pk.pack_rows_plain(errs, widths, es),
+              f"edge shape nb {errs.shape[0]} D {nd} u{8 * es}")
+    for cs, stream in ec.HUFF_CASES:
+        data, t = ec.huff_case(erng, cs, stream)
+        enc = (hf.upload_bytes(data, dev), *hf.encode_table(
+            hf.build_table(data) if t is None else t, dev), cs)
+        check("huff_encode", hk.encode_chunks(*enc),
+              hk.encode_chunks_plain(*enc),
+              f"edge shape cs {cs} {stream} ({data.size} symbols)")
+    log(f"[kernels] pack_rows at {len(ec.PACK_CASES)} and huff_encode at "
+        f"{len(ec.HUFF_CASES)} edge shapes equal their plain versions")
+
     # ------------------------------------------------------ 3. main path
     streams = {
         "u8 walk 8 MiB": walk_stream(rng, 1 << 17, 64, 1),
@@ -465,8 +493,11 @@ def main() -> int:
                                            device="cuda").compress(x),
                               np.uint8)
         cs = hf.auto_chunk_symbols(inner.size)
-        check_huff(f"main path {what} {codec} sprintz stream ({inner.size} "
-                   f"B, cs {cs})", inner, cs)
+        key = (f"main path {what} {codec} sprintz stream ({inner.size} B, "
+               f"cs {cs})")
+        h = check_huff(key, inner, cs)
+        if (what, codec) == ("u8 smooth 8 MiB", "delta"):
+            huff_smooth = (key, h)
 
     x1 = walk_stream(rng, 1 << 14, 64, 1)  # 1 MiB
     for codec, entropy in (("delta", "none"), ("xff", "none"),
@@ -675,7 +706,9 @@ def main() -> int:
                 r_["packing_bound_ms"] = r_["packing_bytes"] / mem_rate * 1e3
         return rows
 
-    def huff_rows(h):
+    def huff_rows(h, plain_dec_once=False):
+        """plain_dec_once: time the plain decode by one run (a Python loop
+        of chunk_symbols steps)."""
         dec, enc = h["dec"], h["enc"]
         n = h["n"]
         out_e = hk.encode_chunks(*enc)
@@ -687,8 +720,9 @@ def main() -> int:
         enc_bytes = n + nbytes(*enc[1:3], *out_e)
         return [
             row("huff_decode", lambda: hk.decode_chunks(*dec),
-                lambda: hk.decode_chunks_plain(*dec), None, dec_bytes,
-                OPS_PER_ELEM["huff_decode"] * n),
+                once_ms(lambda: hk.decode_chunks_plain(*dec))[1]
+                if plain_dec_once else lambda: hk.decode_chunks_plain(*dec),
+                None, dec_bytes, OPS_PER_ELEM["huff_decode"] * n),
             row("huff_encode", lambda: hk.encode_chunks(*enc),
                 lambda: hk.encode_chunks_plain(*enc), None, enc_bytes,
                 OPS_PER_ELEM["huff_encode"] * n),
@@ -714,11 +748,30 @@ def main() -> int:
     for what in ("u8 main (nb 16384, D 64)", "u16 main (nb 8192, D 64)"):
         table[what] = kernel_rows(inputs[what])
         log_rows(what, table[what])
-    # the Huffman rows at the headline's chunk size (the plain decode at
-    # 4096 takes 4096 Python steps a call)
+    # the Huffman rows at the headline's chunk size, and at 4096 on the
+    # smooth stream's sprintz stream (whose plain decode takes 4096 Python
+    # steps a call: timed once)
     huff_what = next(iter(huff))
     table[huff_what] = huff_rows(huff[huff_what])
     log_rows(huff_what, table[huff_what])
+    table[huff_smooth[0]] = huff_rows(huff_smooth[1], plain_dec_once=True)
+    log_rows(huff_smooth[0], table[huff_smooth[0]])
+    # K3 on the 64 MiB walk, whose i32 errors outgrow the 50 MB L2
+    what = "u8 walk 64 MiB (nb 131072, D 64)"
+    rows64 = encoder.upload_rows(streams["u8 walk 64 MiB"], dev)
+    b64 = fc.delta_encode(rows64, 8).reshape(-1, 8, rows64.shape[1])
+    w64 = block_widths_rowmajor(b64.amax(dim=1), 1)
+    check("pack_rows", pk.pack_rows(b64, w64, 1),
+          pk.pack_rows_plain(b64, w64, 1), what)
+    table[what] = [row(
+        "pack_rows", lambda: pk.pack_rows(b64, w64, 1),
+        lambda: pk.pack_rows_plain(b64, w64, 1), None,
+        nbytes(b64, w64) + b64.numel(), OPS_PER_ELEM["pack_rows"] * b64.numel(),
+        packing_bytes=2 * b64.numel() + w64.numel())]
+    table[what][0]["packing_bound_ms"] = (table[what][0]["packing_bytes"]
+                                          / mem_rate * 1e3)
+    log_rows(what, table[what])
+    del rows64, b64, w64
     log("[timing] kernels " + json.dumps(table))
 
     class Split:

@@ -10,7 +10,9 @@ Counterpart of the device passes of ``sprintz_tpu/entropy/huffman.py`` and
   ``sizes[c]``.
 - ``encode_chunks`` (``huff_encode_sizes_kernel`` then
   ``huff_encode_emit_kernel``), the counterpart of the XLA append scan of
-  ``huffman.py:736-808``: symbols -> each chunk's payload bytes and size.
+  ``huffman.py:736-808``: symbols -> each chunk's payload bytes and size,
+  a CTA a tile of whole chunks (``huff_tile_chunks``), 16 symbols a
+  thread.
 
 Each wrapper launches its kernels for a CUDA tensor and runs its plain
 PyTorch version (computed in int64: torch's uint32 has few CPU ops) for a
@@ -25,6 +27,14 @@ from . import _build
 from .decode_kernels import check_args
 
 MAX_CODE_LEN = 12
+# A CTA of the encoder codes a tile of whole chunks, about ENC_TILE_SYMBOLS
+# symbols (16 for each of its 256 threads), or one longer chunk.
+ENC_TILE_SYMBOLS = 4096
+
+
+def huff_tile_chunks(chunk_symbols: int) -> int:
+    """The chunks of an encoder tile at this chunk size."""
+    return max(1, ENC_TILE_SYMBOLS // chunk_symbols)
 
 
 def _rev12(x: torch.Tensor) -> torch.Tensor:
@@ -159,17 +169,29 @@ def encode_chunks(syms: torch.Tensor, codes: torch.Tensor,
         return encode_chunks_plain(syms, codes, lengths, chunk_symbols)
     n = syms.shape[0]
     nchunks = -(-n // chunk_symbols)
+    tile = huff_tile_chunks(chunk_symbols)
     sizes = torch.empty(nchunks, dtype=torch.int32, device=syms.device)
     _build.launch("sprintz_huff_encode_sizes", syms, syms.data_ptr(),
-                  lengths.data_ptr(), sizes.data_ptr(), n, chunk_symbols)
-    starts = torch.cumsum(sizes, dim=0, dtype=torch.int64) - sizes
-    payload = torch.empty(int(starts[-1] + sizes[-1]), dtype=torch.uint8,
-                          device=syms.device)
+                  lengths.data_ptr(), sizes.data_ptr(), n, chunk_symbols, tile)
+    ends = torch.cumsum(sizes, dim=0, dtype=torch.int64)
+    # The payload's size is copied out behind the cumsum, and the host waits
+    # for that copy only once the emit pass is queued too: the card never
+    # idles between the passes. The payload is allocated at its bound (12
+    # bits a symbol, a pad byte a chunk).
+    stream = torch.cuda.current_stream(syms.device)
+    total = torch.empty(1, dtype=torch.int64, pin_memory=True)
+    total.copy_(ends[-1:], non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record(stream)
+    payload = torch.empty(-(-MAX_CODE_LEN * n // 8) + nchunks,
+                          dtype=torch.uint8, device=syms.device)
     _build.launch("sprintz_huff_encode_emit", syms, syms.data_ptr(),
-                  codes.data_ptr(), lengths.data_ptr(), starts.data_ptr(),
-                  payload.data_ptr(), n, chunk_symbols)
+                  codes.data_ptr(), lengths.data_ptr(), ends.data_ptr(),
+                  sizes.data_ptr(), payload.data_ptr(), n, chunk_symbols,
+                  tile)
     encode_chunks.launches += 1
-    return payload, sizes
+    copied.synchronize()
+    return payload[:int(total)], sizes
 
 
 encode_chunks.launches = 0

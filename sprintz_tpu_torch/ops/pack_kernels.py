@@ -26,6 +26,38 @@ from .decode_kernels import TILE_BLOCKS, check_args, check_payload, extract_fiel
 
 # ------------------------------------------------------------------ K3
 
+# A CTA of K3 packs a tile of rows (csrc/pack.cu): about PACK_TILE_ELEMS
+# errors (two rounds of four 16-byte loads for each of its 128 threads; on
+# the H100 this beat 256 threads a round and tiles of 1024 or 2048
+# errors, sprintz_tpu_torch/probes/encode_ab.py), in whole blocks
+# of 16 rows or more; where those do not fit the default 48 KB of shared
+# memory, part of a block (8, 4, 2 or 1 rows); a row alone up to the 227 KB
+# a CTA may opt in to.
+PACK_TILE_ELEMS = 4096
+SMEM_DEFAULT = 48 * 1024
+SMEM_MAX = 227 * 1024
+
+
+def pack_smem_bytes(tile_rows: int, ndims: int, elem_sz: int) -> int:
+    """Shared memory of a K3 tile, as ``csrc/pack.cu`` sizes it: the
+    staging image of the tile's output bytes (from the 16-byte boundary
+    below them) and a word of offset and width for each dim of each of
+    its blocks."""
+    stage = (tile_rows * ndims * elem_sz + 30) // 16 * 16
+    return stage + 4 * ndims * max(1, tile_rows // BLOCK_SZ)
+
+
+def pack_tile_rows(ndims: int, elem_sz: int) -> int:
+    """The rows of a K3 tile at this width (see PACK_TILE_ELEMS)."""
+    whole = max(2 * BLOCK_SZ, PACK_TILE_ELEMS // ndims // 16 * 16)
+    for rows in (whole, 8, 4, 2, 1):
+        if pack_smem_bytes(rows, ndims, elem_sz) <= SMEM_DEFAULT:
+            return rows
+    if pack_smem_bytes(1, ndims, elem_sz) <= SMEM_MAX:
+        return 1
+    raise ValueError(f"pack_rows: a row of {ndims} dims at elem_sz {elem_sz} "
+                     f"outgrows the card's shared memory")
+
 
 def pack_rows_plain(errs_zz: torch.Tensor, widths: torch.Tensor,
                     elem_sz: int) -> torch.Tensor:
@@ -66,8 +98,12 @@ def pack_rows(errs_zz: torch.Tensor, widths: torch.Tensor,
                       device=errs_zz.device)
     if nb == 0 or ndims == 0:
         return out
+    tile_rows = pack_tile_rows(ndims, elem_sz)
+    if errs_zz.data_ptr() % 16:  # the kernel loads 16 bytes at a time
+        errs_zz = errs_zz.clone()
     _build.launch("sprintz_pack_rows", errs_zz, errs_zz.data_ptr(),
-                  widths.data_ptr(), out.data_ptr(), nb, ndims, elem_sz)
+                  widths.data_ptr(), out.data_ptr(), nb, ndims, elem_sz,
+                  tile_rows)
     pack_rows.launches += 1
     return out
 
