@@ -25,7 +25,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    hold the plain versions to: K3 at D 5-1024 over ragged tiles of
    all-zero, all-maximum and random widths; the encoder at chunk sizes 1,
    31, 128 and 4096 with a ragged last chunk, fewer symbols than a chunk,
-   only 12-bit codes, one symbol value);
+   only 12-bit codes, one symbol value); K6 at the decode side's cases
+   (``sprintz_tpu_torch/probes/decode_cases.py``: the same chunk sizes and
+   kinds, zero padding that decodes to extra symbols, an overrun chunk in
+   the middle and at the end), symbols and overrun counts, and at chunk
+   size 20000, above a CTA's window of payload;
 3. main path: compress then decompress with device="cuda", every kernel's
    launch counter set to 0 before that run and read after it (every kernel
    must have launched): delta on the 8 MiB u8 and u16 random walks, the
@@ -35,8 +39,9 @@ Phases, each of which raises (exit code != 0) when it fails:
    win) and the 64 MiB u8 walk. After that run, K6 and huff_encode are
    held to their plain versions on each +Huf case's own sprintz stream at
    the chunk size the path used. Card bytes equal CPU bytes on a 1 MiB
-   stream for delta, xff and xff+Huf; the reference-made vectors in
-   tests/vectors decode and re-encode exactly;
+   stream for delta, xff and xff+Huf; a +Huf container with an overrun
+   chunk raises ``CorruptStreamError`` on the card; the reference-made
+   vectors in tests/vectors decode and re-encode exactly;
 4. timings: each kernel's wrapper, the time inside its kernel launches
    alone, its plain version and, where one exists, one PyTorch call of the
    same function, by CUDA events (median of 25 after warm-up, L2 flushed
@@ -114,6 +119,7 @@ KERNELS = {  # name -> (source, the TPU pass it replaces: file:line)
                     "sprintz_tpu/models/forecasters.py:303"),
 }
 HUFF_CS = 128  # bench.py's chunk size for the Huffman kernel rows
+DEC_LONG_CS = 20000  # a chunk longer than K6's window of payload
 
 
 def log(msg: str) -> None:
@@ -166,6 +172,8 @@ def main() -> int:
         from sprintz_tpu_torch.ops import pack_kernels as pk
         from sprintz_tpu_torch.ops.bitmath import block_widths_rowmajor
         from sprintz_tpu_torch.planner import build_plan
+        from sprintz_tpu_torch.errors import CorruptStreamError
+        from sprintz_tpu_torch.probes import decode_cases as dc
         from sprintz_tpu_torch.probes import encode_cases as ec
         from sprintz_tpu_torch.stream_format import read_metadata_rle
     except ImportError as e:
@@ -384,23 +392,22 @@ def main() -> int:
         buf = hf.huff_compress(data, chunk_symbols=cs, allow_stored=False,
                                device=dev)
         n, cs, nchunks, t, sizes, offsets = hf._parse(buf)
-        dec = (hf.upload_bytes(np.frombuffer(buf, np.uint8), dev),
-               torch.from_numpy(offsets).to(dev),
-               torch.from_numpy(sizes.astype(np.int32)).to(dev),
-               *hf.decode_tables(t, dev), cs, n)
+        dec = dc.decode_inputs(buf, dev)
         enc = (hf.upload_bytes(data, dev), *hf.encode_table(t, dev), cs)
         return dict(buf=buf, dec=dec, enc=enc, n=n, nchunks=nchunks,
                     payload=len(buf) - int(offsets[0]))
 
     def check_huff(what: str, data: np.ndarray, cs: int) -> dict:
         """K6 and the encoder against their plain versions on the bytes
-        ``data`` coded at chunk size cs; K6's symbols equal the data."""
+        ``data`` coded at chunk size cs; K6's symbols equal the data, and
+        no chunk is flagged."""
         h = huff_inputs(data, cs)
-        syms = hk.decode_chunks(*h["dec"])
-        check("huff_decode", syms, hk.decode_chunks_plain(*h["dec"]), what)
-        if not np.array_equal(syms.cpu().numpy(), data):
+        out = hk.decode_chunks(*h["dec"])
+        check("huff_decode", out, hk.decode_chunks_plain(*h["dec"]), what)
+        syms, nbad = hk.split_decoded(out, h["n"])
+        if not np.array_equal(syms.cpu().numpy(), data) or int(nbad):
             raise AssertionError(f"huff_decode {what}: symbols differ from "
-                                 f"the data")
+                                 f"the data, or {int(nbad)} chunks flagged")
         check("huff_encode", hk.encode_chunks(*h["enc"]),
               hk.encode_chunks_plain(*h["enc"]), what)
         log(f"[kernels] {what}: {h['nchunks']} chunks, huff_decode and "
@@ -436,6 +443,22 @@ def main() -> int:
               f"edge shape cs {cs} {stream} ({data.size} symbols)")
     log(f"[kernels] pack_rows at {len(ec.PACK_CASES)} and huff_encode at "
         f"{len(ec.HUFF_CASES)} edge shapes equal their plain versions")
+    # the decode side's cases, the CPU tests' list: K6's symbols and
+    # overrun count against its plain version's; then one case at a chunk
+    # size above a CTA's window of payload (its plain version runs once)
+    drng = np.random.default_rng(SEED + 2)
+    for cs, case in dc.DECODE_CASES + [(DEC_LONG_CS, "ragged")]:
+        buf, data, nbad = dc.decode_case(drng, cs, case)
+        args = dc.decode_inputs(buf, dev)
+        out = hk.decode_chunks(*args)
+        check("huff_decode", out, hk.decode_chunks_plain(*args),
+              f"decode case cs {cs} {case}")
+        got_bad = int(hk.split_decoded(out, data.size)[1])
+        if got_bad != nbad:
+            raise AssertionError(f"huff_decode cs {cs} {case}: {got_bad} "
+                                 f"chunks flagged, want {nbad}")
+    log(f"[kernels] huff_decode at {len(dc.DECODE_CASES)} decode cases and "
+        f"at cs {DEC_LONG_CS} equals its plain version, symbols and flags")
 
     # ------------------------------------------------------ 3. main path
     streams = {
@@ -514,6 +537,21 @@ def main() -> int:
                                  f"CPU decode differ")
         log(f"[main] 1 MiB stream, {codec}+{entropy}: card bytes == CPU "
             f"bytes")
+
+    # a +Huf stream whose container has a chunk overrun: the card raises
+    x = smooth_stream(np.random.default_rng(SEED + 3), 1 << 10, 64)
+    buf = SprintzCodec("delta", 1, entropy="huffman", device="cuda").compress(x)
+    if not hf.is_container(buf):
+        raise AssertionError("corrupt-container phase: Huffman did not win")
+    bad = dc.overrun(buf, hf._parse(buf)[2] // 2)
+    try:
+        SprintzCodec("delta", 1, entropy="huffman",
+                     device="cuda").decompress(bad)
+    except CorruptStreamError as e:
+        log(f"[main] an overrun +Huf container raises on the card: {e}")
+    else:
+        raise AssertionError("an overrun +Huf container decoded on the card "
+                             "without raising")
 
     vec = here / "tests" / "vectors"
     for name, codec, nd, es in (("delta_8b_d9_rand", "delta", 9, 1),
@@ -713,10 +751,11 @@ def main() -> int:
         n = h["n"]
         out_e = hk.encode_chunks(*enc)
         # K6 reads each payload byte once, the chunk offsets and sizes and
-        # the tables, and writes one byte per symbol; the encoder reads the
-        # symbols and the tables, and writes the sizes and the payload
-        # (its offsets are a cumsum between its two passes)
-        dec_bytes = h["payload"] + nbytes(*dec[1:6]) + n
+        # the tables, and writes one byte per symbol and its overrun count;
+        # the encoder reads the symbols and the tables, and writes the
+        # sizes and the payload (its offsets are a cumsum between its two
+        # passes)
+        dec_bytes = h["payload"] + nbytes(*dec[1:6]) + n + 4
         enc_bytes = n + nbytes(*enc[1:3], *out_e)
         return [
             row("huff_decode", lambda: hk.decode_chunks(*dec),
@@ -843,9 +882,9 @@ def main() -> int:
             torch.from_numpy(offs).to(dev),
             torch.from_numpy(sizes.astype(np.int32)).to(dev),
             *hf.decode_tables(t, dev)))
-        syms = sp.device("huf device", lambda: hk.decode_chunks(
+        out = sp.device("huf device", lambda: hk.decode_chunks(
             *args, cs, n))
-        return sp.host("huf d2h", lambda: syms.cpu().numpy().tobytes())
+        return sp.host("huf d2h", lambda: out.cpu().numpy()[:n].tobytes())
 
     def med(fn, reps) -> dict:
         runs = [fn() for _ in range(reps)]

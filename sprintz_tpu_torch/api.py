@@ -37,10 +37,15 @@ class SprintzCodec:
       elem_sz: bytes per element: 1 (uint8) or 2 (uint16).
       entropy: "none" or "huffman" (the paper's "+Huf" variants).
       device: where the device pass runs; None means "cuda".
+
+    ``entropy`` and ``device`` are keyword-only: the JAX package's third
+    positional field is ``backend``, so a third positional argument would
+    change its meaning between the two packages.
     """
 
     codec: str = "delta"
     elem_sz: int = 1
+    _: dataclasses.KW_ONLY
     entropy: str = "none"
     device: str | torch.device | None = None
 

@@ -8,19 +8,41 @@
 //   v = rev12(the next 12 bits, LSB first); L = 1 + #{limits <= v};
 //   idx = clip((v >> (12 - L)) + adj[L], 0, 255); symbol = perm[idx]; the
 //   bit cursor advances by L. A chunk's bytes past its size read as zero,
-//   the rule of the TPU version's spare zero word (huffman.py:517).
-//   Bound on this card: neither bytes (about 1.5 bytes moved per symbol)
-//   nor operations, but the serial bit cursor of each chunk: one thread
-//   per chunk, chunk_symbols dependent steps each.
-//   Design: one thread per chunk, which reads its own bytes from the
-//   container uploaded once (offsets[c], guarded by sizes[c]), so the host
-//   gathers nothing; a 64-bit bit buffer refilled a byte at a time to at
-//   least 57 bits whenever fewer than 12 are banked, so no shift reaches
-//   64 and each refill covers four or more symbols; the 11 limits, 13
-//   adjustments and 256-byte permutation in shared memory. The TPU's
-//   select chain over the chunk's words (its refill without a gather)
-//   becomes a direct load. Stores are one byte per symbol, chunk_symbols
-//   apart across a warp: the first suspect when this kernel is made fast.
+//   the rule of the TPU version's spare zero word (huffman.py:517). New
+//   beside the TPU version: a chunk whose cursor, after its own symbols,
+//   lies past its payload is counted (the native host decoder's overrun
+//   check, native/sprintz_host.cpp:711).
+//   Bound on this card: bytes (each payload byte read once, one byte
+//   written a symbol); in practice each chunk's serial bit cursor, which
+//   the design cuts into pieces.
+//   Design: a CTA of 128 threads takes an even share of the chunks (4096
+//   symbols or more, no more CTAs than the card holds) and walks it a
+//   window at a time. A window is 128 segments, each 512 bits of one chunk
+//   (a chunk's last one shorter): a chunk of 128 symbols is one or two
+//   segments, one of 4096 symbols some 8, one longer than a window spans
+//   windows, so every chunk size takes the same path. Its payload (8 KB)
+//   comes into shared memory in 16-byte loads, a pad word after each
+//   segment's words so that lanes reading their own segments hit
+//   different banks. Each thread decodes one segment through a
+//   4096-entry peek table (symbol | length << 8, built in the prologue by
+//   the formula above, so that it equals it for every peek): from the
+//   chunk's start, exact; from the window's carried boundary, exact;
+//   elsewhere speculatively, from 128 bits before the segment (not before
+//   its chunk), to the first boundary at or past its end. Then, until no
+//   exit changes, a segment whose start is not its predecessor's exit
+//   decodes again from that exit; at worst the rounds walk the chunk
+//   serially, so the result is always exact (Weissenberger and Schmidt,
+//   ICPP 2018). Codes of 7-8 bits resynchronise slowly, hence the long
+//   segments and the warm-up: one round (the check) settles most windows.
+//   A segmented scan of the counts gives each symbol its index in its
+//   chunk; symbols at or past the chunk's count (its zero padding's) are
+//   dropped. A chunk's last segment decodes exactly the rest of its count,
+//   reading zeros past its payload, and its end tells the overrun.
+//   Symbols go to a shared-memory image of the window's output (a pad
+//   word after every 128 bytes), which leaves in 16-byte stores (a byte at
+//   a time at its two ends; symbols past the image's 12288, only where
+//   codes average under about 5 bits, go out directly).
+//   The container format is fixed: no gap array helps the speculation.
 //
 // huff_encode_sizes_kernel, huff_encode_emit_kernel
 //   Replace the XLA append scan of sprintz_tpu/entropy/huffman.py:736-808
@@ -60,53 +82,365 @@
 
 namespace {
 
-constexpr int HUFF_THREADS = 128;
 constexpr int MAX_CODE_LEN = 12;
 
-__global__ void huff_decode_kernel(const uint8_t* __restrict__ data,
-                                   const int64_t* __restrict__ offsets,
-                                   const int32_t* __restrict__ sizes,
-                                   const int32_t* __restrict__ limits,
-                                   const int32_t* __restrict__ adj,
-                                   const int32_t* __restrict__ perm,
-                                   uint8_t* __restrict__ out, int64_t nchunks, int cs,
-                                   int64_t n) {
-  __shared__ int32_t s_lim[MAX_CODE_LEN - 1];
-  __shared__ int32_t s_adj[MAX_CODE_LEN + 1];
-  __shared__ uint8_t s_perm[256];
-  for (int t = threadIdx.x; t < 256; t += blockDim.x) {
-    s_perm[t] = (uint8_t)perm[t];
-    if (t < MAX_CODE_LEN - 1) s_lim[t] = limits[t];
-    if (t < MAX_CODE_LEN + 1) s_adj[t] = adj[t];
+// ------------------------------------------------------------------ K6
+
+constexpr int DEC_THREADS = 128;
+constexpr int DEC_WARPS = DEC_THREADS / 32;
+constexpr int DEC_SEG_BITS = 512;  // a segment: 512 bits of one chunk
+// A speculative segment starts decoding this far before its first bit
+// (not before its chunk's start), so that it has most often found the
+// true code boundaries by then.
+constexpr int DEC_WARM_BITS = 128;
+constexpr int DEC_WINDOW = DEC_THREADS;  // segments a window, one a thread
+// The payload a window stages: its segments' bytes, up to 15 below them to
+// the 16-byte boundary, and the bytes that the exit of its last segment
+// peeks past that segment's end (under 3).
+constexpr int DEC_STAGE_UNITS = DEC_WINDOW * DEC_SEG_BITS / 128 + 2;
+constexpr int DEC_STAGE_WORDS = DEC_STAGE_UNITS * 4;
+// In shared memory a pad word follows every segment's worth of words, so
+// that the lanes of a warp, each reading its own segment, DEC_SEG_WORDS
+// words from the next, hit different banks.
+constexpr int DEC_SEG_WORDS = DEC_SEG_BITS / 32;
+constexpr int DEC_STAGE_SLOTS = DEC_STAGE_WORDS + DEC_STAGE_WORDS / DEC_SEG_WORDS + 1;
+static_assert(DEC_SEG_WORDS % 4 == 0, "a segment holds whole 16-byte units");
+__device__ __forceinline__ int stage_slot(int k) { return k + k / DEC_SEG_WORDS; }
+constexpr int DEC_OUT_CAP = 12288;  // symbols a window stages; more go out directly
+// The staged symbols: a pad word after every 128 bytes, so that lanes
+// placing symbols cs = 128 (or a multiple) bytes apart hit different banks.
+constexpr int DEC_OUT_WORDS = ((DEC_OUT_CAP + 16) / 128 + 1) * 33;
+__device__ __forceinline__ int out_slot(int r) { return r + 4 * (r >> 7); }
+constexpr int DEC_TILE_SYMBOLS = 4096;  // the least symbols a CTA takes
+constexpr int DEC_NO_LIMIT = 0x7fffffff;
+
+struct DecShared {
+  uint16_t tab[1 << MAX_CODE_LEN];  // peek -> symbol | length << 8
+  uint32_t stage[DEC_STAGE_SLOTS];  // the window's payload, padded
+  uint32_t out[DEC_OUT_WORDS];      // the window's symbols, padded
+  int64_t wc_off[DEC_WINDOW];       // the window's chunks: payload offset,
+  int64_t wc_last[DEC_WINDOW];      //   last slot,
+  int wc_size[DEC_WINDOW];          //   bytes,
+  int wc_count[DEC_WINDOW];         //   symbols,
+  int wc_sbeg[DEC_WINDOW];          //   first segment in the window
+  int seg_exit[DEC_WINDOW];         // each segment's exit bit
+  int warp_a[DEC_WARPS], warp_b[DEC_WARPS];
+  int lim[MAX_CODE_LEN - 1], adj[MAX_CODE_LEN + 1];
+  // the window's state, from one thread to all
+  int64_t next_chunk, next_slot, carry_exit, o_end;
+  int nwin_chunks, carry_cnt;
+};
+
+// Word k of the staged payload, zero at and past staged bit `end`.
+__device__ __forceinline__ uint32_t stage_word(const uint32_t* st, int k, int end) {
+  const int lo = k * 32;
+  if (k < 0 || lo >= end) return 0u;
+  const uint32_t w = st[stage_slot(k)];
+  const int keep = end - lo;
+  return keep >= 32 ? w : (w & ((1u << keep) - 1u));
+}
+
+// The staged payload read a code at a time from bit p: a 64-bit buffer
+// refilled a word at a time whenever it holds fewer than 12 bits.
+struct BitReader {
+  const uint32_t* st;
+  int end;
+  int k;
+  uint64_t buf;
+  int nb;
+  __device__ __forceinline__ BitReader(const uint32_t* st_, int end_, int p)
+      : st(st_), end(end_), k((p >> 5) + 1),
+        buf(stage_word(st_, p >> 5, end_) >> (p & 31)), nb(32 - (p & 31)) {}
+  // The next code's table entry (symbol | length << 8); steps past it.
+  __device__ __forceinline__ uint32_t next(const uint16_t* tab) {
+    if (nb < MAX_CODE_LEN) {
+      buf |= (uint64_t)stage_word(st, k++, end) << nb;
+      nb += 32;
+    }
+    const uint32_t e = tab[buf & 0xFFFu];
+    buf >>= e >> 8;
+    nb -= (int)(e >> 8);
+    return e;
+  }
+};
+
+// Decodes from staged bit p while p < stop and fewer than max_cnt symbols
+// are out, calling put(i, symbol) for the i-th; returns the bit after the
+// last code and the count in cnt. Bits at and past `end` read as zero.
+template <typename F>
+__device__ __forceinline__ int decode_run(const uint32_t* st, const uint16_t* tab, int p,
+                                          int stop, int max_cnt, int end, int& cnt,
+                                          F&& put) {
+  BitReader r(st, end, p);
+  cnt = 0;
+  while (p < stop && cnt < max_cnt) {
+    const uint32_t e = r.next(tab);
+    put(cnt, (uint8_t)e);
+    p += (int)(e >> 8);
+    ++cnt;
+  }
+  return p;
+}
+
+// Exclusive segmented scan of v across the CTA: the sum of v over the
+// threads from the last one at or before this one whose f is set, up to
+// this one, this one excluded (0 where this one's f is set). All threads
+// call it.
+__device__ __forceinline__ int seg_scan_excl(int f, int v, int* wa, int* wb) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int fi = f, vi = v;  // inclusive
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int fo = __shfl_up_sync(0xffffffffu, fi, o);
+    const int vo = __shfl_up_sync(0xffffffffu, vi, o);
+    if (lane >= o && !fi) {
+      vi += vo;
+      fi |= fo;
+    }
+  }
+  if (lane == 31) {
+    wa[warp] = fi;
+    wb[warp] = vi;
   }
   __syncthreads();
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= nchunks) return;
-  const uint8_t* src = data + offsets[c];
-  const int32_t size = sizes[c];
-  const int64_t o0 = c * cs;
-  const int64_t o1 = o0 + cs < n ? o0 + cs : n;
-  uint64_t buf = 0;
-  int nbits = 0;
-  int32_t pos = 0;
-  for (int64_t o = o0; o < o1; ++o) {
-    if (nbits < MAX_CODE_LEN) {
-      while (nbits <= 56) {
-        const uint64_t byte = pos < size ? src[pos] : 0u;
-        buf |= byte << nbits;
-        nbits += 8;
-        ++pos;
-      }
-    }
-    const int32_t v = (int32_t)(__brev((uint32_t)buf & 0xFFFu) >> 20);
+  int pv = 0;  // the warps before this one, inclusive
+  for (int w = 0; w < warp; ++w) pv = wa[w] ? wb[w] : pv + wb[w];
+  __syncthreads();  // wa, wb free again
+  const int incl = fi ? vi : pv + vi;
+  return f ? 0 : incl - v;
+}
+
+__global__ void __launch_bounds__(DEC_THREADS)
+    huff_decode_kernel(const uint8_t* __restrict__ data, int64_t nbytes,
+                       const int64_t* __restrict__ offsets,
+                       const int32_t* __restrict__ sizes,
+                       const int32_t* __restrict__ limits, const int32_t* __restrict__ adj,
+                       const int32_t* __restrict__ perm, uint8_t* __restrict__ out,
+                       int32_t* __restrict__ nbad, int cs, int64_t n) {
+  __shared__ DecShared sh;
+  const int t = threadIdx.x;
+  if (t < MAX_CODE_LEN - 1) sh.lim[t] = limits[t];
+  if (t < MAX_CODE_LEN + 1) sh.adj[t] = adj[t];
+  __syncthreads();
+  for (int e = t; e < (1 << MAX_CODE_LEN); e += DEC_THREADS) {
+    const int v = (int)(__brev((uint32_t)e) >> 20);
     int len = 1;
 #pragma unroll
-    for (int l = 0; l < MAX_CODE_LEN - 1; ++l) len += v >= s_lim[l];
-    int idx = (v >> (MAX_CODE_LEN - len)) + s_adj[len];
+    for (int l = 0; l < MAX_CODE_LEN - 1; ++l) len += v >= sh.lim[l];
+    int idx = (v >> (MAX_CODE_LEN - len)) + sh.adj[len];
     idx = idx < 0 ? 0 : (idx > 255 ? 255 : idx);
-    out[o] = s_perm[idx];
-    buf >>= len;
-    nbits -= len;
+    sh.tab[e] = (uint16_t)((perm[idx] & 0xFF) | (len << 8));
+  }
+  const uint32_t* st = sh.stage;
+  uint8_t* so = reinterpret_cast<uint8_t*>(sh.out);
+
+  // this CTA's chunks: an even share of those that hold symbols
+  const int64_t nc = (n + cs - 1) / cs;
+  const int64_t c_end = nc * (blockIdx.x + 1) / gridDim.x;
+  int64_t cur = nc * blockIdx.x / gridDim.x;  // the window's first chunk,
+  int64_t cur_slot = 0;   // its first segment,
+  int64_t carry_exit = 0; // where that segment starts, as a chunk bit, and
+  int carry_cnt = 0;      // the chunk's symbols before it, where cur_slot > 0
+  while (cur < c_end) {
+    // (a) the window's chunks, one a thread, and its segments
+    const int64_t c = cur + t;
+    int nseg = 0, size = 0, count = 0;
+    int64_t off = 0, last = 0;
+    if (c < c_end) {
+      off = offsets[c];
+      size = sizes[c];
+      count = (int)(n - c * cs < cs ? n - c * cs : cs);
+      last = size > 0 ? (8LL * size + DEC_SEG_BITS - 1) / DEC_SEG_BITS - 1 : 0;
+      const int64_t segs = last + 1 - (t == 0 ? cur_slot : 0);
+      nseg = (int)(segs < DEC_WINDOW + 1 ? segs : DEC_WINDOW + 1);
+    }
+    const int sbeg = seg_scan_excl(t == 0, nseg, sh.warp_a, sh.warp_b);
+    sh.wc_off[t] = off;
+    sh.wc_last[t] = last;
+    sh.wc_size[t] = size;
+    sh.wc_count[t] = count;
+    sh.wc_sbeg[t] = sbeg;
+    if (nseg > 0 && sbeg <= DEC_WINDOW && sbeg + nseg > DEC_WINDOW) {
+      // segment DEC_WINDOW, the next window's first, lies in this chunk
+      sh.next_chunk = c;
+      sh.next_slot = (t == 0 ? cur_slot : 0) + (DEC_WINDOW - sbeg);
+    }
+    if (nseg > 0 && (t == DEC_THREADS - 1 || c + 1 == c_end) && sbeg + nseg <= DEC_WINDOW) {
+      sh.next_chunk = c + 1;  // the window ends with this chunk
+      sh.next_slot = 0;
+    }
+    if (nseg > 0 && (t == DEC_THREADS - 1 || c + 1 == c_end)) sh.nwin_chunks = t + 1;
+    __syncthreads();
+    const int nwc = sh.nwin_chunks;
+    const int ntot = sh.wc_sbeg[nwc - 1] + (int)(sh.wc_last[nwc - 1] + 1 -
+                                                 (nwc == 1 ? cur_slot : 0));
+    const int nseg_w = ntot < DEC_WINDOW ? ntot : DEC_WINDOW;
+
+    // (b) this thread's segment: its chunk j and slot
+    auto chunk_of = [&](int seg) {  // a binary search of the chunks' first segments
+      int jj = 0;
+      for (int step = DEC_WINDOW / 2; step > 0; step >>= 1) {
+        if (jj + step < nwc && sh.wc_sbeg[jj + step] <= seg) jj += step;
+      }
+      return jj;
+    };
+    const int k = t;
+    const int j = chunk_of(k);
+    const int64_t slot = (j == 0 ? cur_slot : 0) + (k - sh.wc_sbeg[j]);
+    const bool active = k < nseg_w;
+    const bool is_last = active && slot == sh.wc_last[j];
+    const int jsize = sh.wc_size[j];
+    const int jcount = sh.wc_count[j];
+
+    // (c) stage the window's payload: 16-byte loads where aligned and
+    // inside the container, bytes elsewhere, zeros past its end
+    const int64_t lo = sh.wc_off[0] + cur_slot * (DEC_SEG_BITS / 8);
+    int64_t hi;
+    {
+      const int kl = nseg_w - 1;
+      const int jl = chunk_of(kl);
+      const int64_t sl = (jl == 0 ? cur_slot : 0) + (kl - sh.wc_sbeg[jl]);
+      const int64_t slot_end = (sl + 1) * (DEC_SEG_BITS / 8);
+      hi = sh.wc_off[jl] + (slot_end < sh.wc_size[jl] ? slot_end : sh.wc_size[jl]) + 3;
+    }
+    const int64_t lo16 = lo & ~(int64_t)15;
+    int units = (int)((hi - lo16 + 15) >> 4);
+    units = units < DEC_STAGE_UNITS ? units : DEC_STAGE_UNITS;
+    for (int u = t; u < DEC_STAGE_UNITS; u += DEC_THREADS) {
+      const int64_t a = lo16 + 16LL * u;
+      uint4 q = make_uint4(0, 0, 0, 0);
+      if (u < units) {
+        if (a + 16 <= nbytes && (reinterpret_cast<uintptr_t>(data + a) & 15) == 0) {
+          q = __ldg(reinterpret_cast<const uint4*>(data + a));
+        } else {
+          uint32_t w[4] = {0u, 0u, 0u, 0u};
+          for (int b = 0; b < 16; ++b) {
+            if (a + b < nbytes) w[b >> 2] |= (uint32_t)__ldg(data + a + b) << (8 * (b & 3));
+          }
+          q = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+      }
+      uint32_t* dst = sh.stage + stage_slot(4 * u);
+      dst[0] = q.x;
+      dst[1] = q.y;
+      dst[2] = q.z;
+      dst[3] = q.w;
+    }
+    __syncthreads();
+
+    // (d) decode each segment from its start: exact at a chunk's start and
+    // at the carried start, speculative elsewhere; the chunk's last
+    // segment waits for its quota. Bits past the chunk's payload, or past
+    // the staging, read as zero.
+    const int64_t cbit64 = (sh.wc_off[j] - lo16) * 8;  // the chunk's bit 0, staged
+    const int64_t end64 = cbit64 + 8LL * jsize;
+    const int end = (int)(end64 < 32LL * DEC_STAGE_WORDS ? (end64 > 0 ? end64 : 0)
+                                                         : 32LL * DEC_STAGE_WORDS);
+    const int s0 = (int)(cbit64 + slot * DEC_SEG_BITS);
+    const int64_t s1_64 = cbit64 + ((slot + 1) * DEC_SEG_BITS < 8LL * jsize
+                                        ? (slot + 1) * DEC_SEG_BITS : 8LL * jsize);
+    const int s1 = (int)s1_64;
+    const bool carried = k == 0 && cur_slot > 0;
+    int start = carried ? (int)(cbit64 + carry_exit) : s0;
+    const bool follows = active && slot > 0 && !carried;
+    int ex = start, cnt = 0;
+    auto drop = [](int, uint8_t) {};
+    if (active && !is_last) {
+      if (follows) {  // warm up: the first code start at or past s0
+        const int64_t w = s0 - DEC_WARM_BITS > cbit64 ? s0 - DEC_WARM_BITS : cbit64;
+        start = decode_run(st, sh.tab, (int)w, s0, DEC_NO_LIMIT, end, cnt, drop);
+      }
+      ex = decode_run(st, sh.tab, start, s1, DEC_NO_LIMIT, end, cnt, drop);
+    }
+    sh.seg_exit[k] = ex;
+    __syncthreads();
+
+    // (e) until no exit changes: a segment whose start is not its
+    // predecessor's exit decodes again from that exit
+    for (;;) {
+      const int prev = follows ? sh.seg_exit[k - 1] : start;
+      __syncthreads();
+      bool changed = false;
+      if (follows && prev != start) {
+        start = prev;
+        if (!is_last) {
+          const int e2 = decode_run(st, sh.tab, start, s1, DEC_NO_LIMIT, end, cnt, drop);
+          if (e2 != ex) {
+            ex = e2;
+            sh.seg_exit[k] = ex;
+            changed = true;
+          }
+        }
+      }
+      if (!__syncthreads_or(changed)) break;
+    }
+
+    // (f) each symbol's index in its chunk, and the chunk's overrun
+    const int carry_j = (j == 0 && cur_slot > 0) ? carry_cnt : 0;
+    const int before =
+        seg_scan_excl(!active || slot == 0 || carried, (active && !is_last) ? cnt : 0,
+                      sh.warp_a, sh.warp_b) + carry_j;
+    const int64_t o_begin = cur * cs + (cur_slot > 0 ? (carry_cnt < sh.wc_count[0]
+                                                            ? carry_cnt
+                                                            : sh.wc_count[0])
+                                                      : 0);
+    // the staged index of the segment's first symbol, the staging's room
+    // past it, and the chunk's symbols left
+    const int64_t sbase = (cur + j) * cs - o_begin + (o_begin & 15) + before;
+    const int64_t room64 = DEC_OUT_CAP + (o_begin & 15) - sbase;
+    const int room = room64 < 0 ? 0 : (room64 < DEC_NO_LIMIT ? (int)room64 : DEC_NO_LIMIT);
+    const int keep = jcount - before;
+    uint8_t* gout = out + (o_begin - (o_begin & 15)) + sbase;
+    auto put = [&](int i, uint8_t sym) {
+      if (i < room) {
+        so[out_slot((int)sbase + i)] = sym;
+      } else {
+        gout[i] = sym;
+      }
+    };
+    // one loop for both kinds of segment, so that a warp runs them together:
+    // a chunk's last segment decodes exactly the rest of its count
+    if (active) {
+      int got = 0;
+      const int p = decode_run(st, sh.tab, start, is_last ? DEC_NO_LIMIT : s1,
+                               is_last ? keep : DEC_NO_LIMIT, end, got,
+                               [&](int i, uint8_t sym) {
+                                 if (i < keep) put(i, sym);
+                               });
+      if (is_last && keep >= 0 && (int64_t)p - cbit64 > 8LL * jsize) atomicAdd(nbad, 1);
+    }
+    if (k == nseg_w - 1) {
+      const int done = before + cnt;
+      sh.o_end = (cur + j) * cs + (is_last ? jcount : (done < jcount ? done : jcount));
+      sh.carry_exit = (int64_t)ex - cbit64;
+      sh.carry_cnt = done;
+    }
+    __syncthreads();
+
+    // (g) the staged symbols leave in 16-byte stores where the window owns
+    // the whole unit, a byte at a time at its two ends
+    const int64_t o_end = sh.o_end;
+    const int64_t base = o_begin & ~(int64_t)15;
+    const int64_t o_lim = o_end < o_begin + DEC_OUT_CAP ? o_end : o_begin + DEC_OUT_CAP;
+    const int nunits = (int)((o_lim - base + 15) >> 4);
+    for (int u = t; u < nunits; u += DEC_THREADS) {
+      const int64_t a = base + 16LL * u;
+      if (a >= o_begin && a + 16 <= o_lim) {
+        const uint32_t* w = sh.out + out_slot(16 * u) / 4;
+        reinterpret_cast<uint4*>(out)[a >> 4] = make_uint4(w[0], w[1], w[2], w[3]);
+      } else {
+        for (int b = 0; b < 16; ++b) {
+          if (a + b >= o_begin && a + b < o_lim) out[a + b] = so[out_slot(16 * u + b)];
+        }
+      }
+    }
+    const int64_t nchunk = sh.next_chunk, nslot = sh.next_slot;
+    carry_exit = sh.carry_exit;
+    carry_cnt = sh.carry_cnt;
+    __syncthreads();  // the window's shared state is free again
+    cur = nchunk;
+    cur_slot = nslot;
   }
 }
 
@@ -445,25 +779,47 @@ int launch_emit(const void* syms, const void* codes, const void* lengths,
   return (int)cudaGetLastError();
 }
 
-unsigned grid_for(long long nchunks) {
-  return (unsigned)((nchunks + HUFF_THREADS - 1) / HUFF_THREADS);
-}
-
 }  // namespace
 
 extern "C" {
 
-// data (B,) u8 container; offsets (nchunks,) i64, sizes (nchunks,) i32 chunk
-// payloads in it; limits (11,), adj (13,), perm (256,) i32 -> out (n,) u8.
-int sprintz_huff_decode(const void* data, const void* offsets, const void* sizes,
-                        const void* limits, const void* adj, const void* perm, void* out,
-                        long long nchunks, int cs, long long n, void* stream) {
-  if (cs <= 0) return (int)cudaErrorInvalidValue;
-  huff_decode_kernel<<<grid_for(nchunks), HUFF_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(data), static_cast<const int64_t*>(offsets),
+// data (nbytes,) u8 container; offsets (nchunks,) i64, sizes (nchunks,) i32
+// chunk payloads in it, each offset the one before plus its size; limits
+// (11,), adj (13,), perm (256,) i32 -> out ((n + 3) & ~3) + 4 u8, 16-byte
+// aligned: the n symbols, zeros up to a multiple of 4, then the number of
+// overrun chunks as an i32.
+int sprintz_huff_decode(const void* data, long long nbytes, const void* offsets,
+                        const void* sizes, const void* limits, const void* adj,
+                        const void* perm, void* out, long long nchunks, int cs, long long n,
+                        void* stream) {
+  const long long nc = cs > 0 ? (n + cs - 1) / cs : 0;
+  if (cs <= 0 || n <= 0 || nc > nchunks || (reinterpret_cast<uintptr_t>(out) & 15)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint8_t* tail = static_cast<uint8_t*>(out) + n;  // the pad bytes and the count
+  int32_t* nbad = reinterpret_cast<int32_t*>(static_cast<uint8_t*>(out) + ((n + 3) & ~3LL));
+  cudaError_t err = cudaMemsetAsync(tail, 0, (size_t)(((n + 3) & ~3LL) + 4 - n), s);
+  if (err != cudaSuccess) return (int)err;
+  // one CTA an even share of the chunks, DEC_TILE_SYMBOLS symbols or more,
+  // and no more CTAs than the card holds at once
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, huff_decode_kernel,
+                                                           DEC_THREADS, 0)) != cudaSuccess) {
+    return (int)err;
+  }
+  const long long tile_chunks = cs < DEC_TILE_SYMBOLS ? DEC_TILE_SYMBOLS / cs : 1;
+  long long grid = (nc + tile_chunks - 1) / tile_chunks;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  grid = grid < resident ? grid : resident;
+  huff_decode_kernel<<<(unsigned)grid, DEC_THREADS, 0, s>>>(
+      static_cast<const uint8_t*>(data), nbytes, static_cast<const int64_t*>(offsets),
       static_cast<const int32_t*>(sizes), static_cast<const int32_t*>(limits),
       static_cast<const int32_t*>(adj), static_cast<const int32_t*>(perm),
-      static_cast<uint8_t*>(out), nchunks, cs, n);
+      static_cast<uint8_t*>(out), nbad, cs, n);
   return (int)cudaGetLastError();
 }
 

@@ -180,14 +180,14 @@ def decompress(buf: bytes, codec: str = "delta", elem_sz: int = 1,
             f"stream shorter than its {METADATA_LEN_RLE}-byte metadata "
             f"({len(buf)} bytes)")
     ngroups, remaining_len, ndims = read_metadata_rle(buf)
+    if ndims == 0 and not (ngroups == 0 and remaining_len == 0):
+        raise CorruptStreamError("metadata declares 0 dims")
     if ngroups == 0 and remaining_len < MIN_DATA_SIZE:
         if len(buf) < METADATA_LEN_RLE + remaining_len * elem_sz:
             raise CorruptStreamError("verbatim stream truncated")
         return np.frombuffer(
             buf, dtype=udt, count=remaining_len,
             offset=METADATA_LEN_RLE).copy()
-    if ndims == 0:
-        raise CorruptStreamError("metadata declares 0 dims")
     if ndims <= LOWDIM_MAX_NDIMS[elem_sz]:
         raise NotImplementedError(
             f"ndims={ndims} at elem_sz={elem_sz} uses the lowdim layout, "

@@ -5,10 +5,11 @@ stage, ``communicate/method.tex:300-303``); its containers are the same
 bytes. The host keeps what is O(256) or O(chunks): the histogram and the
 length-limited table, the container's head and the stored escape. The
 per-symbol work runs in ``ops/huffman_kernels.py``: ``encode_chunks``
-(``csrc/huffman.cu``'s size and emit passes, one thread per chunk) and
+(``csrc/huffman.cu``'s size and emit passes, a CTA a tile of chunks) and
 ``decode_chunks`` (K6, the counterpart of the Pallas
-``decode_device_pallas``: one thread per chunk, reading its bytes from the
-container uploaded once).
+``decode_device_pallas``: a CTA a tile of the payload, a chunk's bits cut
+into segments that threads decode in parallel, reading from the container
+uploaded once).
 
 Stream layout (the JAX package's own; the reference has no in-repo format):
   v2: [u32 n_symbols][u16 chunk_symbols][u16 flags][u32 nchunks]
@@ -33,7 +34,8 @@ import torch
 
 from ..device import resolve_device
 from ..errors import CorruptStreamError
-from ..ops.huffman_kernels import MAX_CODE_LEN, decode_chunks, encode_chunks
+from ..ops.huffman_kernels import (MAX_CODE_LEN, decode_chunks, encode_chunks,
+                                   flag_offset)
 
 # Chunk sizes of auto_chunk_symbols: small chunks (more decode lanes) for
 # streams of at least AUTO_CHUNK_MIN_BYTES, large ones (a slightly better
@@ -356,7 +358,10 @@ def huff_decompress(buf: bytes,
 
     A stored container's bytes come back as they are. A coded one is
     uploaded once and decoded by K6 on ``device`` (CUDA by default;
-    ``"cpu"`` runs its plain version, for tests)."""
+    ``"cpu"`` runs its plain version, for tests); symbols and overrun
+    count come back in one copy. Raises ``CorruptStreamError`` when a
+    chunk's codes run past its payload, as the JAX package's native
+    decode does."""
     if len(buf) < _STORED_HEAD_LEN:
         raise CorruptStreamError(
             f"Huffman container shorter than {_STORED_HEAD_LEN} bytes")
@@ -371,9 +376,12 @@ def huff_decompress(buf: bytes,
     n, chunk_symbols, nchunks, t, sizes, offsets = _parse(buf)
     if n == 0:
         return np.zeros(0, dtype=np.uint8)
-    syms = decode_chunks(
+    out = decode_chunks(
         upload_bytes(np.frombuffer(buf, np.uint8), dev),
         torch.from_numpy(offsets).to(dev),
         torch.from_numpy(sizes.astype(np.int32)).to(dev),
-        *decode_tables(t, dev), chunk_symbols, n)
-    return syms.cpu().numpy()
+        *decode_tables(t, dev), chunk_symbols, n).cpu().numpy()
+    k = flag_offset(n)
+    if int(out[k:k + 4].view(np.int32)[0]):
+        raise CorruptStreamError("Huffman payload overran its chunk")
+    return out[:n]

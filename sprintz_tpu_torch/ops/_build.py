@@ -42,8 +42,8 @@ SIGNATURES = {
     "sprintz_pack_rows": ("pack", (_P, _P, _P, _L, _I, _I, _I, _P)),
     "sprintz_fire_scan": ("fire", (_P, _P, _P, _L, _I, _I, _I, _P)),
     "sprintz_fire_chain_probe": ("fire", (_P, _L, _I, _P)),
-    "sprintz_huff_decode": ("huffman", (_P, _P, _P, _P, _P, _P, _P, _L, _I,
-                                        _L, _P)),
+    "sprintz_huff_decode": ("huffman", (_P, _L, _P, _P, _P, _P, _P, _P, _L,
+                                        _I, _L, _P)),
     "sprintz_huff_encode_sizes": ("huffman", (_P, _P, _P, _L, _I, _I, _P)),
     "sprintz_huff_encode_emit": ("huffman", (_P, _P, _P, _P, _P, _P, _L, _I,
                                              _I, _P)),

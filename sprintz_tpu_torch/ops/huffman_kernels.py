@@ -5,9 +5,12 @@ Counterpart of the device passes of ``sprintz_tpu/entropy/huffman.py`` and
 
 - ``decode_chunks`` (K6, ``huff_decode_kernel``), the counterpart of the
   Pallas ``decode_device_pallas`` with its fused permutation: each chunk's
-  canonical codes -> its symbols, one thread per chunk, reading the chunk's
-  bytes from the uploaded container at ``offsets[c]``, guarded by
-  ``sizes[c]``.
+  canonical codes -> its symbols and a count of the chunks whose codes
+  run past their payload. A CTA decodes an even share of the chunks, a
+  window of the payload at a time staged in shared memory; each thread
+  decodes a 512-bit segment of one chunk from a speculative start, and
+  segments decode again from their predecessor's exit until no exit
+  changes (``csrc/huffman.cu``'s header).
 - ``encode_chunks`` (``huff_encode_sizes_kernel`` then
   ``huff_encode_emit_kernel``), the counterpart of the XLA append scan of
   ``huffman.py:736-808``: symbols -> each chunk's payload bytes and size,
@@ -49,19 +52,39 @@ def _rev12(x: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------------ K6
 
 
+def flag_offset(n: int) -> int:
+    """Byte offset of the overrun count in ``decode_chunks``' output: the
+    first multiple of 4 at or after the n symbols."""
+    return (n + 3) & ~3
+
+
+def split_decoded(out: torch.Tensor, n: int):
+    """``decode_chunks``' output -> (symbols (n,) uint8, overrun count
+    (1,) int32), both views of it."""
+    k = flag_offset(n)
+    return out[:n], out[k:k + 4].view(torch.int32)
+
+
 def decode_chunks_plain(data: torch.Tensor, offsets: torch.Tensor,
                         sizes: torch.Tensor, limits: torch.Tensor,
                         adj: torch.Tensor, perm: torch.Tensor,
                         chunk_symbols: int, n: int) -> torch.Tensor:
     """Plain version of ``decode_chunks``: every chunk advances one symbol
-    per step, peeking 12 bits at its bit cursor from a 3-byte window."""
+    per step, peeking 12 bits at its bit cursor from a 3-byte window. A
+    chunk's cursor is taken after its own symbols, min(chunk_symbols,
+    n - c * chunk_symbols): the steps past them (the last chunk's) read
+    zeros and flag nothing."""
     nchunks = offsets.shape[0]
     off, sz = offsets.long(), sizes.long()
     lim, adjl, perml = limits.long(), adj.long(), perm.long()
     last = max(data.shape[0] - 1, 0)
-    bitpos = torch.zeros(nchunks, dtype=torch.int64, device=data.device)
-    out = torch.empty((nchunks, chunk_symbols), dtype=torch.uint8,
-                      device=data.device)
+    dev = data.device
+    bitpos = torch.zeros(nchunks, dtype=torch.int64, device=dev)
+    count = (n - torch.arange(nchunks, dtype=torch.int64, device=dev)
+             * chunk_symbols).clamp(0, chunk_symbols)
+    end_bits = torch.zeros_like(bitpos)
+    syms = torch.empty((nchunks, chunk_symbols), dtype=torch.uint8,
+                       device=dev)
     for i in range(chunk_symbols):
         q = bitpos >> 3
         w = torch.zeros_like(bitpos)
@@ -72,9 +95,14 @@ def decode_chunks_plain(data: torch.Tensor, offsets: torch.Tensor,
         v = _rev12((w >> (bitpos & 7)) & 0xFFF)
         length = 1 + (v[:, None] >= lim[None, :]).sum(dim=1)
         idx = ((v >> (MAX_CODE_LEN - length)) + adjl[length]).clamp(0, 255)
-        out[:, i] = perml[idx].to(torch.uint8)
+        syms[:, i] = perml[idx].to(torch.uint8)
         bitpos += length
-    return out.reshape(-1)[:n]
+        end_bits = torch.where(count == i + 1, bitpos, end_bits)
+    out = torch.zeros(flag_offset(n) + 4, dtype=torch.uint8, device=dev)
+    got, nbad = split_decoded(out, n)
+    got.copy_(syms.reshape(-1)[:n])
+    nbad.fill_(int((end_bits > 8 * sz).sum()))
+    return out
 
 
 def decode_chunks(data: torch.Tensor, offsets: torch.Tensor,
@@ -84,11 +112,16 @@ def decode_chunks(data: torch.Tensor, offsets: torch.Tensor,
     """Canonical Huffman decode of every chunk of a container.
 
     data (B,) uint8, the container; offsets (C,) int64 and sizes (C,)
-    int32, each chunk's payload bytes in it; limits (11,), adj (13,), perm
+    int32, each chunk's payload bytes in it, one chunk after the other (as
+    ``entropy.huffman._parse`` gives them); limits (11,), adj (13,), perm
     (256,) int32 from ``HuffmanTable.canonical_tables``. Chunk c holds
     symbols c * chunk_symbols onwards; a chunk reads its bytes past its
-    size as zeros. Returns the first n symbols, (n,) uint8, with
+    size as zeros, and is flagged when its codes end past them. Needs
     ``n <= C * chunk_symbols``.
+
+    Returns one (flag_offset(n) + 4,) uint8 tensor, so that a caller
+    downloads both in one copy: the n symbols, then at ``flag_offset(n)``
+    the number of flagged chunks as an int32 (``split_decoded``).
     """
     check_args("decode_chunks", data.device, data=(data, torch.uint8),
                offsets=(offsets, torch.int64), sizes=(sizes, torch.int32),
@@ -105,11 +138,12 @@ def decode_chunks(data: torch.Tensor, offsets: torch.Tensor,
     if data.device.type == "cpu":
         return decode_chunks_plain(data, offsets, sizes, limits, adj, perm,
                                    chunk_symbols, n)
-    out = torch.empty(n, dtype=torch.uint8, device=data.device)
+    out = torch.empty(flag_offset(n) + 4, dtype=torch.uint8,
+                      device=data.device)
     if n == 0:
-        return out
+        return out.zero_()
     _build.launch("sprintz_huff_decode", data, data.data_ptr(),
-                  offsets.data_ptr(), sizes.data_ptr(), limits.data_ptr(),
+                  data.shape[0], offsets.data_ptr(), sizes.data_ptr(), limits.data_ptr(),
                   adj.data_ptr(), perm.data_ptr(), out.data_ptr(), nchunks,
                   chunk_symbols, n)
     decode_chunks.launches += 1

@@ -49,10 +49,12 @@ def test_tables_match_jax(rng):
 def port_decode_plain(buf: bytes) -> np.ndarray:
     """K6's plain version on a container, as huff_decompress calls it."""
     n, cs, _, t, sizes, offsets = hf._parse(buf)
-    return hk.decode_chunks(
+    syms, nbad = hk.split_decoded(hk.decode_chunks(
         torch.from_numpy(np.frombuffer(buf, np.uint8).copy()),
         torch.from_numpy(offsets), torch.from_numpy(sizes.astype(np.int32)),
-        *hf.decode_tables(t, torch.device("cpu")), cs, n).numpy()
+        *hf.decode_tables(t, torch.device("cpu")), cs, n), n)
+    assert int(nbad) == 0
+    return syms.numpy()
 
 
 @pytest.mark.parametrize("cs", [8, 16])
