@@ -11,10 +11,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    ``build/sprintz_tpu_torch/``, one nvcc per source, all at once (set-up
    time);
 2. kernels: every kernel against its plain PyTorch version on the card,
-   bit-exact: K1 unpack_zz, K4 unpack_rows, K5 (K4's narrow mode), K2
-   prefix_finish and K3 pack_rows at the main path's shapes and at a
-   ragged shape; FIRE encode and decode (csrc/fire.cu, decode also from
-   a carried state) over the whole main-path streams, u8 and u16 at D 64
+   bit-exact: K1 unpack_zz (biased deltas and tile offsets), K4
+   unpack_rows, K5 (K4's narrow mode), K2 prefix_finish and K3 pack_rows
+   at the main path's shapes and at a ragged shape; FIRE encode and
+   decode (csrc/fire.cu, decode also from a carried state) over the
+   whole main-path streams, u8 and u16 at D 64
    and D 129, then at the shapes that stress its ring of row tiles (one
    block, one block less and more than a tile, fewer tiles than the ring,
    more than the ring; D 1, 31, 33, 129) and from carried states whose
@@ -29,7 +30,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    (``sprintz_tpu_torch/probes/decode_cases.py``: the same chunk sizes and
    kinds, zero padding that decodes to extra symbols, an overrun chunk in
    the middle and at the end), symbols and overrun counts, and at chunk
-   size 20000, above a CTA's window of payload;
+   size 20000, above a CTA's window of payload; K1, K4, K5 and K2 at the
+   delta decode's cases (``sprintz_tpu_torch/probes/unpack_cases.py``: u8
+   D 5-600 and u16 D 3-400, rows wider than a tile's shared memory, nb 1,
+   31, 33, 70, 100 and 4101, MAXB cut inside the rows, all-zero-width
+   blocks, a payload one byte off a 16-byte boundary);
 3. main path: compress then decompress with device="cuda", every kernel's
    launch counter set to 0 before that run and read after it (every kernel
    must have launched): delta on the 8 MiB u8 and u16 random walks, the
@@ -46,9 +51,9 @@ Phases, each of which raises (exit code != 0) when it fails:
    alone, its plain version and, where one exists, one PyTorch call of the
    same function, by CUDA events (median of 25 after warm-up, L2 flushed
    before each run; the plain FIRE is its one full-size run of phase 2,
-   at the same size as the kernel's time), at the 8 MiB walks; also K3
-   on the 64 MiB u8 walk, and K6 and huff_encode at chunk size 4096 on
-   the smooth 8 MiB stream's sprintz stream, whose plain decode (a Python
+   at the same size as the kernel's time), at the 8 MiB walks; also K3,
+   K1 and K2 on the 64 MiB u8 walk, and K6 and huff_encode at chunk size
+   4096 on the smooth 8 MiB stream's sprintz stream, whose plain decode (a Python
    loop of 4096 steps) is timed once. The FIRE rows also carry a
    chain bound: blocks x the dependent integer operations of a block,
    counted in csrc/fire.cu's header, x the latency of one dependent
@@ -175,6 +180,7 @@ def main() -> int:
         from sprintz_tpu_torch.errors import CorruptStreamError
         from sprintz_tpu_torch.probes import decode_cases as dc
         from sprintz_tpu_torch.probes import encode_cases as ec
+        from sprintz_tpu_torch.probes import unpack_cases as uc
         from sprintz_tpu_torch.stream_format import read_metadata_rle
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
@@ -263,11 +269,11 @@ def main() -> int:
         idx = decoder.walk_headers(buf, ng, nd, elem_sz)
         dense, dwidths, _ = decoder.upload_payload(
             decoder.gather_payloads(buf, idx), idx, dev)
-        bz, tots = dk.unpack_zz_plain(dense, dwidths, eb)
+        bz, toff = dk.unpack_zz_plain(dense, dwidths, eb)
         ferrs = fc.fire_encode(rows, eb)
         return dict(blocks=blocks, widths=widths, dense=dense,
                     dwidths=dwidths, bz=bz.reshape(-1, nd),
-                    toff=dk.exclusive_offsets(tots), eb=eb, es=elem_sz,
+                    toff=toff, eb=eb, es=elem_sz,
                     rows=rows, ferrs=ferrs.to(torch.uint8) if eb == 8
                     else ferrs)
 
@@ -459,6 +465,26 @@ def main() -> int:
                                  f"chunks flagged, want {nbad}")
     log(f"[kernels] huff_decode at {len(dc.DECODE_CASES)} decode cases and "
         f"at cs {DEC_LONG_CS} equals its plain version, symbols and flags")
+    # the delta decode's cases, the CPU tests' list: K1 (deltas and tile
+    # offsets), K4, K5 (u8) and K2 on K1's output
+    urng = np.random.default_rng(SEED + 4)
+    for eb, nd, nb, ukind in uc.UNPACK_CASES:
+        d, w = uc.to_device(*uc.unpack_case(urng, eb, nd, nb, ukind)[:2],
+                            ukind, dev)
+        what = f"unpack case u{eb} D {nd} nb {nb} {ukind}"
+        bz, toff = dk.unpack_zz(d, w, eb)
+        check("unpack_zz", (bz, toff), dk.unpack_zz_plain(d, w, eb), what)
+        check("unpack_rows", pk.unpack_rows(d, w),
+              pk.unpack_rows_plain(d, w), what)
+        if eb == 8:
+            check("unpack_rows_narrow", pk.unpack_rows(d, w, narrow=True),
+                  pk.unpack_rows_plain(d, w, True), what)
+        bz = bz.reshape(-1, nd)
+        check("prefix_finish", dk.prefix_finish(bz, toff, eb),
+              dk.prefix_finish_plain(bz, toff, eb), what)
+    log(f"[kernels] unpack_zz, unpack_rows, unpack_rows_narrow and "
+        f"prefix_finish at {len(uc.UNPACK_CASES)} unpack cases equal their "
+        f"plain versions")
 
     # ------------------------------------------------------ 3. main path
     streams = {
@@ -795,7 +821,8 @@ def main() -> int:
     log_rows(huff_what, table[huff_what])
     table[huff_smooth[0]] = huff_rows(huff_smooth[1], plain_dec_once=True)
     log_rows(huff_smooth[0], table[huff_smooth[0]])
-    # K3 on the 64 MiB walk, whose i32 errors outgrow the 50 MB L2
+    # K3, K1 and K2 on the 64 MiB walk, whose i32 errors, payload and
+    # values outgrow the 50 MB L2
     what = "u8 walk 64 MiB (nb 131072, D 64)"
     rows64 = encoder.upload_rows(streams["u8 walk 64 MiB"], dev)
     b64 = fc.delta_encode(rows64, 8).reshape(-1, 8, rows64.shape[1])
@@ -809,8 +836,28 @@ def main() -> int:
         packing_bytes=2 * b64.numel() + w64.numel())]
     table[what][0]["packing_bound_ms"] = (table[what][0]["packing_bytes"]
                                           / mem_rate * 1e3)
-    log_rows(what, table[what])
     del rows64, b64, w64
+    buf64 = bufs[("u8 walk 64 MiB", "delta", "none")]
+    idx64 = decoder.walk_headers(buf64, read_metadata_rle(buf64)[0], 64, 1)
+    d64, dw64, _ = decoder.upload_payload(
+        decoder.gather_payloads(buf64, idx64), idx64, dev)
+    out64 = dk.unpack_zz(d64, dw64, 8)
+    check("unpack_zz", out64, dk.unpack_zz_plain(d64, dw64, 8), what)
+    bz64, toff64 = out64[0].reshape(-1, 64), out64[1]
+    check("prefix_finish", dk.prefix_finish(bz64, toff64, 8),
+          dk.prefix_finish_plain(bz64, toff64, 8), what)
+    table[what] += [
+        row("unpack_zz", lambda: dk.unpack_zz(d64, dw64, 8),
+            lambda: dk.unpack_zz_plain(d64, dw64, 8), None,
+            nbytes(d64, dw64, *out64), OPS_PER_ELEM["unpack_zz"] * bz64.numel()),
+        row("prefix_finish", lambda: dk.prefix_finish(bz64, toff64, 8),
+            lambda: dk.prefix_finish_plain(bz64, toff64, 8),
+            lambda: torch.cumsum(bz64.view(-1, dk.TILE_ROWS, 64), dim=1,
+                                 dtype=torch.int32),
+            nbytes(bz64, toff64, bz64),
+            OPS_PER_ELEM["prefix_finish"] * bz64.numel())]
+    log_rows(what, table[what])
+    del d64, dw64, out64, bz64, toff64
     log("[timing] kernels " + json.dumps(table))
 
     class Split:
@@ -943,9 +990,9 @@ def main() -> int:
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in line]}),
           flush=True)
     print(smi, flush=True)
-    # one card drove the run, however many the machine has
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": 1}}), flush=True)
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -1,6 +1,6 @@
 // Row-major delta decode kernels for Hopper (sm_90a), bound with ctypes.
 //
-// unpack_zz_kernel<EB, RAW>  (K1, and K4 and K5 as its RAW mode)
+// unpack_zz_kernel<EB, RAW, CONTIG>  (K1, and K4 and K5 as its RAW mode)
 //   Replaces sprintz_tpu/ops/pallas_decode.py:_unpack_zz_kernel (unpack_zz)
 //   and, in RAW mode, sprintz_tpu/ops/pallas_pack.py:_unpack_kernel
 //   (unpack_rows_pallas, K4: <16, true>, i32 fields) and _unpack_mxu_kernel
@@ -8,35 +8,61 @@
 //   for u8 fields, here u8 fields: a quarter of K4's writes). The TPU's
 //   block-diagonal MXU dot has no counterpart: the GPU reads the field's
 //   bytes at their address. For every (block, row, dim) it reads the field at
-//   bit offset `off` (the exclusive prefix of the block's widths) from a
-//   3-byte window of the row, each byte guarded by `< maxb`, shifts it by
+//   bit offset `off` (the exclusive prefix of the block's u8 widths) from a
+//   3-byte window of the row, bytes at or past maxb read as 0, shifts it by
 //   `off & 7` and masks it to `w` bits. A u16 field shifted by up to 7 bits
 //   reaches 23 bits, so the window is 3 bytes for every element size.
-//   Non-raw mode zigzag-decodes the field, stores `delta + 2^(EB-1)` narrow
-//   and writes each tile's per-dim i32 sum of the signed deltas; RAW mode
-//   stores the field, as u8 at EB 8 (fields of u8 streams are at most 8
-//   bits wide) and as i32 at EB 16.
-//   Bound on this card: bytes. It moves the payload, the i32 widths and
-//   offsets once and writes one narrow value per field (about 2.5 bytes of
-//   traffic per u8 value), with about a dozen integer operations per field.
-//   Design: one thread per (row, dim); a CTA owns one tile of blocks for 32
-//   dims, so neighbouring threads read and write neighbouring dims and the
-//   tile total needs only a shared-memory reduction over the 8 row lanes,
-//   written once, with no atomics and no zeroed buffer. The TPU version's
-//   select-accumulate over every byte of the row becomes three guarded byte
-//   loads at a data-dependent address, which the GPU does directly.
+//   Non-raw mode zigzag-decodes the field and stores `delta + 2^(EB-1)`
+//   narrow; it also turns each tile's per-dim sum of the signed deltas into
+//   the tile's exclusive offset (below). RAW mode stores the field, as u8 at
+//   EB 8 (fields of u8 streams are at most 8 bits wide) and as i32 at EB 16.
+//   Bound on this card: bytes. It reads the payload and the u8 widths once
+//   and writes one narrow value per field (about 2.1 bytes of traffic per u8
+//   value), with about a dozen integer operations per field.
+//   Design: a CTA of 256 threads owns a tile of TILE_BLOCKS blocks across
+//   all dims. The tile's payload rows and output rows are each one
+//   contiguous range of memory:
+//   1. the widths and the payload go to shared memory in 16-byte cp.async
+//      copies, all in flight at once, in two groups: the widths and the
+//      first half of the blocks' rows, then the second half; once the
+//      first group has landed, 8 lanes a block scan the block's u8 widths
+//      into (offset << 5 | width), each lane a segment of dims;
+//   2. each thread takes (block, 4 dims) items (2 dims at EB 16),
+//      neighbouring lanes on neighbouring dims: the fields' offset words,
+//      then for each of the block's 8 rows one 64-bit window of the row
+//      from two aligned shared words, out of which each field is a funnel
+//      shift and a mask, written into a shared image of the output rows;
+//      the first half's blocks while the second group arrives;
+//   3. the image leaves in 16-byte stores, the first half's rows while the
+//      second half's fields are extracted; the units at the two ends, which
+//      other tiles share, a byte at a time.
+//   Rows wider than the tile's shared memory (ndims is a u16, so a row may
+//   reach 128 KiB) go in chunks of dims (CONTIG false): each row of the
+//   chunk is staged from its block's running bit offset, which the scan
+//   carries from chunk to chunk, and stored as a range of its own.
+//   Tile offsets (K1): the CTA takes its tile from an atomic ticket, so it
+//   only waits on tiles that started before it. For each dim it publishes
+//   its total in an (ntiles, ndims) status word of flag and value before it
+//   stores its image, then walks back over its predecessors' words,
+//   LOOK_BACK words at once, summing totals until it meets an inclusive
+//   prefix (a single-pass decoupled look-back), publishes its own
+//   inclusive prefix and writes the exclusive one. The C entry point zeroes
+//   the status words and the ticket on the launch's stream.
 //
-// prefix_finish_kernel<EB>  (K2)
+// prefix_finish_kernel<EB, CONTIG>  (K2)
 //   Replaces sprintz_tpu/ops/pallas_decode.py:_prefix_finish_kernel
-//   (prefix_finish). For each tile of rows_tile rows and each dim: the
+//   (prefix_finish). For each tile of TILE_ROWS rows and each dim: the
 //   inclusive prefix of the biased deltas minus bias x rows, plus the tile's
 //   exclusive offset, masked to EB bits and narrowed. The TPU computed the
 //   prefix as a bf16 lower-triangular matmul; here it is an integer scan.
 //   Bound on this card: bytes (one narrow read and one narrow write per
 //   value, one add each).
-//   Design: one thread per (tile, dim) walks the tile's rows with a running
-//   u32 sum (wrapping is absorbed by the EB-bit mask); neighbouring threads
-//   take neighbouring dims, so each row's loads and stores coalesce.
+//   Design: a CTA of 256 threads a tile (in chunks of dims for wide rows).
+//   The tile goes to shared memory in 16-byte cp.async copies; each thread
+//   sums a run of RUN_ROWS rows of one dim (neighbouring lanes on
+//   neighbouring dims), the runs' sums are scanned in shared memory, and
+//   each thread walks its run again from its prefix, writing the values in
+//   place; the image leaves in 16-byte stores as in K1.
 
 #include <cstdint>
 
@@ -44,9 +70,20 @@
 
 namespace {
 
-constexpr int BLOCK_SZ = 8;      // rows per block
-constexpr int DIMS_PER_CTA = 32;  // threadIdx.x: dims; threadIdx.y: rows
-constexpr int SCAN_THREADS = 128;
+constexpr int BLOCK_SZ = 8;  // rows per block
+constexpr int TILE_BLOCKS = 32;
+constexpr int TILE_ROWS = TILE_BLOCKS * BLOCK_SZ;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int SCAN_LANES = THREADS / TILE_BLOCKS;  // K1's lanes a block's widths
+constexpr int RUN_ROWS = 64;  // K2: rows of a thread's run
+constexpr int RUNS = TILE_ROWS / RUN_ROWS;
+constexpr int SMEM_DEFAULT = 48 * 1024;  // above it the kernel must opt in
+constexpr int SMEM_BUDGET = 112 * 1024;  // two CTAs a SM at the widest tile
+constexpr int READ_SLACK = 8;  // K1 reads two words from a field's byte on
+constexpr int LOOK_BACK = 4;   // status words K1's look-back reads at once
+constexpr unsigned long long FLAG_TOTAL = 1ull << 32;   // status: a tile's total
+constexpr unsigned long long FLAG_PREFIX = 2ull << 32;  // inclusive prefix
 
 template <int EB>
 struct Narrow;
@@ -72,138 +109,596 @@ struct UnpackOut<16, true> {
   using type = int32_t;
 };
 
-template <int EB, bool RAW>
-__global__ void unpack_zz_kernel(const uint8_t* __restrict__ dense,
-                                 const int32_t* __restrict__ widths,
-                                 const int32_t* __restrict__ off,
-                                 typename UnpackOut<EB, RAW>::type* __restrict__ out,
-                                 int32_t* __restrict__ tile_tot, int64_t nb,
-                                 int ndims, int maxb, int tile_blocks) {
-  __shared__ int32_t part[BLOCK_SZ][DIMS_PER_CTA];
-  const int d = blockIdx.y * DIMS_PER_CTA + threadIdx.x;
-  const int r = threadIdx.y;
-  const int64_t b0 = (int64_t)blockIdx.x * tile_blocks;
-  const int64_t b1 = b0 + tile_blocks < nb ? b0 + tile_blocks : nb;
-  int32_t sum = 0;
-  if (d < ndims) {
-    for (int64_t b = b0; b < b1; ++b) {
-      const int32_t w = widths[b * ndims + d];
-      const int32_t o = off[b * ndims + d];
-      const int32_t q = o >> 3;
-      const int64_t row = b * BLOCK_SZ + r;
-      const uint8_t* src = dense + row * maxb;
-      uint32_t word = 0;
-      if ((uint32_t)q < (uint32_t)maxb) word = src[q];
-      if ((uint32_t)(q + 1) < (uint32_t)maxb) word |= (uint32_t)src[q + 1] << 8;
-      if ((uint32_t)(q + 2) < (uint32_t)maxb) word |= (uint32_t)src[q + 2] << 16;
-      const uint32_t u = (word >> (o & 7)) & ((1u << w) - 1u);
-      const int64_t oi = row * ndims + d;
-      if constexpr (RAW) {
-        out[oi] = (typename UnpackOut<EB, RAW>::type)u;
-      } else {
-        const int32_t delta = (int32_t)(u >> 1) ^ -(int32_t)(u & 1u);
-        out[oi] = (typename Narrow<EB>::type)(delta + (1 << (EB - 1)));
-        sum += delta;
-      }
-    }
-  }
-  if constexpr (!RAW) {
-    part[r][threadIdx.x] = sum;
-    __syncthreads();
-    if (r == 0 && d < ndims) {
-      int32_t t = 0;
-#pragma unroll
-      for (int i = 0; i < BLOCK_SZ; ++i) t += part[i][threadIdx.x];
-      tile_tot[(int64_t)blockIdx.x * ndims + d] = t;
+// Shared memory of a tile, computed on the host. The tile is one chunk of
+// dc = ndims dims where it fits SMEM_BUDGET (contig: its rows are staged
+// and stored as one range each); else rows are staged and stored one at a
+// time, in chunks of dc dims, each row's images in_stride and out_stride
+// bytes apart.
+struct Plan {
+  int dc;
+  int contig;
+  int window;  // bytes a row's chunk may need from its first field's byte
+  int in_stride, out_stride, w_stride;
+  int out_off, w_off, aux_off, smem;  // w_off: K1's widths, K2's tile offsets
+};
+
+__host__ __device__ inline int round16(long long n) { return (int)((n + 15) / 16 * 16); }
+
+// ---- device helpers (PTX)
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits for this thread's copies but those of its last committed group.
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A status word is flag << 32 | value, written and read whole, so no fence
+// orders a value against its flag.
+__device__ __forceinline__ unsigned long long ld_status(const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+__device__ __forceinline__ void st_status(unsigned long long* p, unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+// ---- end of device helpers
+
+// Copy bytes [g0, g0 + len) of src (16-byte aligned, gtot bytes) into img,
+// where img[0] stands for byte g0 & ~15: whole 16-byte units by cp.async
+// (the caller waits), a unit that runs past gtot a byte at a time. Thread t
+// of nt takes every nt-th unit.
+__device__ __forceinline__ void stage_range(uint8_t* img, const uint8_t* src, int64_t g0,
+                                            int len, int64_t gtot, int t, int nt) {
+  if (len <= 0) return;
+  const int64_t a = g0 & ~(int64_t)15;
+  const int units = (int)((g0 + len - a + 15) >> 4);
+  for (int u = t; u < units; u += nt) {
+    const int64_t g = a + 16 * (int64_t)u;
+    if (g + 16 <= gtot) {
+      cp_async16(img + 16 * u, src + g);
+    } else {
+      for (int k = 0; k < 16 && g + k < gtot; ++k) img[16 * u + k] = src[g + k];
     }
   }
 }
 
-template <int EB>
-__global__ void prefix_finish_kernel(const typename Narrow<EB>::type* __restrict__ bz,
-                                     const int32_t* __restrict__ tile_off,
-                                     typename Narrow<EB>::type* __restrict__ out,
-                                     int64_t rows, int ndims, int rows_tile,
-                                     int64_t ntiles) {
-  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= ntiles * ndims) return;
-  const int64_t tile = g / ndims;
-  const int64_t d = g - tile * ndims;
-  const int64_t r0 = tile * rows_tile;
-  const int64_t r1 = r0 + rows_tile < rows ? r0 + rows_tile : rows;
+// Store bytes [g0, g0 + len) of dst from img (img[0] stands for byte
+// g0 & ~15): whole units in one 16-byte store, the units at the two ends,
+// whose other bytes belong to other tiles or chunks, a byte at a time.
+__device__ __forceinline__ void store_range(uint8_t* dst, int64_t g0, int len,
+                                            const uint8_t* img, int t, int nt) {
+  if (len <= 0) return;
+  const int64_t a = g0 & ~(int64_t)15;
+  const int64_t e = g0 + len;
+  const int units = (int)((e - a + 15) >> 4);
+  for (int u = t; u < units; u += nt) {
+    const int64_t g = a + 16 * (int64_t)u;
+    if (g >= g0 && g + 16 <= e) {
+      *reinterpret_cast<uint4*>(dst + g) = *reinterpret_cast<const uint4*>(img + 16 * u);
+    } else {
+      for (int k = 0; k < 16; ++k) {
+        if (g + k >= g0 && g + k < e) dst[g + k] = img[16 * u + k];
+      }
+    }
+  }
+}
+
+// Tile `tile`'s exclusive offset in dim d, once its total `agg` is
+// published: the decoupled look-back over the (ntiles, ndims) status
+// words. It reads LOOK_BACK predecessors at once, sums back to the nearest
+// inclusive prefix, and publishes its own.
+__device__ __forceinline__ uint32_t look_back(unsigned long long* status, int64_t tile,
+                                              int ndims, int d, uint32_t agg) {
+  if (tile == 0) return 0;
+  uint32_t excl = 0;
+  bool done = false;
+  for (int64_t next = tile - 1; !done; next -= LOOK_BACK) {
+    unsigned long long v[LOOK_BACK];
+#pragma unroll
+    for (int i = 0; i < LOOK_BACK; ++i) {  // before tile 0: a prefix of 0
+      v[i] = next - i >= 0 ? ld_status(status + (next - i) * ndims + d) : FLAG_PREFIX;
+    }
+#pragma unroll
+    for (int i = 0; i < LOOK_BACK; ++i) {
+      if (!done) {
+        while (v[i] < FLAG_TOTAL) v[i] = ld_status(status + (next - i) * ndims + d);
+        excl += (uint32_t)v[i];
+        done = v[i] >= FLAG_PREFIX;
+      }
+    }
+  }
+  st_status(status + tile * ndims + d, FLAG_PREFIX | (excl + agg));
+  return excl;
+}
+
+template <int EB, bool RAW, bool CONTIG>
+__global__ void __launch_bounds__(THREADS)
+    unpack_zz_kernel(const uint8_t* __restrict__ dense, const uint8_t* __restrict__ widths,
+                     typename UnpackOut<EB, RAW>::type* __restrict__ out,
+                     int32_t* __restrict__ tile_off, unsigned long long* __restrict__ status,
+                     int64_t nb, int ndims, int maxb, Plan p) {
+  using OutT = typename UnpackOut<EB, RAW>::type;
+  constexpr int OS = sizeof(OutT);
+  constexpr uint32_t kBias = 1u << (EB - 1);
+  // Fields an item reads from one 64-bit window: a window from the first
+  // field's byte holds NV fields of at most EB bits after a shift of up to
+  // 7 bits and an alignment of up to 24 bits.
+  constexpr int NV = EB == 8 ? 4 : 2;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* s_in = smem;
+  uint8_t* s_out = smem + p.out_off;
+  uint8_t* s_w = smem + p.w_off;
+  // [TILE_BLOCKS][dc + 1]: a word of padding a block, against bank
+  // conflicts of the scan's writes, whose lanes are a segment apart
+  const int ow_stride = p.dc + 1;
+  uint32_t* s_ow = reinterpret_cast<uint32_t*>(smem + p.aux_off);
+  uint32_t* s_tot = s_ow + TILE_BLOCKS * ow_stride;                 // [dc]
+  int32_t* s_boff = reinterpret_cast<int32_t*>(s_tot + p.dc);       // [TILE_BLOCKS]
+  int32_t* s_tile = s_boff + TILE_BLOCKS;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int64_t ntiles = (nb + TILE_BLOCKS - 1) / TILE_BLOCKS;
+
+  int64_t tile = blockIdx.x;
+  if (!RAW) {
+    if (tid == 0) {
+      *s_tile = (int32_t)atomicAdd(reinterpret_cast<unsigned*>(status + ntiles * ndims), 1u);
+    }
+    __syncthreads();
+    tile = *s_tile;
+  }
+  const int64_t b0 = tile * TILE_BLOCKS;
+  const int nbt = (int)(nb - b0 < TILE_BLOCKS ? nb - b0 : TILE_BLOCKS);
+  const int rows = nbt * BLOCK_SZ;
+  const int64_t row0 = b0 * BLOCK_SZ;
+  const int64_t gtot = nb * BLOCK_SZ * (int64_t)maxb;
+  const int in_base = (int)((row0 * maxb) & 15);
+  const int64_t wtot = nb * (int64_t)ndims;
+  const int64_t out0 = row0 * ndims * OS;  // the tile's first output byte
+  const int out_base = (int)(out0 & 15);
+  uint8_t* out8 = reinterpret_cast<uint8_t*>(out);
+  // the widths' scan: SCAN_LANES lanes a block, each a segment of the dims
+  const int sb = tid / SCAN_LANES;
+  const int sl = tid % SCAN_LANES;
+  const unsigned smask = ((1u << SCAN_LANES) - 1u) << (lane & (32 - SCAN_LANES));
+  int carry = 0;  // block sb's bit offset at the chunk's first dim
+  if (tid < TILE_BLOCKS) s_boff[tid] = 0;
+  __syncthreads();
+
+  for (int d0 = 0; d0 < ndims; d0 += p.dc) {
+    const int dc = ndims - d0 < p.dc ? ndims - d0 : p.dc;
+    // 1. Into shared memory in two cp.async groups: the widths and the
+    // payload of the first half of the blocks, then that of the second,
+    // which arrives while the first half's fields are extracted. Then 8
+    // lanes a block scan the block's widths into offsets.
+    auto stage_rows = [&](int r_lo, int r_hi) {
+      if constexpr (CONTIG) {  // the second group from the unit after the first's last
+        const int64_t e = (row0 + r_hi) * maxb;
+        const int64_t g = r_lo ? ((row0 + r_lo) * maxb + 15) & ~(int64_t)15 : row0 * maxb;
+        stage_range(s_in + (int)((g & ~(int64_t)15) - ((row0 * maxb) & ~(int64_t)15)), dense,
+                    g, (int)(e - g), gtot, tid, THREADS);
+      } else {
+        for (int r = r_lo + warp; r < r_hi; r += WARPS) {
+          const int q0 = s_boff[r / BLOCK_SZ] >> 3;
+          const int len = maxb - q0 < p.window ? maxb - q0 : p.window;
+          stage_range(s_in + r * p.in_stride, dense, (row0 + r) * maxb + q0, len, gtot, lane,
+                      32);
+        }
+      }
+    };
+    if constexpr (CONTIG) {
+      stage_range(s_w, widths, b0 * ndims, nbt * ndims, wtot, tid, THREADS);
+    } else {
+      for (int b = warp; b < nbt; b += WARPS) {
+        stage_range(s_w + b * p.w_stride, widths, (b0 + b) * ndims + d0, dc, wtot, lane, 32);
+      }
+    }
+    const int half = (nbt + 1) / 2;  // blocks of the first group
+    stage_rows(0, half * BLOCK_SZ);
+    cp_async_commit();
+    stage_rows(half * BLOCK_SZ, rows);
+    cp_async_commit();
+    if (!RAW) {
+      for (int j = tid; j < dc; j += THREADS) s_tot[j] = 0;
+    }
+    cp_async_wait_prior();
+    __syncthreads();
+    if (sb < nbt) {  // uniform in the block's 8 lanes
+      const uint8_t* wb = CONTIG ? s_w + (int)((b0 * ndims) & 15) + sb * ndims
+                                 : s_w + sb * p.w_stride + (int)(((b0 + sb) * ndims + d0) & 15);
+      const int seg = (dc + SCAN_LANES - 1) / SCAN_LANES;
+      const int j0 = sl * seg;
+      const int j1 = j0 + seg < dc ? j0 + seg : dc;
+      int sum = 0;
+      for (int j = j0; j < j1; ++j) sum += wb[j] < EB ? wb[j] : EB;  // widths are <= EB
+      int incl = sum;
+#pragma unroll
+      for (int o = 1; o < SCAN_LANES; o <<= 1) {
+        const int t = __shfl_up_sync(smask, incl, o, SCAN_LANES);
+        if (sl >= o) incl += t;
+      }
+      int off = carry + incl - sum;
+      for (int j = j0; j < j1; ++j) {
+        const int w = wb[j] < EB ? wb[j] : EB;
+        s_ow[sb * ow_stride + j] = ((uint32_t)off << 5) | (uint32_t)w;
+        off += w;
+      }
+      carry += __shfl_sync(smask, incl, SCAN_LANES - 1, SCAN_LANES);
+    }
+    __syncthreads();
+
+    // 2. (block, NV dims) items: the NV fields of each of the block's 8
+    // rows, from one 64-bit window of the row; the blocks of the first
+    // group, then, once they have arrived, those of the second.
+    const int nq = (dc + NV - 1) / NV;
+    const int bstep = THREADS / nq;
+    const int qstep = THREADS - bstep * nq;
+    auto extract = [&](int b_lo, int b_hi) {
+      int b = b_lo + tid / nq;
+      int jq = tid % nq;
+      for (int it = b_lo * nq + tid; it < b_hi * nq; it += THREADS) {
+        const int j = jq * NV;
+        const uint32_t* ow = s_ow + b * ow_stride + j;
+        int q = (int)(ow[0] >> 8);  // the window's first byte: the first field's
+        uint32_t rel[NV], mask[NV];  // each field's bit in the window, and its bits
+  #pragma unroll
+        for (int k = 0; k < NV; ++k) {
+          const int off = j + k < dc ? (int)(ow[k] >> 5) : 8 * q;
+          const int lim = maxb - (off >> 3);  // bytes of its 3-byte window in the row
+          const uint32_t keep = lim >= 3 ? 0xFFFFFFu : lim <= 0 ? 0u : (1u << (8 * lim)) - 1u;
+          rel[k] = (uint32_t)(off - 8 * q);
+          mask[k] = j + k < dc ? ((1u << (ow[k] & 31u)) - 1u) & (keep >> (off & 7)) : 0u;
+        }
+        int in_pos, in_step, out_pos, out_step;
+        if constexpr (CONTIG) {
+          if (q >= maxb) q = 0;  // fields past the row read a byte of it, masked
+          in_pos = in_base + b * BLOCK_SZ * maxb + q;
+          in_step = maxb;
+          out_pos = out_base + (b * BLOCK_SZ * ndims + j) * OS;
+          out_step = ndims * OS;
+        } else {  // s_boff holds the block's bit offset at the chunk's first dim
+          const int q0 = s_boff[b] >> 3;
+          if (q >= maxb) q = q0;
+          in_pos = b * BLOCK_SZ * p.in_stride + q - q0;
+          in_step = p.in_stride;
+          out_pos = b * BLOCK_SZ * p.out_stride + j * OS;
+          out_step = p.out_stride;
+        }
+        uint32_t sum[NV] = {};
+  #pragma unroll
+        for (int r8 = 0; r8 < BLOCK_SZ; ++r8) {
+          const int r = b * BLOCK_SZ + r8;
+          int pos = in_pos + r8 * in_step;
+          int opos = out_pos + r8 * out_step;
+          if constexpr (!CONTIG) {  // each row's image starts at its first byte's place in a unit
+            pos += (int)((in_base + (int64_t)r * maxb + (s_boff[b] >> 3)) & 15);
+            opos += (int)((out_base + ((int64_t)r * ndims + d0) * OS) & 15);
+          }
+          const uint32_t* w4 = reinterpret_cast<const uint32_t*>(s_in + (pos & ~3));
+          const uint32_t a = 8 * (pos & 3);
+          const uint32_t lo = __funnelshift_r(w4[0], w4[1], a);
+          const uint32_t hi = w4[1] >> a;
+  #pragma unroll
+          for (int k = 0; k < NV; ++k) {
+            const uint32_t u = __funnelshift_r(lo, hi, rel[k]) & mask[k];
+            OutT* o = reinterpret_cast<OutT*>(s_out + opos) + k;
+            if constexpr (RAW) {
+              if (j + k < dc) *o = (OutT)u;
+            } else {
+              const uint32_t delta = (u >> 1) ^ (0u - (u & 1u));
+              if (j + k < dc) *o = (OutT)(delta + kBias);
+              sum[k] += delta;
+            }
+          }
+        }
+        if (!RAW) {
+  #pragma unroll
+          for (int k = 0; k < NV; ++k) {
+            if (j + k < dc) atomicAdd(s_tot + j + k, sum[k]);
+          }
+        }
+        b += bstep;
+        jq += qstep;
+        if (jq >= nq) {
+          jq -= nq;
+          ++b;
+        }
+      }
+    };
+    // 3. The image out, a group's rows at a time; the tile's totals
+    // published; the tile's offsets; the blocks' offsets carried on.
+    auto store_rows = [&](int r_lo, int r_hi) {
+      if constexpr (CONTIG) {
+        const int64_t g = out0 + (int64_t)r_lo * ndims * OS;
+        store_range(out8, g, (r_hi - r_lo) * ndims * OS,
+                    s_out + (int)((g & ~(int64_t)15) - (out0 & ~(int64_t)15)), tid, THREADS);
+      } else {
+        for (int r = r_lo + warp; r < r_hi; r += WARPS) {
+          store_range(out8, ((row0 + r) * ndims + d0) * OS, dc * OS, s_out + r * p.out_stride,
+                      lane, 32);
+        }
+      }
+    };
+    extract(0, half);
+    cp_async_wait_all();
+    __syncthreads();
+    store_rows(0, half * BLOCK_SZ);
+    extract(half, nbt);
+    __syncthreads();
+    if (!RAW) {
+      for (int jj = tid; jj < dc; jj += THREADS) {  // the first tile's total is its prefix
+        st_status(status + tile * ndims + d0 + jj,
+                  (tile == 0 ? FLAG_PREFIX : FLAG_TOTAL) | s_tot[jj]);
+      }
+    }
+    store_rows(half * BLOCK_SZ, rows);
+    if (!RAW) {
+      for (int jj = tid; jj < dc; jj += THREADS) {
+        tile_off[tile * ndims + d0 + jj] =
+            (int32_t)look_back(status, tile, ndims, d0 + jj, s_tot[jj]);
+      }
+    }
+    if (sl == 0 && sb < nbt) s_boff[sb] = carry;
+    __syncthreads();
+  }
+}
+
+template <int EB, bool CONTIG>
+__global__ void __launch_bounds__(THREADS)
+    prefix_finish_kernel(const typename Narrow<EB>::type* __restrict__ bz,
+                         const int32_t* __restrict__ tile_off,
+                         typename Narrow<EB>::type* __restrict__ out, int64_t nrows,
+                         int ndims, Plan p) {
+  using T = typename Narrow<EB>::type;
+  constexpr int ES = sizeof(T);
   constexpr uint32_t kBias = 1u << (EB - 1);
   constexpr uint32_t kMask = (1u << EB) - 1u;
-  uint32_t acc = (uint32_t)tile_off[g];
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint32_t* s_run = reinterpret_cast<uint32_t*>(smem + p.aux_off);  // [RUNS][dc]
+  const int64_t ntiles = (nrows + TILE_ROWS - 1) / TILE_ROWS;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int64_t tile = blockIdx.x;
+  const int64_t row0 = tile * TILE_ROWS;
+  const int rows = (int)(nrows - row0 < TILE_ROWS ? nrows - row0 : TILE_ROWS);
+  const int64_t g0 = row0 * ndims * ES;  // the tile's first byte
+  const int base = (int)(g0 & 15);
+  const uint8_t* src = reinterpret_cast<const uint8_t*>(bz);
+  uint8_t* dst = reinterpret_cast<uint8_t*>(out);
+
+  for (int d0 = 0; d0 < ndims; d0 += p.dc) {
+    const int dc = ndims - d0 < p.dc ? ndims - d0 : p.dc;
+    if constexpr (CONTIG) {
+      stage_range(smem, src, g0, rows * ndims * ES, nrows * ndims * ES, tid, THREADS);
+    } else {
+      for (int r = warp; r < rows; r += WARPS) {
+        stage_range(smem + r * p.in_stride, src, ((row0 + r) * ndims + d0) * ES, dc * ES,
+                    nrows * ndims * ES, lane, 32);
+      }
+    }
+    const int64_t to0 = (tile * ndims + d0) * 4;  // the chunk's tile offsets
+    stage_range(smem + p.w_off, reinterpret_cast<const uint8_t*>(tile_off), to0, dc * 4,
+                ntiles * ndims * 4, tid, THREADS);
+    const uint32_t* s_toff = reinterpret_cast<const uint32_t*>(smem + p.w_off + (to0 & 15));
+    cp_async_wait_all();
+    __syncthreads();
+
+    // (run, dim) items; the value of row r, dim j of the chunk at elem(r, j)
+    auto elem = [&](int r, int j) -> T* {
+      const int pos = CONTIG
+                          ? base + (r * ndims + j) * ES
+                          : r * p.in_stride + (int)((base + ((int64_t)r * ndims + d0) * ES) & 15) +
+                                j * ES;
+      return reinterpret_cast<T*>(smem + pos);
+    };
+    for (int it = tid; it < RUNS * dc; it += THREADS) {
+      const int k = it / dc;
+      const int j = it - k * dc;
+      const int r1 = (k + 1) * RUN_ROWS < rows ? (k + 1) * RUN_ROWS : rows;
+      uint32_t sum = 0;
 #pragma unroll 8
-  for (int64_t r = r0; r < r1; ++r) {
-    const int64_t i = r * ndims + d;
-    acc += (uint32_t)bz[i] - kBias;
-    out[i] = (typename Narrow<EB>::type)(acc & kMask);
+      for (int r = k * RUN_ROWS; r < r1; ++r) sum += (uint32_t)*elem(r, j) - kBias;
+      s_run[k * p.dc + j] = sum;
+    }
+    __syncthreads();
+    for (int it = tid; it < RUNS * dc; it += THREADS) {
+      const int k = it / dc;
+      const int j = it - k * dc;
+      const int r1 = (k + 1) * RUN_ROWS < rows ? (k + 1) * RUN_ROWS : rows;
+      uint32_t acc = s_toff[j];
+      for (int kk = 0; kk < k; ++kk) acc += s_run[kk * p.dc + j];
+#pragma unroll 8
+      for (int r = k * RUN_ROWS; r < r1; ++r) {
+        T* v = elem(r, j);
+        acc += (uint32_t)*v - kBias;
+        *v = (T)(acc & kMask);
+      }
+    }
+    __syncthreads();
+    if constexpr (CONTIG) {
+      store_range(dst, g0, rows * ndims * ES, smem, tid, THREADS);
+    } else {
+      for (int r = warp; r < rows; r += WARPS) {
+        store_range(dst, ((row0 + r) * ndims + d0) * ES, dc * ES, smem + r * p.in_stride, lane,
+                    32);
+      }
+    }
+    __syncthreads();
   }
+}
+
+// K1's tile: contiguous where the whole rows fit SMEM_BUDGET, else the
+// widest chunk of dims (a multiple of 32) that fits.
+Plan unpack_plan(int ndims, int maxb, int es, int os) {
+  Plan p{};
+  auto aux = [](int dc) { return 4 * TILE_BLOCKS * (dc + 1) + 4 * dc + 4 * TILE_BLOCKS + 16; };
+  p.out_off = round16(15 + (long long)TILE_ROWS * maxb + READ_SLACK);
+  p.w_off = p.out_off + round16(15 + (long long)TILE_ROWS * ndims * os);
+  p.aux_off = p.w_off + round16(15 + (long long)TILE_BLOCKS * ndims);
+  p.smem = p.aux_off + aux(ndims);
+  if (p.smem <= SMEM_BUDGET) {
+    p.dc = ndims;
+    p.contig = 1;
+    p.window = maxb;
+    return p;
+  }
+  for (int dc = 32;; dc += 32) {
+    const int window = dc * es + 3 < maxb ? dc * es + 3 : maxb;
+    const int in_stride = round16(window + 15 + READ_SLACK);
+    const int out_stride = round16(15 + dc * os);
+    const int w_stride = round16(15 + dc);
+    const int smem = TILE_ROWS * (in_stride + out_stride) + TILE_BLOCKS * w_stride + aux(dc);
+    if (dc > 32 && (smem > SMEM_BUDGET || dc >= ndims)) break;
+    p.dc = dc;
+    p.window = window;
+    p.in_stride = in_stride;
+    p.out_stride = out_stride;
+    p.w_stride = w_stride;
+    p.out_off = TILE_ROWS * in_stride;
+    p.w_off = p.out_off + TILE_ROWS * out_stride;
+    p.aux_off = p.w_off + TILE_BLOCKS * w_stride;
+    p.smem = smem;
+  }
+  return p;
+}
+
+// K2's tile: one image of the values, in place, and the tile's offsets.
+Plan finish_plan(int ndims, int es) {
+  Plan p{};
+  p.w_off = round16(15 + (long long)TILE_ROWS * ndims * es);
+  p.aux_off = p.w_off + round16(15 + 4LL * ndims);
+  p.smem = p.aux_off + 4 * RUNS * ndims;
+  if (p.smem <= SMEM_BUDGET) {
+    p.dc = ndims;
+    p.contig = 1;
+    return p;
+  }
+  for (int dc = 32;; dc += 32) {
+    const int in_stride = round16(15 + dc * es);
+    const int smem = TILE_ROWS * in_stride + round16(15 + 4 * dc) + 4 * RUNS * dc;
+    if (dc > 32 && (smem > SMEM_BUDGET || dc >= ndims)) break;
+    p.dc = dc;
+    p.in_stride = in_stride;
+    p.w_off = TILE_ROWS * in_stride;
+    p.aux_off = p.w_off + round16(15 + 4 * dc);
+    p.smem = smem;
+  }
+  return p;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem) {
+  if (smem <= SMEM_DEFAULT) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <int EB, bool RAW, bool CONTIG>
+int launch_unpack(const uint8_t* dense, const uint8_t* widths, void* out, int32_t* tile_off,
+                  unsigned long long* status, long long nb, int ndims, int maxb, const Plan& p,
+                  cudaStream_t s) {
+  using OutT = typename UnpackOut<EB, RAW>::type;
+  const long long ntiles = (nb + TILE_BLOCKS - 1) / TILE_BLOCKS;
+  cudaError_t err = allow_smem(unpack_zz_kernel<EB, RAW, CONTIG>, p.smem);
+  if (err == cudaSuccess && !RAW) {  // the status words and the ticket
+    err = cudaMemsetAsync(status, 0, (size_t)(ntiles * ndims + 1) * sizeof(*status), s);
+  }
+  if (err != cudaSuccess) return (int)err;
+  unpack_zz_kernel<EB, RAW, CONTIG><<<(unsigned)ntiles, THREADS, (size_t)p.smem, s>>>(
+      dense, widths, static_cast<OutT*>(out), tile_off, status, nb, ndims, maxb, p);
+  return (int)cudaGetLastError();
+}
+
+template <int EB, bool RAW>
+int launch_unpack(const uint8_t* dense, const uint8_t* widths, void* out, int32_t* tile_off,
+                  unsigned long long* status, long long nb, int ndims, int maxb,
+                  cudaStream_t s) {
+  const Plan p = unpack_plan(ndims, maxb, EB / 8,
+                             (int)sizeof(typename UnpackOut<EB, RAW>::type));
+  return p.contig ? launch_unpack<EB, RAW, true>(dense, widths, out, tile_off, status, nb,
+                                                 ndims, maxb, p, s)
+                  : launch_unpack<EB, RAW, false>(dense, widths, out, tile_off, status, nb,
+                                                  ndims, maxb, p, s);
+}
+
+template <int EB, bool CONTIG>
+int launch_finish(const void* bz, const int32_t* tile_off, void* out, long long rows, int ndims,
+                  const Plan& p, cudaStream_t s) {
+  using T = typename Narrow<EB>::type;
+  const cudaError_t err = allow_smem(prefix_finish_kernel<EB, CONTIG>, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned ntiles = (unsigned)((rows + TILE_ROWS - 1) / TILE_ROWS);
+  prefix_finish_kernel<EB, CONTIG><<<ntiles, THREADS, (size_t)p.smem, s>>>(
+      static_cast<const T*>(bz), tile_off, static_cast<T*>(out), rows, ndims, p);
+  return (int)cudaGetLastError();
+}
+
+template <int EB>
+int launch_finish(const void* bz, const int32_t* tile_off, void* out, long long rows, int ndims,
+                  cudaStream_t s) {
+  const Plan p = finish_plan(ndims, EB / 8);
+  return p.contig ? launch_finish<EB, true>(bz, tile_off, out, rows, ndims, p, s)
+                  : launch_finish<EB, false>(bz, tile_off, out, rows, ndims, p, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dense (nb, 8, maxb) u8; widths, off (nb, ndims) i32.
-// raw == 0: out (nb, 8, ndims) u8/u16 biased deltas, tile_tot
-//           (ceil(nb / tile_blocks), ndims) i32.
+// dense (nb, 8, maxb) u8; widths (nb, ndims) u8, each at most elem_bits;
+// dense, widths and out 16-byte aligned.
+// raw == 0: out (nb, 8, ndims) u8/u16 biased deltas; tile_off
+//           (ceil(nb / 32), ndims) i32 exclusive offsets of the tiles;
+//           status ceil(nb / 32) * ndims + 1 words of 8 bytes, scratch.
 // raw != 0: out (nb, 8, ndims) fields, u8 at elem_bits 8 and i32 at 16;
-//           tile_tot unused.
-int sprintz_unpack_zz(const void* dense, const void* widths, const void* off,
-                      void* out, void* tile_tot, long long nb, int ndims,
-                      int maxb, int tile_blocks, int elem_bits, int raw,
+//           tile_off and status unused.
+int sprintz_unpack_zz(const void* dense, const void* widths, void* out, void* tile_off,
+                      void* status, long long nb, int ndims, int maxb, int elem_bits, int raw,
                       void* stream) {
-  const long long ntiles = (nb + tile_blocks - 1) / tile_blocks;
-  const dim3 grid((unsigned)ntiles, (unsigned)((ndims + DIMS_PER_CTA - 1) / DIMS_PER_CTA));
-  const dim3 block(DIMS_PER_CTA, BLOCK_SZ);
+  if (((uintptr_t)dense | (uintptr_t)widths | (uintptr_t)out) & 15) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* dn = static_cast<const uint8_t*>(dense);
-  const int32_t* wd = static_cast<const int32_t*>(widths);
-  const int32_t* of = static_cast<const int32_t*>(off);
-  int32_t* tt = static_cast<int32_t*>(tile_tot);
-  if (raw && elem_bits == 8) {
-    unpack_zz_kernel<8, true><<<grid, block, 0, s>>>(
-        dn, wd, of, static_cast<uint8_t*>(out), tt, nb, ndims, maxb, tile_blocks);
-  } else if (raw && elem_bits == 16) {
-    unpack_zz_kernel<16, true><<<grid, block, 0, s>>>(
-        dn, wd, of, static_cast<int32_t*>(out), tt, nb, ndims, maxb, tile_blocks);
-  } else if (raw) {
-    return (int)cudaErrorInvalidValue;
-  } else if (elem_bits == 8) {
-    unpack_zz_kernel<8, false><<<grid, block, 0, s>>>(
-        dn, wd, of, static_cast<uint8_t*>(out), tt, nb, ndims, maxb, tile_blocks);
-  } else if (elem_bits == 16) {
-    unpack_zz_kernel<16, false><<<grid, block, 0, s>>>(
-        dn, wd, of, static_cast<uint16_t*>(out), tt, nb, ndims, maxb, tile_blocks);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const uint8_t* wd = static_cast<const uint8_t*>(widths);
+  int32_t* to = static_cast<int32_t*>(tile_off);
+  unsigned long long* st = static_cast<unsigned long long*>(status);
+  if (raw && elem_bits == 8) return launch_unpack<8, true>(dn, wd, out, to, st, nb, ndims, maxb, s);
+  if (raw && elem_bits == 16) return launch_unpack<16, true>(dn, wd, out, to, st, nb, ndims, maxb, s);
+  if (raw) return (int)cudaErrorInvalidValue;
+  if (elem_bits == 8) return launch_unpack<8, false>(dn, wd, out, to, st, nb, ndims, maxb, s);
+  if (elem_bits == 16) return launch_unpack<16, false>(dn, wd, out, to, st, nb, ndims, maxb, s);
+  return (int)cudaErrorInvalidValue;
 }
 
-// bz, out (rows, ndims) u8/u16; tile_off (ceil(rows / rows_tile), ndims) i32.
-int sprintz_prefix_finish(const void* bz, const void* tile_off, void* out,
-                          long long rows, int ndims, int rows_tile,
-                          int elem_bits, void* stream) {
-  const long long ntiles = (rows + rows_tile - 1) / rows_tile;
-  const long long nthreads = ntiles * ndims;
-  const unsigned nblocks = (unsigned)((nthreads + SCAN_THREADS - 1) / SCAN_THREADS);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int32_t* to = static_cast<const int32_t*>(tile_off);
-  if (elem_bits == 8) {
-    prefix_finish_kernel<8><<<nblocks, SCAN_THREADS, 0, s>>>(
-        static_cast<const uint8_t*>(bz), to, static_cast<uint8_t*>(out), rows,
-        ndims, rows_tile, ntiles);
-  } else if (elem_bits == 16) {
-    prefix_finish_kernel<16><<<nblocks, SCAN_THREADS, 0, s>>>(
-        static_cast<const uint16_t*>(bz), to, static_cast<uint16_t*>(out), rows,
-        ndims, rows_tile, ntiles);
-  } else {
+// bz, out (rows, ndims) u8/u16; tile_off (ceil(rows / 256), ndims) i32;
+// all three 16-byte aligned.
+int sprintz_prefix_finish(const void* bz, const void* tile_off, void* out, long long rows,
+                          int ndims, int elem_bits, void* stream) {
+  if (((uintptr_t)bz | (uintptr_t)tile_off | (uintptr_t)out) & 15) {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* to = static_cast<const int32_t*>(tile_off);
+  if (elem_bits == 8) return launch_finish<8>(bz, to, out, rows, ndims, s);
+  if (elem_bits == 16) return launch_finish<16>(bz, to, out, rows, ndims, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The message of a CUDA error code, for the errors of every library here.

@@ -5,14 +5,14 @@ The compressed layout only reveals payload sizes through the group
 headers, so offset recovery is a sequential walk over the headers on the
 host (``walk_headers``); the payload rows are then gathered into one dense
 (ndata, 8, MAXB) buffer (``gather_payloads``) and everything heavy runs on
-the device. Delta: K1 ``unpack_zz`` -> exclusive scan of the tile totals
--> K2 ``prefix_finish`` (``decode_delta_contiguous``). FIRE: K4
-``unpack_rows`` (its narrow mode, K5, at u8) -> ``fire_decode``'s serial
-scan. A stream with zero runs first has its payload blocks placed on the
-block timeline, with run blocks of width 0 (the byte-gather timeline of
-the JAX package's ``decoder.py:582-612``), and then takes the same
-kernels: a run block decodes as zero errors, which FIRE runs through as
-the encoder did.
+the device. Delta: K1 ``unpack_zz`` (which also scans its tiles' totals
+into their offsets) -> K2 ``prefix_finish`` (``decode_delta_contiguous``).
+FIRE: K4 ``unpack_rows`` (its narrow mode, K5, at u8) -> ``fire_decode``'s
+serial scan. A stream with zero runs first has its payload blocks placed
+on the block timeline, with run blocks of width 0 (the byte-gather
+timeline of the JAX package's ``decoder.py:582-612``), and then takes the
+same kernels: a run block decodes as zero errors, which FIRE runs through
+as the encoder did.
 
 The values come back narrow and the verbatim tail is appended on the host.
 """
@@ -137,7 +137,7 @@ def decode_device(dense: torch.Tensor, widths: torch.Tensor,
     """Device pass: the gathered payload of the data blocks -> the stream's
     rows (total_rows, D), u8/u16, on the payload's device.
 
-    dense (ndata, 8, MAXB) uint8; widths (ndata, D) int32; out_rows
+    dense (ndata, 8, MAXB) uint8; widths (ndata, D) uint8; out_rows
     (ndata,) int64 first row of each data block on the timeline.
 
     With runs, the payload blocks are first placed on the block timeline
@@ -210,10 +210,10 @@ def decompress(buf: bytes, codec: str = "delta", elem_sz: int = 1,
 
 
 def upload_payload(dense: np.ndarray, idx: StreamIndex, device: torch.device):
-    """Host payload and index -> (dense u8, widths int32, out_rows int64) on
-    ``device``; widths travel as u8 and widen there."""
+    """Host payload and index -> (dense u8, widths u8, out_rows int64) on
+    ``device``."""
     return (torch.from_numpy(dense).to(device),
-            torch.from_numpy(idx.widths).to(device).to(torch.int32),
+            torch.from_numpy(idx.widths).to(device),
             torch.from_numpy(idx.out_rows).to(device))
 
 

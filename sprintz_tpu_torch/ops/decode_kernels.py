@@ -1,13 +1,13 @@
 """Delta decode kernels: payload bytes -> reconstructed values.
 
 Counterpart of ``sprintz_tpu/ops/pallas_decode.py``. Two CUDA kernels
-(``csrc/decode.cu``) and a tiny scan between them:
+(``csrc/decode.cu``), nothing between them:
 
 - K1 ``unpack_zz``: field extraction fused with the zigzag decode,
   emitting narrow u8/u16 deltas biased to unsigned, plus each tile's
-  per-dim delta total.
-- an exclusive ``torch.cumsum`` over the (ntiles, 1, D) tile totals, as the
-  JAX package does it in XLA (``pallas_decode.py:207``).
+  per-dim exclusive offset: the exclusive scan of the tile totals that the
+  JAX package runs in XLA between its kernels (``pallas_decode.py:207``),
+  which the kernel computes by a look-back across its CTAs.
 - K2 ``prefix_finish``: each tile's inclusive prefix plus its offset,
   masked and narrowed.
 
@@ -27,7 +27,8 @@ from . import _build
 
 # Blocks per tile: the JAX pipeline's default (decode_delta_contiguous's
 # block_tile), so tile totals match it. K1 sums each tile of TILE_BLOCKS
-# blocks and K2 scans each tile of TILE_ROWS rows: one tile size for both.
+# blocks and K2 scans each tile of TILE_ROWS rows: one tile size for both,
+# csrc/decode.cu's TILE_BLOCKS and TILE_ROWS.
 TILE_BLOCKS = 32
 TILE_ROWS = TILE_BLOCKS * BLOCK_SZ
 
@@ -71,9 +72,9 @@ def check_args(name: str, device: torch.device, **tensors) -> None:
 def check_payload(name: str, dense: torch.Tensor,
                   widths: torch.Tensor) -> None:
     """Checks of an unpack kernel's inputs: dense (nb, 8, MAXB) uint8 and
-    widths (nb, D) int32 on one device."""
+    widths (nb, D) uint8 (the header walk's) on one device."""
     check_args(name, dense.device, dense=(dense, torch.uint8),
-               widths=(widths, torch.int32))
+               widths=(widths, torch.uint8))
     if (dense.dim() != 3 or widths.dim() != 2 or dense.shape[1] != BLOCK_SZ
             or widths.shape[0] != dense.shape[0] or dense.shape[2] < 1):
         raise ValueError(f"{name}: dense {tuple(dense.shape)} and widths "
@@ -95,6 +96,12 @@ def extract_fields(dense: torch.Tensor, widths: torch.Tensor) -> torch.Tensor:
         byte = torch.gather(d32, 2, idx.clamp(max=maxb - 1).long())
         word |= torch.where(idx < maxb, byte, 0) << (8 * k)
     return (word >> (off & 7).unsqueeze(1)) & ((1 << w) - 1).unsqueeze(1)
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data does not start on 16 bytes:
+    the kernels stage and store 16 bytes at a time."""
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def tiled(deltas: torch.Tensor) -> torch.Tensor:
@@ -119,13 +126,14 @@ def unpack_zz_plain(dense: torch.Tensor, widths: torch.Tensor,
     bz = narrow(delta + (1 << (elem_bits - 1)), elem_bits)
     tots = tiled(delta.reshape(nb * BLOCK_SZ, ndims)).sum(
         dim=1, keepdim=True, dtype=torch.int32)
-    return bz, tots
+    return bz, exclusive_offsets(tots)
 
 
 def unpack_zz(dense: torch.Tensor, widths: torch.Tensor, elem_bits: int):
-    """dense (nb, 8, MAXB) uint8, widths (nb, D) int32 ->
-    (biased deltas (nb, 8, D) u8/u16, tile totals
-    (ceil(nb / TILE_BLOCKS), 1, D) i32).
+    """dense (nb, 8, MAXB) uint8, widths (nb, D) uint8 ->
+    (biased deltas (nb, 8, D) u8/u16, tile offsets
+    (ceil(nb / TILE_BLOCKS), 1, D) i32: the wrapping sum of the deltas of
+    every tile before each).
 
     MAXB is ``dense.shape[2]``, which may be less than D * elem_sz: bytes
     at or past it read as zero.
@@ -138,16 +146,19 @@ def unpack_zz(dense: torch.Tensor, widths: torch.Tensor, elem_bits: int):
     ndims = widths.shape[1]
     ntiles = -(-nb // TILE_BLOCKS)
     bz = torch.empty((nb, BLOCK_SZ, ndims), dtype=odt, device=dense.device)
-    tots = torch.empty((ntiles, 1, ndims), dtype=torch.int32,
+    toff = torch.empty((ntiles, 1, ndims), dtype=torch.int32,
                        device=dense.device)
     if nb == 0 or ndims == 0:
-        return bz, tots.zero_()
-    off = torch.cumsum(widths, dim=1, dtype=torch.int32) - widths
+        return bz, toff.zero_()
+    dense, widths = aligned16(dense), aligned16(widths)
+    # the look-back's status words and its ticket, zeroed by the launch
+    status = torch.empty(ntiles * ndims + 1, dtype=torch.int64,
+                         device=dense.device)
     _build.launch("sprintz_unpack_zz", dense, dense.data_ptr(),
-                  widths.data_ptr(), off.data_ptr(), bz.data_ptr(),
-                  tots.data_ptr(), nb, ndims, maxb, TILE_BLOCKS, elem_bits, 0)
+                  widths.data_ptr(), bz.data_ptr(), toff.data_ptr(),
+                  status.data_ptr(), nb, ndims, maxb, elem_bits, 0)
     unpack_zz.launches += 1
-    return bz, tots
+    return bz, toff
 
 
 unpack_zz.launches = 0
@@ -184,9 +195,10 @@ def prefix_finish(bz: torch.Tensor, tile_offsets: torch.Tensor,
     out = torch.empty_like(bz)
     if rows == 0 or ndims == 0:
         return out
+    bz, tile_offsets = aligned16(bz), aligned16(tile_offsets)
     _build.launch("sprintz_prefix_finish", bz, bz.data_ptr(),
                   tile_offsets.data_ptr(), out.data_ptr(), rows, ndims,
-                  TILE_ROWS, elem_bits)
+                  elem_bits)
     prefix_finish.launches += 1
     return out
 
@@ -198,7 +210,8 @@ prefix_finish.launches = 0
 
 
 def exclusive_offsets(tots: torch.Tensor) -> torch.Tensor:
-    """Exclusive prefix of (ntiles, 1, D) tile totals, in wrapping int32."""
+    """Exclusive prefix of (ntiles, 1, D) tile totals, in wrapping int32
+    (K1's plain version; the kernel computes it by its look-back)."""
     return torch.cumsum(tots, dim=0, dtype=torch.int32) - tots
 
 
@@ -206,10 +219,9 @@ def decode_delta_contiguous(dense: torch.Tensor, widths: torch.Tensor,
                             elem_bits: int) -> torch.Tensor:
     """Run-free delta decode: payload -> values (nb*8, D) u8/u16.
 
-    dense (nb, 8, MAXB) uint8; widths (nb, D) int32.
+    dense (nb, 8, MAXB) uint8; widths (nb, D) uint8.
     """
     nb = dense.shape[0]
     ndims = widths.shape[1]
-    bz, tots = unpack_zz(dense, widths, elem_bits)
-    return prefix_finish(bz.reshape(nb * BLOCK_SZ, ndims),
-                         exclusive_offsets(tots), elem_bits)
+    bz, toff = unpack_zz(dense, widths, elem_bits)
+    return prefix_finish(bz.reshape(nb * BLOCK_SZ, ndims), toff, elem_bits)

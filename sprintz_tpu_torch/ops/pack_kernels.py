@@ -22,7 +22,7 @@ import torch
 
 from ..constants import BLOCK_SZ
 from . import _build
-from .decode_kernels import TILE_BLOCKS, check_args, check_payload, extract_fields
+from .decode_kernels import aligned16, check_args, check_payload, extract_fields
 
 # ------------------------------------------------------------------ K3
 
@@ -99,8 +99,7 @@ def pack_rows(errs_zz: torch.Tensor, widths: torch.Tensor,
     if nb == 0 or ndims == 0:
         return out
     tile_rows = pack_tile_rows(ndims, elem_sz)
-    if errs_zz.data_ptr() % 16:  # the kernel loads 16 bytes at a time
-        errs_zz = errs_zz.clone()
+    errs_zz = aligned16(errs_zz)
     _build.launch("sprintz_pack_rows", errs_zz, errs_zz.data_ptr(),
                   widths.data_ptr(), out.data_ptr(), nb, ndims, elem_sz,
                   tile_rows)
@@ -123,7 +122,7 @@ def unpack_rows_plain(dense: torch.Tensor, widths: torch.Tensor,
 
 def unpack_rows(dense: torch.Tensor, widths: torch.Tensor,
                 narrow: bool = False) -> torch.Tensor:
-    """dense (nb, 8, MAXB) uint8, widths (nb, D) int32 -> zigzag fields
+    """dense (nb, 8, MAXB) uint8, widths (nb, D) uint8 -> zigzag fields
     (nb, 8, D) int32, or uint8 with ``narrow=True``. Bytes at or past MAXB
     read as zero; the 3-byte window serves u8 and u16 streams alike.
 
@@ -141,10 +140,10 @@ def unpack_rows(dense: torch.Tensor, widths: torch.Tensor,
                       device=dense.device)
     if nb == 0 or ndims == 0:
         return out
-    off = torch.cumsum(widths, dim=1, dtype=torch.int32) - widths
+    dense, widths = aligned16(dense), aligned16(widths)
     _build.launch("sprintz_unpack_zz", dense, dense.data_ptr(),
-                  widths.data_ptr(), off.data_ptr(), out.data_ptr(), None, nb,
-                  ndims, maxb, TILE_BLOCKS, 8 if narrow else 16, 1)
+                  widths.data_ptr(), out.data_ptr(), None, None, nb, ndims,
+                  maxb, 8 if narrow else 16, 1)
     if narrow:
         unpack_rows.narrow_launches += 1
     else:

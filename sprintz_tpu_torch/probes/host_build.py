@@ -1,0 +1,213 @@
+#!/usr/bin/env python3
+"""Build the delta decode's kernels (``csrc/decode.cu``: K1/K4/K5
+``unpack_zz_kernel`` and K2 ``prefix_finish_kernel``) on the host with
+g++, and hold them to their plain versions at the cases of
+``probes/unpack_cases.py``, with no card and no nvcc.
+
+    python3 sprintz_tpu_torch/probes/host_build.py [--resident 1 3] [--src FILE]
+
+The source is compiled as C++ against ``host_shim.h``: its launches
+become calls that run each CUDA thread as a std::thread, ``resident``
+CTAs at a time (more than one, so that K1's look-back waits on tiles that
+run beside it); its device helpers (``cp.async``, the status words) are
+replaced between their marker lines by copies that land when a wait
+covers their group, and C++ atomics. Shared memory and every output start
+as garbage, so a byte the kernel fails to write, or reads before its copy
+lands, shows. The C entry points are called through ctypes
+as the wrappers call them. It prints one line a case and exits 1 on the
+first difference. Not imported by the port.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+
+HERE = pathlib.Path(__file__).resolve().parent
+ROOT = HERE.parents[1]
+SRC = ROOT / "sprintz_tpu_torch" / "csrc" / "decode.cu"
+OUT = ROOT / "build" / "sprintz_tpu_torch" / "host"
+HELPERS = re.compile(r"// ---- device helpers \(PTX\)\n.*?// ---- end of device helpers\n",
+                     re.S)
+HOST_HELPERS = """
+// cp.async: a copy lands only when a wait covers its group, so that a read
+// of shared memory before its wait sees the garbage the shim put there
+inline thread_local std::vector<std::pair<void*, const void*>> g_open;
+inline thread_local std::vector<std::vector<std::pair<void*, const void*>>> g_groups;
+inline void cp_async16(void* dst, const void* src) { g_open.push_back({dst, src}); }
+inline void cp_async_commit() {
+  g_groups.push_back(std::move(g_open));
+  g_open.clear();
+}
+inline void shim_land(size_t pending) {
+  while (g_groups.size() > pending) {
+    for (auto& [dst, src] : g_groups.front()) std::memcpy(dst, src, 16);
+    g_groups.erase(g_groups.begin());
+  }
+}
+inline void cp_async_wait_prior() { shim_land(1); }
+inline void cp_async_wait_all() {
+  cp_async_commit();
+  shim_land(0);
+}
+inline unsigned long long ld_status(const unsigned long long* p) {
+  std::this_thread::yield();
+  return std::atomic_ref<unsigned long long>(*const_cast<unsigned long long*>(p)).load();
+}
+inline void st_status(unsigned long long* p, unsigned long long v) {
+  std::atomic_ref<unsigned long long>(*p).store(v);
+}
+"""
+ENTRY = """
+extern "C" void sprintz_shim_set_resident(int n) { g_resident = n; }
+extern "C" int sprintz_shim_fault() { return g_fault.exchange(0); }
+"""
+
+
+def host_source(src: str) -> str:
+    """decode.cu as C++ for the shim: helpers, shared memory, launches."""
+    out, n = HELPERS.subn(HOST_HELPERS, src)
+    assert n == 1, "the device helpers' marker lines"
+    out = out.replace("#include <cuda_runtime.h>\n", "")
+    out, n = re.subn(r"extern __shared__ __align__\(16\) uint8_t smem\[\];",
+                     "uint8_t* smem = shim_smem();", out)
+    assert n == 2, "one dynamic shared buffer a kernel"
+    out, n = re.subn(r"(\w+<[^<>;]*>)<<<(.*?)>>>\(", r"shim_launch(\1, \2, ", out,
+                     flags=re.S)
+    assert n == 2, "one launch a kernel"
+    return out + ENTRY
+
+
+def build(src: pathlib.Path = SRC, out: pathlib.Path = OUT) -> ctypes.CDLL:
+    """Compile ``src`` for the shim into ``out`` (reused while the source
+    and the shim are unchanged) and load it."""
+    text = host_source(src.read_text())
+    key = hashlib.sha256(text.encode() + (HERE / "host_shim.h").read_bytes()).hexdigest()[:16]
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / f"libdecode_host_{key}.so"
+    if not lib.exists():
+        cpp = out / f"decode_host_{key}.cpp"
+        cpp.write_text(text)
+        subprocess.run(["g++", "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC",
+                        "-include", str(HERE / "host_shim.h"), "-o", str(lib), str(cpp)],
+                       check=True)
+    so = ctypes.CDLL(str(lib))
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    so.sprintz_unpack_zz.argtypes = [P, P, P, P, P, L, I, I, I, I, P]
+    so.sprintz_prefix_finish.argtypes = [P, P, P, L, I, I, P]
+    so.sprintz_shim_set_resident.argtypes = [I]
+    return so
+
+
+class HostKernels:
+    """The wrappers' calls of the C entry points, on CPU tensors."""
+
+    def __init__(self, so: ctypes.CDLL, resident: int):
+        import torch
+
+        self.so, self.torch = so, torch
+        so.sprintz_shim_set_resident(resident)
+        self.gen = torch.Generator().manual_seed(resident)
+
+    def garbage(self, shape, dtype):
+        t = self.torch
+        raw = t.randint(0, 256, (int(np.prod(shape)) * t.empty((), dtype=dtype).element_size(),),
+                        dtype=t.uint8, generator=self.gen)
+        return raw.view(dtype).reshape(shape)
+
+    def check(self, err: int):
+        if err or self.so.sprintz_shim_fault():
+            raise RuntimeError(f"host kernel: error {err} or a shared-memory overrun")
+
+    def unpack(self, dense, widths, elem_bits: int, raw: int):
+        from sprintz_tpu_torch.ops import decode_kernels as dk
+
+        t = self.torch
+        nb, _, maxb = dense.shape
+        nd = widths.shape[1]
+        ntiles = -(-nb // dk.TILE_BLOCKS)
+        if raw:
+            odt = t.uint8 if elem_bits == 8 else t.int32
+        else:
+            odt = dk.narrow_dtype(elem_bits)
+        out = self.garbage((nb, 8, nd), odt)
+        toff = self.garbage((ntiles, 1, nd), t.int32)
+        status = self.garbage((ntiles * nd + 1,), t.int64)
+        dense, widths = dk.aligned16(dense), dk.aligned16(widths)
+        self.check(self.so.sprintz_unpack_zz(
+            dense.data_ptr(), widths.data_ptr(), out.data_ptr(),
+            None if raw else toff.data_ptr(), None if raw else status.data_ptr(),
+            nb, nd, maxb, elem_bits, raw, None))
+        return out if raw else (out, toff)
+
+    def prefix_finish(self, bz, toff, elem_bits: int):
+        from sprintz_tpu_torch.ops import decode_kernels as dk
+
+        out = self.garbage(tuple(bz.shape), bz.dtype)
+        bz, toff = dk.aligned16(bz), dk.aligned16(toff)
+        self.check(self.so.sprintz_prefix_finish(
+            bz.data_ptr(), toff.data_ptr(), out.data_ptr(), bz.shape[0], bz.shape[1],
+            elem_bits, None))
+        return out
+
+
+def check_case(hk: HostKernels, eb: int, nd: int, nb: int, kind: str) -> str | None:
+    """The host-built K1, K4, K5 (u8) and K2 against their plain versions
+    at an ``unpack_cases`` case: the name of the first that differs, or
+    None."""
+    import torch
+
+    from sprintz_tpu_torch.ops import decode_kernels as dk
+    from sprintz_tpu_torch.ops import pack_kernels as pk
+    from sprintz_tpu_torch.probes import unpack_cases as uc
+
+    rng = np.random.default_rng(eb * 7919 + nd * 31 + nb)
+    dense, widths, _ = uc.unpack_case(rng, eb, nd, nb, kind)
+    d, w = uc.to_device(dense, widths, kind, "cpu")
+    bz, toff = dk.unpack_zz_plain(d, w, eb)
+    got_bz, got_toff = hk.unpack(d, w, eb, 0)
+    bz2 = bz.reshape(-1, nd)
+    pairs = [("K1 deltas", got_bz, bz), ("K1 tile offsets", got_toff, toff),
+             ("K4", hk.unpack(d, w, 16, 1), pk.unpack_rows_plain(d, w)),
+             ("K2", hk.prefix_finish(bz2, toff, eb), dk.prefix_finish_plain(bz2, toff, eb))]
+    if eb == 8:
+        pairs.append(("K5", hk.unpack(d, w, 8, 1), pk.unpack_rows_plain(d, w, True)))
+    for name, got, want in pairs:
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            return name
+    return None
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--resident", type=int, nargs="+", default=[1, 3])
+    ap.add_argument("--src", type=pathlib.Path, default=SRC,
+                    help="the decode.cu to build (default: the checkout's)")
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT))
+    from sprintz_tpu_torch.probes import unpack_cases as uc
+
+    so = build(args.src)
+
+    for resident in args.resident:
+        hk = HostKernels(so, resident)
+        for case in uc.UNPACK_CASES:
+            what = "u{} D {} nb {} {}, {} resident".format(*case, resident)
+            bad = check_case(hk, *case)
+            if bad:
+                print(f"[host] {what}: {bad} differs from its plain version", flush=True)
+                return 1
+            print(f"[host] {what}: K1, K4" + (", K5" if case[0] == 8 else "")
+                  + " and K2 equal their plain versions", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,144 @@
+// CUDA's names for a build of a kernel source on the host, with g++ (see
+// host_build.py, which rewrites the source's launches and device helpers
+// before it includes this). Each CUDA thread is a std::thread; the CTAs of
+// a launch run `resident` at a time, their threads all at once. Shared
+// memory is a buffer per CTA filled with garbage and followed by a canary;
+// __syncthreads is a barrier of the CTA, a shuffle a barrier of its mask's
+// lanes around a word per lane. Not part of the port.
+
+#include <algorithm>
+#include <atomic>
+#include <barrier>
+#include <cstdint>
+#include <cstring>
+#include <map>
+#include <memory>
+#include <mutex>
+#include <random>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(...)
+#define __align__(n) alignas(n)
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
+using cudaError_t = int;
+using cudaStream_t = void*;
+constexpr int cudaSuccess = 0;
+constexpr int cudaErrorInvalidValue = 1;
+constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 0;
+template <class K>
+inline int cudaFuncSetAttribute(K, int, int) {
+  return cudaSuccess;
+}
+inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return cudaSuccess;
+}
+inline int cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(int) { return "host shim"; }
+
+constexpr int kCanary = 64;
+
+struct Cta {
+  explicit Cta(unsigned threads, size_t smem_bytes, std::mt19937& gen)
+      : bar(threads), smem(smem_bytes + kCanary), xch(threads), lane_bar((threads + 31) / 32) {
+    for (auto& b : smem) b = (uint8_t)gen();
+    std::fill(smem.end() - kCanary, smem.end(), 0xA5);
+  }
+  // the barrier of the lanes of `mask` in warp w, made at its first use
+  std::barrier<>& lanes(int w, unsigned mask) {
+    std::lock_guard<std::mutex> lock(mu);
+    auto& b = lane_bar[w][mask];
+    if (!b) b.reset(new std::barrier<>(__builtin_popcount(mask)));
+    return *b;
+  }
+  std::barrier<> bar;
+  std::vector<uint8_t> smem;
+  std::vector<long long> xch;
+  std::mutex mu;
+  std::vector<std::map<unsigned, std::unique_ptr<std::barrier<>>>> lane_bar;
+};
+
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+inline thread_local Cta* g_cta;
+inline int g_resident = 1;
+inline std::atomic<int> g_fault{0};  // a CTA wrote past its shared memory
+
+inline uint8_t* shim_smem() { return g_cta->smem.data(); }
+inline void __syncthreads() { g_cta->bar.arrive_and_wait(); }
+
+// Each lane of `mask` posts v; returns what lane src_lane posted (take), or
+// v.
+template <class T>
+inline T shim_exchange(unsigned mask, T v, int src_lane, bool take) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  long long* x = g_cta->xch.data() + 32 * w;
+  std::barrier<>& b = g_cta->lanes(w, mask);
+  x[l] = (long long)v;
+  b.arrive_and_wait();
+  const T r = take ? (T)x[src_lane] : v;
+  b.arrive_and_wait();
+  return r;
+}
+template <class T>
+inline T __shfl_up_sync(unsigned mask, T v, int d, int width = 32) {
+  const int l = threadIdx.x % 32;
+  return shim_exchange(mask, v, l - d, l % width >= d);
+}
+template <class T>
+inline T __shfl_sync(unsigned mask, T v, int src, int width = 32) {
+  const int l = threadIdx.x % 32;
+  return shim_exchange(mask, v, l - l % width + src % width, true);
+}
+
+template <class T>
+inline T __ldg(const T* p) {
+  return *p;
+}
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_add(v);
+}
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned s) {
+  return (unsigned)((((uint64_t)hi << 32) | lo) >> (s & 31));
+}
+
+template <class K, class... A>
+void shim_launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... args) {
+  std::mt19937 gen(grid.x * 7919u + block.x);
+  for (unsigned c0 = 0; c0 < grid.x; c0 += g_resident) {
+    const unsigned n = std::min<unsigned>(g_resident, grid.x - c0);
+    std::vector<std::unique_ptr<Cta>> ctas;
+    for (unsigned i = 0; i < n; ++i) ctas.emplace_back(new Cta(block.x, smem, gen));
+    std::vector<std::thread> threads;
+    for (unsigned i = 0; i < n; ++i) {
+      for (unsigned t = 0; t < block.x; ++t) {
+        threads.emplace_back([&, i, t] {
+          threadIdx = dim3(t);
+          blockIdx = dim3(c0 + i);
+          blockDim = block;
+          gridDim = grid;
+          g_cta = ctas[i].get();
+          kernel(args...);
+        });
+      }
+    }
+    for (auto& th : threads) th.join();
+    for (auto& cta : ctas) {
+      for (auto it = cta->smem.end() - kCanary; it != cta->smem.end(); ++it) {
+        if (*it != 0xA5) g_fault = 1;
+      }
+    }
+  }
+}

@@ -1,0 +1,114 @@
+"""The delta decode's edge cases: inputs of the unpack kernel (K1
+``unpack_zz``, K4 ``unpack_rows``, K5 its narrow mode) and of K2
+``prefix_finish`` where their tiles end raggedly, their rows are odd or
+wide, and their payloads are short, empty or misaligned.
+
+One list for two users: ``tests/test_torch_unpack_shapes.py`` holds the
+plain versions to the JAX package at these cases on the CPU, and
+``chip_smoke.py`` holds the kernels to the plain versions at the same
+cases on the card. Not imported by the port.
+
+A case is (elem_bits, D, nb, kind):
+
+- "random": random legal widths, with a block of all-zero widths, one of
+  all-maximum widths, one of every legal width in turn and, at u16, two
+  that put 16-bit fields at bit offsets 1, 3 and 7 (fields of 23 bits
+  after the shift);
+- "zero widths": every third block and a whole tile of blocks with all
+  widths 0 (the run blocks of a stream with runs);
+- "narrow maxb": MAXB cut to three quarters of the widest row (below the
+  row width too), so that in most rows a field runs past it, by one to
+  three bytes, and reads zeros there;
+- "misaligned": the payload starts one byte past a 16-byte boundary;
+- "wide": rows wider than the shared memory of one tile, which the
+  kernels take in chunks of dims (at u16 D 400, an odd number of them,
+  over three tiles).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.decode_kernels import TILE_BLOCKS
+from ..ops.pack_kernels import pack_rows_plain
+from .encode_cases import legal_widths
+
+UNPACK_CASES = [
+    (8, 5, 33, "random"),
+    (8, 13, 31, "random"),
+    (8, 64, 4101, "random"),
+    (8, 129, 1, "random"),
+    (8, 64, 100, "zero widths"),
+    (8, 64, 31, "narrow maxb"),
+    (8, 13, 33, "misaligned"),
+    (8, 600, 33, "wide"),
+    (16, 3, 33, "random"),
+    (16, 40, 4101, "random"),
+    (16, 129, 31, "random"),
+    (16, 13, 1, "misaligned"),
+    (16, 64, 100, "zero widths"),
+    (16, 40, 33, "narrow maxb"),
+    (16, 400, 70, "wide"),
+]
+
+
+def case_widths(rng, eb: int, ndims: int, nb: int, kind: str) -> np.ndarray:
+    """(nb, D) uint8 widths of a case."""
+    legal = legal_widths(eb)
+    w = legal[rng.integers(0, legal.size, (nb, ndims))]
+    if kind == "zero widths":
+        w[::3] = 0
+        w[TILE_BLOCKS:2 * TILE_BLOCKS] = 0
+    elif kind != "narrow maxb":
+        edge = [np.zeros(ndims), np.full(ndims, eb),
+                legal[np.arange(ndims) % legal.size]]
+        if eb == 16:
+            edge += [np.where(np.arange(ndims) % 2 == 0, 3, 16),  # off & 7: 3, 7
+                     np.where(np.arange(ndims) == 0, 1, 16)]  # off & 7: 1
+        for b, row in enumerate(edge[:nb]):
+            w[b] = row
+    return w.astype(np.uint8)
+
+
+def unpack_case(rng, eb: int, ndims: int, nb: int, kind: str):
+    """-> (dense (nb, 8, MAXB) uint8, widths (nb, D) uint8, fields
+    (nb, 8, D) int64): random zigzag fields within their widths, packed
+    as a stream packs them; for "narrow maxb" the dense rows are cut
+    below their widest row, and the fields are what remains of them."""
+    w = case_widths(rng, eb, ndims, nb, kind)
+    fields = rng.integers(0, 1 << eb, (nb, 8, ndims)) & (
+        (1 << w.astype(np.int64)) - 1)[:, None, :]
+    dense = pack_rows_plain(torch.from_numpy(fields.astype(np.int32)),
+                            torch.from_numpy(w.astype(np.int32)),
+                            eb // 8).numpy()
+    if kind == "narrow maxb":
+        widest = int((w.astype(np.int64).sum(axis=1).max() + 7) // 8)
+        maxb = max(1, widest * 3 // 4)
+        assert maxb < ndims * eb // 8
+        dense = np.ascontiguousarray(dense[:, :, :maxb])
+        fields = cut_fields(fields, w, maxb)
+    return dense, w, fields
+
+
+def cut_fields(fields: np.ndarray, widths: np.ndarray, maxb: int) -> np.ndarray:
+    """The fields as a row cut at byte maxb holds them: bits at or past
+    8 * maxb read as zero."""
+    w = widths.astype(np.int64)
+    off = np.cumsum(w, axis=1) - w
+    keep = np.clip(8 * maxb - off, 0, 62)
+    return fields & ((1 << keep) - 1)[:, None, :]
+
+
+def to_device(dense: np.ndarray, widths: np.ndarray, kind: str, device):
+    """The case's (dense, widths) as tensors on ``device``; a "misaligned"
+    case's dense is a view that starts one byte past a 16-byte boundary."""
+    w = torch.from_numpy(widths).to(device)
+    if kind != "misaligned":
+        return torch.from_numpy(dense).to(device), w
+    flat = torch.empty(dense.size + 16, dtype=torch.uint8, device=device)
+    skip = (1 - flat.data_ptr()) % 16
+    d = flat[skip:skip + dense.size].view(dense.shape)
+    d.copy_(torch.from_numpy(dense))
+    assert d.data_ptr() % 16 == 1 and d.is_contiguous()
+    return d, w

@@ -250,7 +250,7 @@ def test_unpack_rows_narrow_matches_mxu_bf16(rng):
     at u8, which is exact there, and ``unpack_rows_rowmajor``'s fields."""
     widths = edge_widths(rng, 64, 11, 8)
     fields, dense = payload(rng, widths, 8)
-    w = torch.from_numpy(widths.astype(np.int32))
+    w = torch.from_numpy(widths.astype(np.uint8))
     got = pk.unpack_rows(torch.from_numpy(dense), w, narrow=True)
     assert got.dtype == torch.uint8
     np.testing.assert_array_equal(got.numpy(), fields)

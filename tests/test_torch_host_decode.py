@@ -1,0 +1,30 @@
+"""The delta decode's CUDA kernels (``csrc/decode.cu``: K1/K4/K5 and K2)
+built on the host with g++ against a shim of CUDA's names
+(``sprintz_tpu_torch/probes/host_build.py``: one std::thread a CUDA
+thread, three CTAs at a time so that K1's look-back waits on tiles beside
+it, shared memory and outputs filled with garbage first) and held to their
+plain versions at ``probes/unpack_cases.py``'s cases, bit-exact. The plain
+versions are held to the JAX package at the same cases by
+``test_torch_unpack_shapes.py``; on the card, ``chip_smoke.py`` holds the
+kernels built with nvcc to them."""
+
+import shutil
+
+import pytest
+
+from sprintz_tpu_torch.probes import host_build as hb
+from sprintz_tpu_torch.probes import unpack_cases as uc
+
+RESIDENT = 3
+
+
+@pytest.fixture(scope="module")
+def host_kernels(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this host: the kernels' host build needs it")
+    return hb.HostKernels(hb.build(out=tmp_path_factory.mktemp("host")), RESIDENT)
+
+
+@pytest.mark.parametrize("eb,ndims,nb,kind", uc.UNPACK_CASES)
+def test_host_built_kernels_equal_plain(host_kernels, eb, ndims, nb, kind):
+    assert hb.check_case(host_kernels, eb, ndims, nb, kind) is None

@@ -53,27 +53,37 @@ def payload(rng, widths: np.ndarray, eb: int):
     return fields, dense
 
 
+def exclusive(tots: np.ndarray) -> np.ndarray:
+    """Exclusive scan of (ntiles, 1, D) tile totals over the tiles, in
+    wrapping int32: the JAX pipeline's step after its K1
+    (``pallas_decode.py:207``), which the port's K1 returns."""
+    excl = np.cumsum(tots.astype(np.int64), axis=0) - tots
+    return ((excl + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32)
+
+
 def jax_unpack_zz(dense, widths, eb):
-    """The JAX kernel at the port's tile (nb a multiple of it)."""
+    """The JAX kernel at the port's tile (nb a multiple of it), then its
+    cumsum of the tile totals: (biased deltas, tile offsets)."""
     bz, tots = jpd.unpack_zz(jnp.asarray(dense), jnp.asarray(widths, jnp.int32),
                              eb, tile=dk.TILE_BLOCKS, interpret=True)
-    return np.asarray(bz), np.asarray(tots)
+    return np.asarray(bz), exclusive(np.asarray(tots))
 
 
 def port_unpack_zz(dense, widths, eb):
-    bz, tots = dk.unpack_zz(torch.from_numpy(dense),
-                            torch.from_numpy(widths.astype(np.int32)), eb)
-    return dk.widen(bz).numpy(), tots.numpy()
+    """The port's K1 with the header walk's u8 widths."""
+    bz, toff = dk.unpack_zz(torch.from_numpy(dense),
+                            torch.from_numpy(widths.astype(np.uint8)), eb)
+    return dk.widen(bz).numpy(), toff.numpy()
 
 
 @pytest.mark.parametrize("eb,ndims,nb", [(8, 9, 64), (16, 17, 64)])
 def test_unpack_zz_matches_pallas(rng, eb, ndims, nb):
     widths = edge_widths(rng, nb, ndims, eb)
     fields, dense = payload(rng, widths, eb)
-    bz, tots = port_unpack_zz(dense, widths, eb)
-    want_bz, want_tots = jax_unpack_zz(dense, widths, eb)
+    bz, toff = port_unpack_zz(dense, widths, eb)
+    want_bz, want_toff = jax_unpack_zz(dense, widths, eb)
     np.testing.assert_array_equal(bz, want_bz.astype(np.int64))
-    np.testing.assert_array_equal(tots, want_tots)
+    np.testing.assert_array_equal(toff, want_toff)
     # and both are the zigzag decode of the fields that were packed
     deltas = (fields >> 1) ^ -(fields & 1)
     np.testing.assert_array_equal(bz, deltas + (1 << (eb - 1)))
@@ -89,24 +99,24 @@ def test_unpack_zz_maxb_below_row_width(rng):
     _, dense = payload(rng, widths, eb)
     dense = np.ascontiguousarray(dense[:, :, :32])
     assert dense.shape[2] < ndims
-    bz, tots = port_unpack_zz(dense, widths, eb)
-    want_bz, want_tots = jax_unpack_zz(dense, widths, eb)
+    bz, toff = port_unpack_zz(dense, widths, eb)
+    want_bz, want_toff = jax_unpack_zz(dense, widths, eb)
     np.testing.assert_array_equal(bz, want_bz.astype(np.int64))
-    np.testing.assert_array_equal(tots, want_tots)
+    np.testing.assert_array_equal(toff, want_toff)
 
 
 def test_unpack_zz_ragged_tile(rng):
-    """nb not a multiple of the tile: the last tile is short and its total
-    covers only its own blocks."""
+    """nb not a multiple of the tile: the last tile is short, and the
+    offsets are those of totals over each tile's own blocks."""
     eb, ndims, nb, tile = 16, 5, 41, dk.TILE_BLOCKS
     widths = edge_widths(rng, nb, ndims, eb)
     fields, dense = payload(rng, widths, eb)
-    bz, tots = port_unpack_zz(dense, widths, eb)
+    bz, toff = port_unpack_zz(dense, widths, eb)
     deltas = (fields >> 1) ^ -(fields & 1)
     np.testing.assert_array_equal(bz, deltas + (1 << (eb - 1)))
     want = np.stack([deltas[i:i + tile].sum(axis=(0, 1))
-                     for i in range(0, nb, tile)])
-    np.testing.assert_array_equal(tots.reshape(-1, ndims), want)
+                     for i in range(0, nb, tile)])[:, None, :]
+    np.testing.assert_array_equal(toff, exclusive(want))
 
 
 def biased_deltas(rng, rows, ndims, eb):
@@ -185,7 +195,7 @@ def encoded(rng, eb, ndims, nb):
             % (1 << eb))
     rows = torch.from_numpy(vals.astype(np.int32))
     widths, _, dense, _ = encode_device(rows, eb // 8)
-    return vals, dense, widths
+    return vals, dense, widths.to(torch.uint8)  # u8, as the header walk's
 
 
 @pytest.mark.parametrize("eb,ndims,nb", [(8, 64, 128), (16, 33, 96)])
@@ -193,7 +203,7 @@ def test_decode_delta_contiguous_matches_pallas(rng, eb, ndims, nb):
     vals, dense, widths = encoded(rng, eb, ndims, nb)
     got = dk.widen(dk.decode_delta_contiguous(dense, widths, eb)).numpy()
     want = np.asarray(jpd.decode_delta_contiguous(
-        jnp.asarray(dense.numpy()), jnp.asarray(widths.numpy()), eb,
+        jnp.asarray(dense.numpy()), jnp.asarray(widths.numpy(), jnp.int32), eb,
         interpret=True))
     np.testing.assert_array_equal(got, want.astype(np.int64))
     np.testing.assert_array_equal(got, vals)
@@ -209,7 +219,7 @@ def test_decode_delta_contiguous_ragged(rng, eb, ndims, nb):
 
 def test_wrappers_check_their_inputs():
     dense = torch.zeros((4, 8, 8), dtype=torch.uint8)
-    widths = torch.zeros((4, 8), dtype=torch.int32)
+    widths = torch.zeros((4, 8), dtype=torch.uint8)
     with pytest.raises(TypeError):
         dk.unpack_zz(dense.to(torch.int32), widths, 8)
     with pytest.raises(TypeError):

@@ -39,7 +39,7 @@ def test_unpack_rows_matches_pallas_and_xla(rng, elem_sz, ndims, nb):
     widths = edge_widths(rng, nb, ndims, eb)
     fields, dense = payload(rng, widths, eb)
     got = pk.unpack_rows(torch.from_numpy(dense),
-                         torch.from_numpy(widths.astype(np.int32)))
+                         torch.from_numpy(widths.astype(np.uint8)))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), fields)
     d32 = jnp.asarray(dense, jnp.int32)
@@ -63,7 +63,7 @@ def test_u16_fields_need_a_three_byte_window(rng):
                          torch.from_numpy(widths.astype(np.int32)), 2)
     row = int.from_bytes(dense[0, 0].numpy().tobytes(), "little")
     assert row == (0xFFFF << 7) | (0x8001 << 23)
-    back = pk.unpack_rows(dense, torch.from_numpy(widths.astype(np.int32)))
+    back = pk.unpack_rows(dense, torch.from_numpy(widths.astype(np.uint8)))
     np.testing.assert_array_equal(back.numpy(), fields)
 
 
@@ -86,4 +86,5 @@ def test_pack_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         pk.pack_rows(errs[:, :4], widths, 1)
     with pytest.raises(ValueError):
-        pk.unpack_rows(torch.zeros((4, 8, 0), dtype=torch.uint8), widths)
+        pk.unpack_rows(torch.zeros((4, 8, 0), dtype=torch.uint8),
+                       widths.to(torch.uint8))
