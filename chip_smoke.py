@@ -35,6 +35,15 @@ Phases, each of which raises (exit code != 0) when it fails:
    D 5-600 and u16 D 3-400, rows wider than a tile's shared memory, nb 1,
    31, 33, 70, 100 and 4101, MAXB cut inside the rows, all-zero-width
    blocks, a payload one byte off a 16-byte boundary);
+2b. lowdim kernels (u8 D <= 4, u16 D <= 2), bit-exact against their
+   plain versions: the lowdim unpack in both modes and K2 on its output
+   at ``unpack_cases.LOWDIM_CASES`` (every lowdim width, D 1-4 u8 and 1-2
+   u16, nb 1-4101, runs, a misaligned payload), the lowdim pack at
+   ``encode_cases.LOWDIM_PACK_CASES``; FIRE with its full-precision
+   coefficient at the ring shapes for those widths, from carried states
+   whose counter wraps, and over a 32k-row stream a width (its plain
+   version, a Python loop over blocks, runs once there); the pack, both
+   unpack modes and K2 at the 4 MiB u8 d4 and u16 d2 streams;
 3. main path: compress then decompress with device="cuda", every kernel's
    launch counter set to 0 before that run and read after it (every kernel
    must have launched): delta on the 8 MiB u8 and u16 random walks, the
@@ -46,7 +55,16 @@ Phases, each of which raises (exit code != 0) when it fails:
    the chunk size the path used. Card bytes equal CPU bytes on a 1 MiB
    stream for delta, xff and xff+Huf; a +Huf container with an overrun
    chunk raises ``CorruptStreamError`` on the card; the reference-made
-   vectors in tests/vectors decode and re-encode exactly;
+   vectors in tests/vectors, row-major and lowdim, decode and re-encode
+   exactly;
+3b. lowdim path, its counts set to 0 before it and read after it (every
+   kernel of the lowdim path must have launched): delta and xff on
+   bench.py's lowdim stream (1M rows x 4 dims of a u8 walk, 4 MiB) and
+   its u16 twin (1M x 2), and on u8 d1, d2, d3 and u16 d1 walks of 256k
+   rows; delta on a d4 runs stream; delta+Huf on a d4 smooth stream,
+   where the container must win (K6 and the encoder then held to their
+   plain versions on its sprintz stream). Card bytes equal CPU bytes:
+   delta on every whole stream, xff on each stream's first 32k rows;
 4. timings: each kernel's wrapper, the time inside its kernel launches
    alone, its plain version and, where one exists, one PyTorch call of the
    same function, by CUDA events (median of 25 after warm-up, L2 flushed
@@ -58,10 +76,14 @@ Phases, each of which raises (exit code != 0) when it fails:
    chain bound: blocks x the dependent integer operations of a block,
    counted in csrc/fire.cu's header, x the latency of one dependent
    multiply-add, which a one-warp probe kernel measures on the card
-   beside the SM clock. Then compress and
+   beside the SM clock. The lowdim rows: the pack, both unpack modes and
+   K2 at the 4 MiB u8 d4 and u16 d2 streams, FIRE's full-coefficient
+   kernels there (no plain time) and at the 32k-row streams (beside the
+   plain version's one run). Then compress and
    decompress end to end, split into host, H2D, device pass, kernels (the
    part of the device pass inside the kernel launches) and D2H, for delta,
-   xff and +Huf.
+   xff and +Huf, and for delta and xff on the 4 MiB lowdim streams (timed
+   once: their Python walk takes seconds).
 
 The last two lines of standard output are the card's name and power limit
 followed by ``{"ok": true, "device": {...}}``; the line before them is
@@ -94,10 +116,15 @@ CORE_OPS_PER_S = 67e12
 # kernels), counted from the kernels' source
 OPS_PER_ELEM = {"unpack_zz": 12, "unpack_rows": 9, "unpack_rows_narrow": 9,
                 "prefix_finish": 3, "pack_rows": 6, "fire_encode": 18,
-                "fire_decode": 15, "huff_decode": 30, "huff_encode": 12}
+                "fire_decode": 15, "huff_decode": 30, "huff_encode": 12,
+                "pack_lowdim": 5, "unpack_lowdim": 10, "unpack_lowdim_raw": 5,
+                "fire_encode_full": 16, "fire_decode_full": 15}
 # FIRE's serial chain: dependent integer operations a block, by elem_bits
-# (the count is in csrc/fire.cu's header), and its tiling
-CHAIN_OPS = {"fire_encode": {8: 15, 16: 14}, "fire_decode": {8: 16, 16: 20}}
+# (the count is in csrc/fire.cu's header), and its tiling; the
+# full-precision coefficient is one shift where the truncated one is three
+CHAIN_OPS = {"fire_encode": {8: 15, 16: 14}, "fire_decode": {8: 16, 16: 20},
+             "fire_encode_full": {8: 13, 16: 12},
+             "fire_decode_full": {8: 14, 16: 18}}
 FIRE_TILE_BLOCKS = 16  # csrc/fire.cu TILE_BLOCKS
 FIRE_STAGES = 8  # csrc/fire.cu STAGES: tiles in the ring
 CHAIN_PROBE_ITERS = 1 << 20
@@ -122,7 +149,30 @@ KERNELS = {  # name -> (source, the TPU pass it replaces: file:line)
                     "sprintz_tpu/models/forecasters.py:303"),
     "fire_decode": ("sprintz_tpu_torch/csrc/fire.cu",
                     "sprintz_tpu/models/forecasters.py:303"),
+    # the lowdim layout: XLA passes in JAX, and FIRE with its full-precision
+    # coefficient (TRUNC false)
+    "pack_lowdim": ("sprintz_tpu_torch/csrc/pack.cu",
+                    "sprintz_tpu/ops/pack.py:251"),
+    "unpack_lowdim": ("sprintz_tpu_torch/csrc/decode.cu",
+                      "sprintz_tpu/ops/pack.py:683"),
+    "unpack_lowdim_raw": ("sprintz_tpu_torch/csrc/decode.cu",
+                          "sprintz_tpu/ops/pack.py:683"),
+    "fire_encode_full": ("sprintz_tpu_torch/csrc/fire.cu",
+                         "sprintz_tpu/models/forecasters.py:303"),
+    "fire_decode_full": ("sprintz_tpu_torch/csrc/fire.cu",
+                         "sprintz_tpu/models/forecasters.py:303"),
 }
+# the kernels each main path must launch: the row-major one and the lowdim
+# one (u8 ndims <= 4, u16 ndims <= 2)
+LOWDIM_PATH = {"pack_lowdim", "unpack_lowdim", "unpack_lowdim_raw",
+               "prefix_finish", "fire_encode_full", "fire_decode_full",
+               "huff_decode", "huff_encode"}
+ROWMAJOR_PATH = {"unpack_zz", "prefix_finish", "pack_rows", "unpack_rows",
+                 "unpack_rows_narrow", "huff_decode", "huff_encode",
+                 "fire_encode", "fire_decode"}
+LOWDIM_ROWS = 1 << 20  # bench.py's extra_lowdim: 1M rows (bench.py:451-479)
+LOWDIM_SMALL_ROWS = 1 << 18
+FIRE_PLAIN_ROWS = 1 << 15  # where the plain FIRE (a Python loop) is affordable
 HUFF_CS = 128  # bench.py's chunk size for the Huffman kernel rows
 DEC_LONG_CS = 20000  # a chunk longer than K6's window of payload
 
@@ -175,7 +225,9 @@ def main() -> int:
         from sprintz_tpu_torch.ops import decode_kernels as dk
         from sprintz_tpu_torch.ops import huffman_kernels as hk
         from sprintz_tpu_torch.ops import pack_kernels as pk
-        from sprintz_tpu_torch.ops.bitmath import block_widths_rowmajor
+        from sprintz_tpu_torch.constants import LOWDIM_MAX_NDIMS
+        from sprintz_tpu_torch.ops.bitmath import (block_widths_lowdim,
+                                                   block_widths_rowmajor)
         from sprintz_tpu_torch.planner import build_plan
         from sprintz_tpu_torch.errors import CorruptStreamError
         from sprintz_tpu_torch.probes import decode_cases as dc
@@ -211,8 +263,13 @@ def main() -> int:
         "huff_encode": (hk.encode_chunks, "launches"),
         "fire_encode": (fc.fire_encode, "launches"),
         "fire_decode": (fc.fire_decode, "launches"),
+        "pack_lowdim": (pk.pack_dims_lowdim, "launches"),
+        "unpack_lowdim": (dk.unpack_zz_lowdim, "launches"),
+        "unpack_lowdim_raw": (dk.unpack_dims_lowdim, "launches"),
+        "fire_encode_full": (fc.fire_encode, "full_launches"),
+        "fire_decode_full": (fc.fire_decode, "full_launches"),
     }
-    assert set(counters) == set(KERNELS)
+    assert set(counters) == set(KERNELS) == LOWDIM_PATH | ROWMAJOR_PATH
 
     # ---------------------------------------------------------- 1. build
     t0 = time.perf_counter()
@@ -326,19 +383,25 @@ def main() -> int:
             f"kernel equals its plain version (FIRE at {r.shape[0] // 8} "
             f"blocks; its plain encode {ms_e:.1f} ms, decode {ms_d:.1f} ms)")
 
-    def check_fire(what, vals, eb, state=None, errs=None):
+    def check_fire(what, vals, eb, state=None, errs=None, trunc=True):
         """FIRE encode (from the zero state) and decode (from the zero state
         and from `state`) against their plain versions on the (N, D) int32
-        values `vals`; `errs`: the errors to decode, else the encoder's."""
+        values `vals`; `errs`: the errors to decode, else the encoder's.
+        trunc: the truncated coefficient (row-major) or the full one
+        (lowdim, the kernels' `_full` rows)."""
+        sfx = "" if trunc else "_full"
         t = torch.from_numpy(vals).to(dev)
-        got = fc.fire_encode(t, eb)
-        check("fire_encode", got, fc.fire_encode_plain(t, eb), what)
+        got = fc.fire_encode(t, eb, truncate_coeffs=trunc)
+        check("fire_encode" + sfx, got,
+              fc.fire_encode_plain(t, eb, truncate_coeffs=trunc), what)
         zz = got if errs is None else errs
         zz = zz.to(torch.uint8) if eb == 8 else zz
         for st in (None, state):
-            check("fire_decode", fc.fire_decode(zz, eb, st),
-                  fc.fire_decode_plain(zz, eb, st), what)
-        return fc.fire_decode(zz, eb, state)
+            check("fire_decode" + sfx,
+                  fc.fire_decode(zz, eb, st, truncate_coeffs=trunc),
+                  fc.fire_decode_plain(zz, eb, st, truncate_coeffs=trunc),
+                  what)
+        return fc.fire_decode(zz, eb, state, truncate_coeffs=trunc)
 
     # the shapes that stress the ring: a stream of one block, one block
     # less and more than a tile, fewer tiles than the ring, more than the
@@ -486,6 +549,149 @@ def main() -> int:
         f"prefix_finish at {len(uc.UNPACK_CASES)} unpack cases equal their "
         f"plain versions")
 
+    # ---------------------------------------------- 2b. lowdim kernels
+    # The lowdim layout's cases, the CPU tests' lists: both modes of the
+    # lowdim unpack and K2 on its output (D 1-4 u8, 1-2 u16), the lowdim
+    # pack; then FIRE with its full-precision coefficient at the ring
+    # shapes, from wrapping states and over a 32k-row stream a width; then
+    # the pack and unpack at the full-size streams. A generator of its own,
+    # so that the streams of the other phases stay those of earlier runs.
+    lrng = np.random.default_rng(SEED + 5)
+    for eb, nd, nb, ukind in uc.LOWDIM_CASES:
+        d, w = uc.to_device(*uc.lowdim_case(lrng, eb, nd, nb, ukind)[:2],
+                            ukind, dev)
+        what = f"lowdim case u{eb} D {nd} nb {nb} {ukind}"
+        bz, toff = dk.unpack_zz_lowdim(d, w, eb)
+        check("unpack_lowdim", (bz, toff), dk.unpack_zz_lowdim_plain(d, w, eb),
+              what)
+        check("unpack_lowdim_raw", dk.unpack_dims_lowdim(d, w),
+              dk.unpack_dims_lowdim_plain(d, w), what)
+        bz = bz.reshape(-1, nd)
+        check("prefix_finish", dk.prefix_finish(bz, toff, eb),
+              dk.prefix_finish_plain(bz, toff, eb), what)
+    for nd, es, nb in ec.LOWDIM_PACK_CASES:
+        errs, widths = (torch.from_numpy(t).to(dev)
+                        for t in ec.pack_lowdim_case(lrng, nd, es, nb))
+        check("pack_lowdim", pk.pack_dims_lowdim(errs, widths, es),
+              pk.pack_dims_lowdim_plain(errs, widths, es),
+              f"lowdim pack case nb {nb} D {nd} u{8 * es}")
+    log(f"[kernels] unpack_lowdim, unpack_lowdim_raw and prefix_finish at "
+        f"{len(uc.LOWDIM_CASES)} lowdim cases, pack_lowdim at "
+        f"{len(ec.LOWDIM_PACK_CASES)}, equal their plain versions")
+
+    nchecked = 0
+    for eb in (8, 16):
+        half = 1 << (eb - 1)
+        for nb in (1, FIRE_TILE_BLOCKS - 1, FIRE_TILE_BLOCKS + 1,
+                   ring_blocks // 3, ring_blocks + 1):
+            for nd in range(1, LOWDIM_MAX_NDIMS[eb // 8] + 1):
+                vals = walk_stream(lrng, nb * 8, nd, eb // 8).astype(np.int32)
+                if nb == ring_blocks // 3:
+                    vals = lrng.integers(0, 2 * half, vals.shape
+                                         ).astype(np.int32)
+                state = torch.from_numpy(np.stack([
+                    lrng.integers(0, 2 * half, nd),
+                    lrng.integers(-half, half, nd),
+                    lrng.integers(-(1 << 15), 1 << 15, nd)]).astype(np.int32))
+                check_fire(f"FIRE full u{eb} nb {nb} D {nd}", vals, eb, state,
+                           trunc=False)
+                nchecked += 1
+    # the counter wraps from a state 20 blocks' climb below its top; at u16
+    # the full coefficient is then about 2^30 and prev_delta * coef wraps
+    for eb in (8, 16):
+        nb, nd = 300, 3
+        steps = (np.tile([1, 127], nb * 4) if eb == 8
+                 else np.full(nb * 8, 8000))
+        vals = (np.cumsum(steps) % (1 << eb)).astype(np.int32)[:, None
+                                                               ].repeat(nd, 1)
+        state = np.zeros((3, nd), np.int32)
+        top = (1 << 15) - 1 if eb == 8 else (1 << 31) - 1
+        state[2] = top - 20 * (1 if eb == 8 else 8000)
+        state = torch.from_numpy(state)
+        errs = fc._fire_scan_plain(
+            torch.from_numpy(vals).to(dev).long().reshape(nb, 8, nd), eb,
+            False, state, truncate_coeffs=False).reshape(nb * 8, nd).to(
+                torch.int32)
+        out = check_fire(f"FIRE full u{eb} counter wrap", vals, eb, state,
+                         errs, trunc=False)
+        if not np.array_equal(dk.widen(out).cpu().numpy(), vals):
+            raise AssertionError(f"FIRE full u{eb} counter wrap: decode from "
+                                 f"the carried state differs from the stream")
+    log(f"[kernels] FIRE with the full-precision coefficient equals its plain "
+        f"version at {nchecked} ring shapes (D 1-4 u8, 1-2 u16) and across "
+        f"the counter's wrap")
+
+    def lowdim_inputs(x: np.ndarray, elem_sz: int):
+        """Device inputs of the lowdim kernels from stream x, as the path
+        makes them: the pack's (errs, widths) and the unpack's (dense,
+        widths) from the stream's delta bytes."""
+        eb, nd = 8 * elem_sz, x.shape[1]
+        rows = encoder.upload_rows(x, dev)
+        blocks = fc.delta_encode(rows, eb).reshape(-1, 8, nd)
+        widths = block_widths_lowdim(blocks.amax(dim=1), elem_sz)
+        buf = encoder.compress(x.reshape(-1), nd, device=dev)
+        idx = decoder.walk_headers(buf, read_metadata_rle(buf)[0], nd,
+                                   elem_sz, lowdim=True)
+        dense, dwidths, _ = decoder.upload_payload(
+            decoder.gather_payloads(buf, idx), idx, dev)
+        return dict(blocks=blocks, widths=widths, dense=dense,
+                    dwidths=dwidths, eb=eb, es=elem_sz, rows=rows)
+
+    def check_lowdim(what, a):
+        eb, es = a["eb"], a["es"]
+        check("pack_lowdim", pk.pack_dims_lowdim(a["blocks"], a["widths"], es),
+              pk.pack_dims_lowdim_plain(a["blocks"], a["widths"], es), what)
+        bz, toff = dk.unpack_zz_lowdim(a["dense"], a["dwidths"], eb)
+        check("unpack_lowdim", (bz, toff),
+              dk.unpack_zz_lowdim_plain(a["dense"], a["dwidths"], eb), what)
+        check("unpack_lowdim_raw", dk.unpack_dims_lowdim(a["dense"],
+                                                         a["dwidths"]),
+              dk.unpack_dims_lowdim_plain(a["dense"], a["dwidths"]), what)
+        a["bz"], a["toff"] = bz.reshape(-1, a["dense"].shape[1]), toff
+        vals = dk.prefix_finish(a["bz"], toff, eb)
+        check("prefix_finish", vals, dk.prefix_finish_plain(a["bz"], toff, eb),
+              what)
+        return vals
+
+    ld_shapes = {
+        "u8 d4 walk 4 MiB (nb 131072, D 4)": walk_stream(lrng, LOWDIM_ROWS, 4, 1),
+        "u16 d2 walk 4 MiB (nb 131072, D 2)": walk_stream(lrng, LOWDIM_ROWS, 2, 2),
+    }
+    ld_inputs = {}
+    for what, x in ld_shapes.items():
+        a = ld_inputs[what] = lowdim_inputs(x, x.dtype.itemsize)
+        vals = check_lowdim(what, a)
+        if not np.array_equal(decoder.download_values(vals),
+                              x[: vals.shape[0]].reshape(-1)):
+            raise AssertionError(f"lowdim unpack -> K2 {what}: values differ "
+                                 f"from the input")
+        log(f"[kernels] {what}: pack_lowdim, unpack_lowdim (both modes) and "
+            f"prefix_finish equal their plain versions; unpack -> K2 gives "
+            f"the stream")
+    # FIRE over one 32k-row stream a width: its plain version loops over
+    # blocks in Python, so it runs once, and that run is its plain_ms
+    ld_fire = {}
+    for what, (nd, es) in (("u8 d4 walk 32k rows (nb 4096, D 4)", (4, 1)),
+                           ("u16 d2 walk 32k rows (nb 4096, D 2)", (2, 2))):
+        eb = 8 * es
+        r = encoder.upload_rows(walk_stream(lrng, FIRE_PLAIN_ROWS, nd, es), dev)
+        want_e, ms_e = once_ms(
+            lambda: fc.fire_encode_plain(r, eb, truncate_coeffs=False))
+        fe = fc.fire_encode(r, eb, truncate_coeffs=False)
+        check("fire_encode_full", fe, want_e, what)
+        fe = fe.to(torch.uint8) if eb == 8 else fe
+        want_d, ms_d = once_ms(
+            lambda: fc.fire_decode_plain(fe, eb, truncate_coeffs=False))
+        check("fire_decode_full", fc.fire_decode(fe, eb, truncate_coeffs=False),
+              want_d, what)
+        if not torch.equal(dk.widen(want_d), r):
+            raise AssertionError(f"FIRE full {what}: decode differs from the "
+                                 f"stream")
+        ld_fire[what] = dict(rows=r, ferrs=fe, eb=eb, plain_ms={
+            "fire_encode_full": ms_e, "fire_decode_full": ms_d})
+        log(f"[kernels] FIRE full {what}: kernels equal their plain versions "
+            f"(plain encode {ms_e:.1f} ms, decode {ms_d:.1f} ms)")
+
     # ------------------------------------------------------ 3. main path
     streams = {
         "u8 walk 8 MiB": walk_stream(rng, 1 << 17, 64, 1),
@@ -528,7 +734,7 @@ def main() -> int:
             raise AssertionError(f"{c}+Huf on the smooth stream: Huffman "
                                  f"did not win, so K6 never ran on it")
     log(f"[main] launches: {json.dumps(launches)}")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in ROWMAJOR_PATH if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched: {missing}")
 
@@ -583,7 +789,11 @@ def main() -> int:
     for name, codec, nd, es in (("delta_8b_d9_rand", "delta", 9, 1),
                                 ("delta_16b_d17_sparse", "delta", 17, 2),
                                 ("xff_8b_d16_sparse", "xff", 16, 1),
-                                ("xff_16b_d8_rand", "xff", 8, 2)):
+                                ("xff_16b_d8_rand", "xff", 8, 2),
+                                ("delta_8b_d1_sparse", "delta", 1, 1),
+                                ("delta_16b_d2_small", "delta", 2, 2),
+                                ("xff_8b_d3_walk", "xff", 3, 1),
+                                ("xff_16b_d1_walk", "xff", 1, 2)):
         ref = (vec / f"{name}.sprintz").read_bytes()
         want = np.frombuffer((vec / f"{name}.in").read_bytes(),
                              dtype=np.uint8 if es == 1 else np.uint16)
@@ -592,7 +802,79 @@ def main() -> int:
             raise AssertionError(f"vector {name}: decode differs")
         if encoder.compress(want, nd, codec=codec, device="cuda") != ref:
             raise AssertionError(f"vector {name}: re-encode differs")
-    log("[main] reference vectors decode and re-encode exactly")
+    log("[main] reference vectors (row-major and lowdim) decode and "
+        "re-encode exactly")
+
+    # ------------------------------------------------ 3b. lowdim main path
+    # bench.py's extra_lowdim stream (1M rows x 4 dims of a u8 walk,
+    # bench.py:451-479) and its u16 twin (1M x 2), a d4 runs stream and a
+    # d4 smooth stream for +Huf, then smaller widths at 256k rows; every
+    # kernel's count set to 0 just before and read just after.
+    srng = np.random.default_rng(SEED + 6)
+    streams.update({
+        "u8 d4 walk 4 MiB": walk_stream(srng, LOWDIM_ROWS, 4, 1),
+        "u16 d2 walk 4 MiB": walk_stream(srng, LOWDIM_ROWS, 2, 2),
+        "u8 d4 runs 4 MiB": runs_stream(srng, LOWDIM_ROWS, 4),
+        "u8 d4 smooth 4 MiB": smooth_stream(srng, LOWDIM_ROWS, 4),
+        "u8 d1 walk 256 KiB": walk_stream(srng, LOWDIM_SMALL_ROWS, 1, 1),
+        "u8 d2 walk 512 KiB": walk_stream(srng, LOWDIM_SMALL_ROWS, 2, 1),
+        "u8 d3 walk 768 KiB": walk_stream(srng, LOWDIM_SMALL_ROWS, 3, 1),
+        "u16 d1 walk 512 KiB": walk_stream(srng, LOWDIM_SMALL_ROWS, 1, 2),
+    })
+    ld_cases = [(w, c, "none") for c in ("delta", "xff") for w in (
+        "u8 d4 walk 4 MiB", "u16 d2 walk 4 MiB", "u8 d1 walk 256 KiB",
+        "u8 d2 walk 512 KiB", "u8 d3 walk 768 KiB", "u16 d1 walk 512 KiB")]
+    ld_cases += [("u8 d4 runs 4 MiB", "delta", "none"),
+                 ("u8 d4 smooth 4 MiB", "delta", "huffman")]
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    for case in ld_cases:
+        x = streams[case[0]]
+        buf = codec_of(case).compress(x)
+        if not np.array_equal(codec_of(case).decompress(buf), x.reshape(-1)):
+            raise AssertionError(f"lowdim path {case}: round trip differs")
+        bufs[case] = buf
+    ld_launches = {k: getattr(obj, attr) for k, (obj, attr) in
+                   counters.items()}
+    for case in ld_cases:
+        x, buf = streams[case[0]], bufs[case]
+        log(f"[lowdim] {' '.join(case)}: {x.nbytes} B -> {len(buf)} B (ratio "
+            f"{x.nbytes / len(buf):.4f}), round trip exact"
+            + (f", Huffman container {hf.is_container(buf)}"
+               if case[2] == "huffman" else ""))
+    if not hf.is_container(bufs[("u8 d4 smooth 4 MiB", "delta", "huffman")]):
+        raise AssertionError("lowdim delta+Huf on the smooth stream: Huffman "
+                             "did not win, so K6 never ran on it")
+    log(f"[lowdim] launches: {json.dumps(ld_launches)}")
+    missing = [k for k in LOWDIM_PATH if ld_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"lowdim path never launched: {missing}")
+    # a kernel's launches on the main paths: both paths' counts
+    launches = {k: launches[k] + ld_launches[k] for k in KERNELS}
+    # K6 and the encoder on the lowdim +Huf case's own sprintz stream
+    x = streams["u8 d4 smooth 4 MiB"]
+    inner = np.frombuffer(SprintzCodec("delta", 1, device="cuda").compress(x),
+                          np.uint8)
+    check_huff(f"lowdim path u8 d4 smooth 4 MiB delta sprintz stream "
+               f"({inner.size} B, cs {hf.auto_chunk_symbols(inner.size)})",
+               inner, hf.auto_chunk_symbols(inner.size))
+    # card bytes == CPU bytes: delta on whole streams, xff on their first
+    # 32k rows (the plain FIRE, a Python loop over blocks, is affordable
+    # there; a fault that encode and decode share would still round-trip)
+    for what, codec, entropy in ld_cases:
+        x = streams[what]
+        if codec == "xff":
+            x = x[:FIRE_PLAIN_ROWS]
+            b_gpu = codec_of((what, codec, entropy)).compress(x)
+        else:
+            b_gpu = bufs[(what, codec, entropy)]
+        b_cpu = SprintzCodec(codec, x.dtype.itemsize, entropy=entropy,
+                             device="cpu").compress(x)
+        if b_gpu != b_cpu:
+            raise AssertionError(f"lowdim {what} {codec}+{entropy}: card bytes "
+                                 f"differ from CPU bytes")
+    log("[lowdim] card bytes == CPU bytes on every lowdim stream (xff on its "
+        f"first {FIRE_PLAIN_ROWS} rows)")
 
     # -------------------------------------------------------- 4. timings
     flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
@@ -688,7 +970,8 @@ def main() -> int:
 
     def row(name, kern, plain, lib, nb_, nops, chain_steps=0, **extra):
         """plain: the plain version to time, or its time in ms already
-        taken (FIRE's, from its one full-size run in the kernel checks).
+        taken (FIRE's, from its one full-size run in the kernel checks), or
+        None where it is not timed (FIRE at the 4 MiB lowdim streams).
         chain_steps: the dependent operations of its serial chain, each
         bounded by the probe's multiply-add."""
         bounds = {"bytes": nb_ / mem_rate, "operations": nops / CORE_OPS_PER_S,
@@ -795,10 +1078,12 @@ def main() -> int:
 
     def log_rows(what, rows):
         for r in rows:
-            lib = r["library_ms"]
+            lib, plain = r["library_ms"], r["plain_ms"]
             log(f"[timing] {what} {r['name']}: {r['ms']:.4f} ms (inside "
                 f"its launches {r['kernel_ms']:.4f} ms), plain "
-                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                + ("not timed at this size" if plain is None
+                   else f"{plain:.4f} ms")
+                + f", bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}, "
                 f"{r['bytes']} B"
                 + (f", bytes bound {r['bytes_bound_ms']:.4f} ms, "
@@ -858,6 +1143,81 @@ def main() -> int:
             OPS_PER_ELEM["prefix_finish"] * bz64.numel())]
     log_rows(what, table[what])
     del d64, dw64, out64, bz64, toff64
+
+    def lowdim_rows(what, a):
+        """The lowdim pack and unpack (both modes), K2 on the unpack's
+        output and the full-precision FIRE kernels at a 4 MiB stream (the
+        plain FIRE is timed at 32k rows, in ``fire_full_rows``)."""
+        eb, es, nd = a["eb"], a["es"], a["dense"].shape[1]
+        out_p = pk.pack_dims_lowdim(a["blocks"], a["widths"], es)
+        out_u = dk.unpack_zz_lowdim(a["dense"], a["dwidths"], eb)
+        out_r = dk.unpack_dims_lowdim(a["dense"], a["dwidths"])
+        bz_tiles = (a["bz"].view(torch.int16) if es == 2 else a["bz"]).view(
+            -1, dk.TILE_ROWS, nd)
+        nvals = a["bz"].numel()
+        fe = fc.fire_encode(a["rows"], eb, truncate_coeffs=False)
+        fe = fe.to(torch.uint8) if eb == 8 else fe
+        out_fd = fc.fire_decode(fe, eb, truncate_coeffs=False)
+        nblocks = a["rows"].shape[0] // 8
+        return [
+            row("pack_lowdim",
+                lambda: pk.pack_dims_lowdim(a["blocks"], a["widths"], es),
+                lambda: pk.pack_dims_lowdim_plain(a["blocks"], a["widths"], es),
+                None, nbytes(a["blocks"], a["widths"], out_p),
+                OPS_PER_ELEM["pack_lowdim"] * nvals),
+            row("unpack_lowdim",
+                lambda: dk.unpack_zz_lowdim(a["dense"], a["dwidths"], eb),
+                lambda: dk.unpack_zz_lowdim_plain(a["dense"], a["dwidths"], eb),
+                None, nbytes(a["dense"], a["dwidths"], *out_u),
+                OPS_PER_ELEM["unpack_lowdim"] * nvals),
+            row("unpack_lowdim_raw",
+                lambda: dk.unpack_dims_lowdim(a["dense"], a["dwidths"]),
+                lambda: dk.unpack_dims_lowdim_plain(a["dense"], a["dwidths"]),
+                None, nbytes(a["dense"], a["dwidths"], out_r),
+                OPS_PER_ELEM["unpack_lowdim_raw"] * nvals),
+            row("prefix_finish",
+                lambda: dk.prefix_finish(a["bz"], a["toff"], eb),
+                lambda: dk.prefix_finish_plain(a["bz"], a["toff"], eb),
+                lambda: torch.cumsum(bz_tiles, dim=1, dtype=torch.int32),
+                nbytes(a["bz"], a["toff"], a["bz"]),
+                OPS_PER_ELEM["prefix_finish"] * nvals),
+            row("fire_encode_full",
+                lambda: fc.fire_encode(a["rows"], eb, truncate_coeffs=False),
+                None, None, 2 * nbytes(a["rows"]),
+                OPS_PER_ELEM["fire_encode_full"] * nvals,
+                chain_steps=nblocks * CHAIN_OPS["fire_encode_full"][eb]),
+            row("fire_decode_full",
+                lambda: fc.fire_decode(fe, eb, truncate_coeffs=False),
+                None, None, nbytes(fe, out_fd),
+                OPS_PER_ELEM["fire_decode_full"] * nvals,
+                chain_steps=nblocks * CHAIN_OPS["fire_decode_full"][eb]),
+        ]
+
+    def fire_full_rows(f):
+        """The full-precision FIRE kernels at a 32k-row stream, beside the
+        plain version's one run at the same size."""
+        eb, r, fe = f["eb"], f["rows"], f["ferrs"]
+        nvals, nblocks = r.numel(), r.shape[0] // 8
+        out_fd = fc.fire_decode(fe, eb, truncate_coeffs=False)
+        return [
+            row("fire_encode_full",
+                lambda: fc.fire_encode(r, eb, truncate_coeffs=False),
+                f["plain_ms"]["fire_encode_full"], None, 2 * nbytes(r),
+                OPS_PER_ELEM["fire_encode_full"] * nvals,
+                chain_steps=nblocks * CHAIN_OPS["fire_encode_full"][eb]),
+            row("fire_decode_full",
+                lambda: fc.fire_decode(fe, eb, truncate_coeffs=False),
+                f["plain_ms"]["fire_decode_full"], None, nbytes(fe, out_fd),
+                OPS_PER_ELEM["fire_decode_full"] * nvals,
+                chain_steps=nblocks * CHAIN_OPS["fire_decode_full"][eb]),
+        ]
+
+    for what, a in ld_inputs.items():
+        table[what] = lowdim_rows(what, a)
+        log_rows(what, table[what])
+    for what, f in ld_fire.items():
+        table[what] = fire_full_rows(f)
+        log_rows(what, table[what])
     log("[timing] kernels " + json.dumps(table))
 
     class Split:
@@ -885,27 +1245,29 @@ def main() -> int:
 
     def split_decode(sp: Split, buf: bytes, elem_sz: int, codec: str):
         ng, _, nd = read_metadata_rle(buf)
-        idx = sp.host("walk", lambda: decoder.walk_headers(buf, ng, nd,
-                                                           elem_sz))
+        lowdim = nd <= LOWDIM_MAX_NDIMS[elem_sz]
+        idx = sp.host("walk", lambda: decoder.walk_headers(
+            buf, ng, nd, elem_sz, lowdim))
         dense = sp.host("gather", lambda: decoder.gather_payloads(buf, idx))
         up = sp.sync("h2d", lambda: decoder.upload_payload(dense, idx, dev))
         vals = sp.device("device", lambda: decoder.decode_device(
-            *up, idx.total_rows, elem_sz, codec))
+            *up, idx.total_rows, elem_sz, codec, lowdim))
         sp.host("d2h", lambda: decoder.download_values(vals))
 
     def split_encode(sp: Split, x: np.ndarray, codec: str) -> bytes:
         es, nd = x.dtype.itemsize, x.shape[1]
+        lowdim = nd <= LOWDIM_MAX_NDIMS[es]
         rows = sp.sync("h2d", lambda: encoder.upload_rows(x, dev))
         widths, hdr, dense, ws = sp.device(
-            "device", lambda: encoder.encode_device(rows, es, codec))
+            "device", lambda: encoder.encode_device(rows, es, codec, lowdim))
         w_np, h_np, d_np, z = sp.host("d2h", lambda: (
             widths.to(torch.uint8).cpu().numpy(),
             hdr.to(torch.uint8).cpu().numpy(), dense.cpu().numpy(),
             ws.cpu().numpy() == 0))
-        plan = sp.host("plan", lambda: build_plan(z, x.size, nd,
-                                                  codec == "xff"))
+        plan = sp.host("plan", lambda: build_plan(
+            z, x.size, nd, codec == "xff" and not lowdim))
         return sp.host("assemble", lambda: encoder.assemble_stream(
-            plan, w_np, h_np, d_np, nd, es, x[:0, 0]))
+            plan, w_np, h_np, d_np, nd, es, x[:0, 0], lowdim))
 
     def split_huff_encode(sp: Split, stream: bytes):
         data = np.frombuffer(stream, np.uint8)
@@ -937,11 +1299,12 @@ def main() -> int:
         runs = [fn() for _ in range(reps)]
         return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
 
-    def e2e_of(case) -> dict:
+    def e2e_of(case, reps=None) -> dict:
         x, buf = streams[case[0]], bufs[case]
         codec, entropy = case[1], case[2]
         es = x.dtype.itemsize
-        reps = 1 if x.nbytes > (8 << 20) else E2E_REPS
+        if reps is None:
+            reps = 1 if x.nbytes > (8 << 20) else E2E_REPS
 
         def enc():
             c = time.perf_counter()
@@ -972,10 +1335,14 @@ def main() -> int:
                 "encode_s": {**med(enc, reps), **med(enc_split, reps)},
                 "decode_s": {**med(dec, reps), **med(dec_split, reps)}}
 
+    # the lowdim streams' Python walk takes seconds (65536 groups at 4 MiB),
+    # so their e2e rows are timed once
     e2e = {}
-    for case in cases:
+    ld_e2e = [(w, c, "none") for w in ("u8 d4 walk 4 MiB", "u16 d2 walk 4 MiB")
+              for c in ("delta", "xff")]
+    for case in cases + ld_e2e:
         key = " ".join(case)
-        r = e2e[key] = e2e_of(case)
+        r = e2e[key] = e2e_of(case, 1 if case in ld_e2e else None)
         for side in ("encode_s", "decode_s"):
             log(f"[e2e] {key} {side[:6]}: " + ", ".join(
                 f"{k} {v * 1e3:.3f} ms ({r['bytes'] / v / 1e9:.4f} GB/s)"
@@ -985,7 +1352,11 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "chain_bound_ms")
-    line = table["u8 main (nb 16384, D 64)"] + table[huff_what]
+    line = (table["u8 main (nb 16384, D 64)"] + table[huff_what]
+            + [r for r in table["u8 d4 walk 4 MiB (nb 131072, D 4)"]
+               if r["name"] in ("pack_lowdim", "unpack_lowdim",
+                                "unpack_lowdim_raw")]
+            + table["u8 d4 walk 32k rows (nb 4096, D 4)"])
     assert sorted(r["name"] for r in line) == sorted(KERNELS)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in line]}),
           flush=True)

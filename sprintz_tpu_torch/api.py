@@ -1,12 +1,14 @@
 """Public API: compress/decompress entry points for the port's slice.
 
 Mirrors ``sprintz_tpu/api.py`` for the configurations this port covers so
-far: the delta and FIRE (xff) codecs in the row-major layout (ndims > 4
-for u8, > 2 for u16), u8 and u16, with RLE of zero blocks, streams short
-enough to be stored verbatim, and the +Huf entropy stage on either codec.
-Every other configuration (the lowdim layout, sidecars, batches) raises
-``NotImplementedError`` naming the slice of the port that brings it;
-nothing falls back to another codec path.
+far: the delta and FIRE (xff) codecs, u8 and u16, at every ndims, in the
+layout the JAX package picks (``constants.LOWDIM_MAX_NDIMS``): row-major
+for u8 ndims > 4 and u16 ndims > 2, lowdim (column-major blocks, FIRE's
+full-precision coefficient) below; with RLE of zero blocks, streams short
+enough to be stored verbatim, and the +Huf entropy stage on either codec
+and layout. Sidecars and batches raise ``NotImplementedError`` naming the
+slice of the port that brings them; nothing falls back to another codec
+path.
 
 Entry points run on CUDA unless ``device`` says otherwise; ``"cpu"`` runs
 the kernels' plain PyTorch versions and is meant for tests.

@@ -63,6 +63,38 @@
 //   neighbouring dims), the runs' sums are scanned in shared memory, and
 //   each thread walks its run again from its prefix, writing the values in
 //   place; the image leaves in 16-byte stores as in K1.
+//
+// unpack_lowdim_kernel<EB, RAW>  (the lowdim layout's unpack, K1's twin)
+//   Replaces sprintz_tpu/ops/pack.py:unpack_dims_lowdim (pack.py:683), an
+//   XLA pass (one-hot einsums or selects), and in its non-raw mode also the
+//   zigzag decode and tile sums that the lowdim delta decode fuses around
+//   it (sprintz_tpu/decoder.py:265-308); JAX has no Pallas kernel here.
+//   The lowdim layout (u8 ndims <= 4, u16 ndims <= 2) stores a block
+//   column-major: dim d's 8 fields of w bits at bits r * w of its
+//   (block, dim) section of EB bytes (dense (nb, D, EB) u8; EB bytes hold
+//   8 samples of EB bits). Non-raw mode has K1's output contract, so K2
+//   runs on it unchanged: biased narrow deltas (nb, 8, D) and the tiles'
+//   exclusive offsets (ceil(nb / TILE_BLOCKS), D). RAW mode stores the
+//   fields, u8 at EB 8 and i32 at EB 16, for the FIRE decode.
+//   Bound on this card: bytes. It reads each section and width once and
+//   writes one narrow value a field, with about ten integer operations a
+//   field.
+//   Design: a tile of 32 blocks holds at most 128 (block, dim) items at
+//   these widths, too little work for a CTA, so a CTA of 256 threads owns
+//   a span of LD_TILES tiles (LD_BLOCKS blocks):
+//   1. the span's sections, one contiguous range, go to shared memory in
+//      16-byte cp.async copies (stage_range, as in K1);
+//   2. each thread takes (block, dim) items, neighbouring lanes on
+//      neighbouring items: the section is one or two 64-bit words, each
+//      field a shift and a mask, written into a shared image of the
+//      span's output rows. A warp's 32 items lie in one tile (a tile is
+//      32 * D items), so a warp reduction a dim gives the warp's share of
+//      the tile's totals;
+//   3. D threads scan the span's tile totals into offsets within the
+//      span and publish the span's total; the image leaves in 16-byte
+//      stores (store_range); then the same D threads run one look-back
+//      over the spans before it (K1's look_back, status words and ticket,
+//      a span in place of a tile) and write every tile's offset.
 
 #include <cstdint>
 
@@ -544,6 +576,132 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+constexpr int LD_TILES = 8;  // K2 tiles a CTA of the lowdim unpack owns
+constexpr int LD_BLOCKS = LD_TILES * TILE_BLOCKS;
+constexpr int LD_MAX_DIMS = 4;       // u8 ndims <= 4, u16 ndims <= 2:
+constexpr int LD_SECTION_BYTES = 32; // ndims * EB bytes of a block at most
+constexpr int LD_CHUNKS = LD_BLOCKS * LD_MAX_DIMS / 32;  // warps' item chunks
+
+// Shared memory of the lowdim unpack: the span's sections, its output
+// image (D * sizeof(out) <= 8 bytes a row), the warps' partial sums, the
+// tiles' offsets within the span and the ticket.
+template <int EB, bool RAW>
+struct LowdimSmem {
+  static constexpr int kOut = (int)sizeof(typename UnpackOut<EB, RAW>::type);
+  static constexpr int kIn = 0;
+  static constexpr int kImage = kIn + LD_BLOCKS * LD_SECTION_BYTES;
+  static constexpr int kPart = kImage + LD_BLOCKS * BLOCK_SZ * (kOut == 4 ? 8 : 4);
+  static constexpr int kToff = kPart + 4 * LD_CHUNKS * LD_MAX_DIMS;
+  static constexpr int kTicket = kToff + 4 * LD_TILES * LD_MAX_DIMS;
+  static constexpr int kBytes = kTicket + 16;
+};
+
+template <int EB, bool RAW>
+__global__ void __launch_bounds__(THREADS)
+    unpack_lowdim_kernel(const uint8_t* __restrict__ dense, const uint8_t* __restrict__ widths,
+                         typename UnpackOut<EB, RAW>::type* __restrict__ out,
+                         int32_t* __restrict__ tile_off, unsigned long long* __restrict__ status,
+                         int64_t nb, int ndims) {
+  using OutT = typename UnpackOut<EB, RAW>::type;
+  using L = LowdimSmem<EB, RAW>;
+  constexpr int OS = sizeof(OutT);
+  constexpr uint32_t kBias = 1u << (EB - 1);
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* s_in = smem + L::kIn;
+  uint8_t* s_out = smem + L::kImage;
+  uint32_t* s_part = reinterpret_cast<uint32_t*>(smem + L::kPart);  // [LD_CHUNKS][LD_MAX_DIMS]
+  uint32_t* s_toff = reinterpret_cast<uint32_t*>(smem + L::kToff);  // [LD_TILES][LD_MAX_DIMS]
+  int32_t* s_ticket = reinterpret_cast<int32_t*>(smem + L::kTicket);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int64_t nspans = (nb + LD_BLOCKS - 1) / LD_BLOCKS;
+
+  int64_t span = blockIdx.x;
+  if (!RAW) {
+    if (tid == 0) {
+      *s_ticket = (int32_t)atomicAdd(reinterpret_cast<unsigned*>(status + nspans * ndims), 1u);
+    }
+    __syncthreads();
+    span = *s_ticket;
+  }
+  const int64_t b0 = span * LD_BLOCKS;
+  const int nbs = (int)(nb - b0 < LD_BLOCKS ? nb - b0 : LD_BLOCKS);
+  const int nitems = nbs * ndims;
+  // 1. The span's sections, from a 16-byte boundary (b0 is a multiple of
+  // LD_BLOCKS), into shared memory.
+  stage_range(s_in, dense, b0 * ndims * EB, nitems * EB, nb * ndims * EB, tid, THREADS);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 2. (block, dim) items; the loop's trip count is uniform in the CTA,
+  // so that every lane of a warp takes part in its reductions.
+  for (int base = 0; base < nitems; base += THREADS) {
+    const int it = base + tid;
+    const bool live = it < nitems;
+    const int b = it / ndims;
+    const int d = it - b * ndims;
+    const int w0 = live ? widths[b0 * ndims + it] : 0;
+    const int w = w0 < EB ? w0 : EB;  // widths are <= EB
+    const uint32_t mask = (1u << w) - 1u;
+    uint32_t u[BLOCK_SZ];
+    if constexpr (EB == 8) {
+      const uint64_t x = live ? reinterpret_cast<const uint64_t*>(s_in)[it] : 0;
+#pragma unroll
+      for (int r = 0; r < BLOCK_SZ; ++r) u[r] = (uint32_t)(x >> (r * w)) & mask;
+    } else {  // a field at p < 64 may take its high bits from the second word
+      const uint64_t lo = live ? reinterpret_cast<const uint64_t*>(s_in)[2 * it] : 0;
+      const uint64_t hi = live ? reinterpret_cast<const uint64_t*>(s_in)[2 * it + 1] : 0;
+#pragma unroll
+      for (int r = 0; r < BLOCK_SZ; ++r) {
+        const int p = r * w;
+        const uint64_t x = p < 64 ? (lo >> p) | (p ? hi << (64 - p) : 0) : hi >> (p - 64);
+        u[r] = (uint32_t)x & mask;
+      }
+    }
+    uint32_t sum = 0;
+    OutT* o = reinterpret_cast<OutT*>(s_out) + (b * BLOCK_SZ * ndims + d);
+#pragma unroll
+    for (int r = 0; r < BLOCK_SZ; ++r) {
+      if constexpr (RAW) {
+        if (live) o[r * ndims] = (OutT)u[r];
+      } else {
+        const uint32_t delta = (u[r] >> 1) ^ (0u - (u[r] & 1u));
+        if (live) o[r * ndims] = (OutT)(delta + kBias);
+        sum += delta;
+      }
+    }
+    if (!RAW) {  // the warp's share of its tile's totals, a dim at a time
+      for (int k = 0; k < ndims; ++k) {
+        const uint32_t t = __reduce_add_sync(0xffffffffu, live && d == k ? sum : 0u);
+        if (lane == k) s_part[(it >> 5) * LD_MAX_DIMS + k] = t;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. Each dim's tile totals -> offsets within the span, and the span's
+  // total published; the image out; the look-back over the spans before.
+  const int ntl = (nbs + TILE_BLOCKS - 1) / TILE_BLOCKS;
+  uint32_t span_total = 0;
+  if (!RAW && tid < ndims) {
+    const int nchunks = (nitems + 31) / 32;  // a tile is ndims chunks
+    for (int t = 0; t < ntl; ++t) {
+      s_toff[t * LD_MAX_DIMS + tid] = span_total;
+      const int c1 = (t + 1) * ndims < nchunks ? (t + 1) * ndims : nchunks;
+      for (int c = t * ndims; c < c1; ++c) span_total += s_part[c * LD_MAX_DIMS + tid];
+    }
+    st_status(status + span * ndims + tid, (span == 0 ? FLAG_PREFIX : FLAG_TOTAL) | span_total);
+  }
+  store_range(reinterpret_cast<uint8_t*>(out), b0 * BLOCK_SZ * ndims * OS,
+              nitems * BLOCK_SZ * OS, s_out, tid, THREADS);
+  if (!RAW && tid < ndims) {
+    const uint32_t excl = look_back(status, span, ndims, tid, span_total);
+    for (int t = 0; t < ntl; ++t) {
+      tile_off[(span * LD_TILES + t) * ndims + tid] = (int32_t)(excl + s_toff[t * LD_MAX_DIMS + tid]);
+    }
+  }
+}
+
 // K1's tile: contiguous where the whole rows fit SMEM_BUDGET, else the
 // widest chunk of dims (a multiple of 32) that fits.
 Plan unpack_plan(int ndims, int maxb, int es, int os) {
@@ -657,6 +815,23 @@ int launch_finish(const void* bz, const int32_t* tile_off, void* out, long long 
                   : launch_finish<EB, false>(bz, tile_off, out, rows, ndims, p, s);
 }
 
+template <int EB, bool RAW>
+int launch_lowdim(const uint8_t* dense, const uint8_t* widths, void* out, int32_t* tile_off,
+                  unsigned long long* status, long long nb, int ndims, cudaStream_t s) {
+  using OutT = typename UnpackOut<EB, RAW>::type;
+  const long long nspans = (nb + LD_BLOCKS - 1) / LD_BLOCKS;
+  constexpr int smem = LowdimSmem<EB, RAW>::kBytes;
+  static_assert(smem <= SMEM_DEFAULT, "the lowdim unpack stays in the default shared memory");
+  if (!RAW) {  // the status words and the ticket
+    const cudaError_t err =
+        cudaMemsetAsync(status, 0, (size_t)(nspans * ndims + 1) * sizeof(*status), s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  unpack_lowdim_kernel<EB, RAW><<<(unsigned)nspans, THREADS, (size_t)smem, s>>>(
+      dense, widths, static_cast<OutT*>(out), tile_off, status, nb, ndims);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -698,6 +873,34 @@ int sprintz_prefix_finish(const void* bz, const void* tile_off, void* out, long 
   const int32_t* to = static_cast<const int32_t*>(tile_off);
   if (elem_bits == 8) return launch_finish<8>(bz, to, out, rows, ndims, s);
   if (elem_bits == 16) return launch_finish<16>(bz, to, out, rows, ndims, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The lowdim layout: dense (nb, ndims, elem_bits) u8 sections (8 fields of
+// w bits at bits r * w); widths (nb, ndims) u8, each at most elem_bits;
+// ndims * elem_bits <= 32; dense and out 16-byte aligned.
+// raw == 0: out (nb, 8, ndims) u8/u16 biased deltas; tile_off
+//           (ceil(nb / 32), ndims) i32 exclusive offsets of the tiles;
+//           status ceil(nb / 256) * ndims + 1 words of 8 bytes, scratch.
+// raw != 0: out (nb, 8, ndims) fields, u8 at elem_bits 8 and i32 at 16;
+//           tile_off and status unused.
+int sprintz_unpack_lowdim(const void* dense, const void* widths, void* out, void* tile_off,
+                          void* status, long long nb, int ndims, int elem_bits, int raw,
+                          void* stream) {
+  if (nb < 1 || ndims < 1 || ndims * elem_bits > LD_SECTION_BYTES ||
+      (((uintptr_t)dense | (uintptr_t)out) & 15)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* dn = static_cast<const uint8_t*>(dense);
+  const uint8_t* wd = static_cast<const uint8_t*>(widths);
+  int32_t* to = static_cast<int32_t*>(tile_off);
+  unsigned long long* st = static_cast<unsigned long long*>(status);
+  if (raw && elem_bits == 8) return launch_lowdim<8, true>(dn, wd, out, to, st, nb, ndims, s);
+  if (raw && elem_bits == 16) return launch_lowdim<16, true>(dn, wd, out, to, st, nb, ndims, s);
+  if (raw) return (int)cudaErrorInvalidValue;
+  if (elem_bits == 8) return launch_lowdim<8, false>(dn, wd, out, to, st, nb, ndims, s);
+  if (elem_bits == 16) return launch_lowdim<16, false>(dn, wd, out, to, st, nb, ndims, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,9 +1,11 @@
 // FIRE (xff) forecaster scan for Hopper (sm_90a), bound with ctypes.
 //
-// fire_encode_kernel<EB>, fire_decode_kernel<EB>
+// fire_encode_kernel<EB, TRUNC>, fire_decode_kernel<EB, TRUNC>
 //   Replace the lax.scan of sprintz_tpu/models/forecasters.py:_fire_scan
-//   (forecasters.py:303-339) over _fire_block_step (:247-300) with
-//   truncate_coeffs=True, the row-major layout's int16 coefficient. JAX
+//   (forecasters.py:303-339) over _fire_block_step (:247-300). TRUNC is
+//   truncate_coeffs: true for the row-major layout's int16 coefficient
+//   (the counter's bits above eb - 4, forecasters.py:234-238), false for
+//   the lowdim layout's full-precision one (counter >> 1, :239-240). JAX
 //   runs this pass outside Pallas; there is no TPU kernel behind it.
 //   Encode: rows (N, D) i32 unsigned values -> zigzag errors (N, D) i32.
 //   Decode: zigzag errors (N, D), u8 at EB 8 (K4's narrow mode) or i32 at
@@ -23,11 +25,13 @@
 //     15 dependent integer operations a block at EB 8 (3 coef, multiply,
 //     shift, subtract, shift, compare, 2 selects, 2 adds, shift,
 //     shift-and-add, sign-extend), 14 at EB 16 (no last sign-extend);
+//     with the full-precision coefficient (TRUNC false) the 3 coefficient
+//     operations are one shift: 13 and 12;
 //   - decode: delta[r] = sext(err[r] + (delta[r-1] * coef >> EB)) a row,
 //     and the counter once a block beside the last row. At EB 8 a row is
 //     one operation (below): 7 rows + 9 for the counter and coefficient
 //     = 16 a block. At EB 16 a row is a shift and a multiply-add:
-//     14 + 6 = 20 a block.
+//     14 + 6 = 20 a block. TRUNC false: 14 and 18.
 //   The chain bound is blocks x those operations x the card's latency for
 //   one dependent integer multiply-add, which sprintz_fire_chain_probe
 //   measures (4.14 cycles on an H100; a shift between two multiply-adds
@@ -59,8 +63,14 @@
 //     deltas and the block's coefficient, zigzag, mask. Decode: values are
 //     the running sum of the block's deltas, mod 2^EB.
 //   All arithmetic wraps as JAX's int32 does: products and sums are taken
-//   in uint32_t and read back as int32_t. A chunk-parallel decode from
-//   sidecar states is the way past the chain.
+//   in uint32_t and read back as int32_t. That holds for the full-precision
+//   coefficient too, which at EB 16 reaches 2^30 (a 32-bit counter >> 1),
+//   so that delta * coef wraps: the prediction reads only bits EB to
+//   2 EB - 1 of the product, which the low 32 bits hold exactly. At EB 8
+//   the full coefficient is an int16 counter >> 1 and still fits the 16-bit
+//   half of decode's dot-product multiplier. A chunk-parallel decode from
+//   sidecar states is the way past the chain; at D <= 4 (the lowdim layout)
+//   one CTA runs 1 to 4 live lanes of it.
 
 #include <cstdint>
 #include <type_traits>
@@ -188,8 +198,13 @@ struct Fire {
   // decode reads u8 (EB 8) or i32 (EB 16) errors
   using errs_t = typename std::conditional<EB == 8, uint8_t, int32_t>::type;
 
+  template <bool TRUNC>
   __device__ static __forceinline__ int32_t coef(int32_t counter) {
-    return sext<16>((uint32_t)(counter >> (LEARNING_SHIFT + kShft)) << kShft);
+    if constexpr (TRUNC) {
+      return sext<16>((uint32_t)(counter >> (LEARNING_SHIFT + kShft)) << kShft);
+    } else {
+      return counter >> LEARNING_SHIFT;
+    }
   }
   __device__ static __forceinline__ int32_t prediction(int32_t prev_delta,
                                                         int32_t c) {
@@ -324,7 +339,7 @@ __device__ __forceinline__ void load_deltas(const int32_t* __restrict__ p,
   for (int q = 0; q < LOAD_BLOCKS; ++q) write_block(cells, b0 + q, dl + q * BLOCK_SZ);
 }
 
-template <int EB>
+template <int EB, bool TRUNC>
 __global__ void __launch_bounds__(32 * WARPS)
     fire_encode_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
                        long long nb, int ndims) {
@@ -355,7 +370,7 @@ __global__ void __launch_bounds__(32 * WARPS)
       for (int b = 0; b < nblk; ++b) {
         uint32_t x[BLOCK_SZ];
         read_block(cells, b, x);
-        const int32_t c = F::coef(counter);
+        const int32_t c = F::template coef<TRUNC>(counter);
         coefs[b * GROUP * 4] = c;
         uint32_t grad[BLOCK_SZ / 2];
 #pragma unroll
@@ -457,7 +472,7 @@ __device__ __forceinline__ void load_errors(
   }
 }
 
-template <int EB>
+template <int EB, bool TRUNC>
 __global__ void __launch_bounds__(32 * WARPS)
     fire_decode_kernel(const typename Fire<EB>::errs_t* __restrict__ in,
                        const int32_t* __restrict__ state,
@@ -492,7 +507,8 @@ __global__ void __launch_bounds__(32 * WARPS)
       // a carried delta wider than EB bits (no encoder leaves one): what
       // the word cannot hold, times the first coefficient, joins the
       // first row's addend
-      beyond = (uint32_t)(prev_delta - F::delta_of(word)) * (uint32_t)F::coef(counter);
+      beyond = (uint32_t)(prev_delta - F::delta_of(word)) *
+               (uint32_t)F::template coef<TRUNC>(counter);
     }
     for (int t = 0; t < ntiles; ++t) {
       const int s = Ring::slot(t);
@@ -508,7 +524,7 @@ __global__ void __launch_bounds__(32 * WARPS)
         signs[b * GROUP].x = val;  // the value above the block
         const int32_t m[BLOCK_SZ / 2] = {(int32_t)sg.x, (int32_t)sg.y, (int32_t)sg.z,
                                          (int32_t)sg.w};
-        const int32_t c = F::multiplier(F::coef(counter));
+        const int32_t c = F::multiplier(F::template coef<TRUNC>(counter));
         uint32_t grad_sum = 0;
 #pragma unroll
         for (int r = 0; r < BLOCK_SZ; ++r) {
@@ -611,24 +627,31 @@ cudaError_t allow_ring(Kernel kernel) {
                               SMEM_BYTES);
 }
 
-template <int EB>
-cudaError_t launch(const void* in, const int32_t* state, void* out, long long nb,
-                   int ndims, int decode, cudaStream_t s) {
+template <int EB, bool TRUNC>
+cudaError_t launch_scan(const void* in, const int32_t* state, void* out, long long nb,
+                        int ndims, int decode, cudaStream_t s) {
   using F = Fire<EB>;
   const unsigned groups = (unsigned)((ndims + GROUP - 1) / GROUP);
   if (decode) {
-    const cudaError_t err = allow_ring(fire_decode_kernel<EB>);
+    const cudaError_t err = allow_ring(fire_decode_kernel<EB, TRUNC>);
     if (err != cudaSuccess) return err;
-    fire_decode_kernel<EB><<<groups, 32 * WARPS, SMEM_BYTES, s>>>(
+    fire_decode_kernel<EB, TRUNC><<<groups, 32 * WARPS, SMEM_BYTES, s>>>(
         static_cast<const typename F::errs_t*>(in), state,
         static_cast<typename F::narrow_t*>(out), nb, ndims);
   } else {
-    const cudaError_t err = allow_ring(fire_encode_kernel<EB>);
+    const cudaError_t err = allow_ring(fire_encode_kernel<EB, TRUNC>);
     if (err != cudaSuccess) return err;
-    fire_encode_kernel<EB><<<groups, 32 * WARPS, SMEM_BYTES, s>>>(
+    fire_encode_kernel<EB, TRUNC><<<groups, 32 * WARPS, SMEM_BYTES, s>>>(
         static_cast<const int32_t*>(in), static_cast<int32_t*>(out), nb, ndims);
   }
   return cudaGetLastError();
+}
+
+template <int EB>
+cudaError_t launch(const void* in, const int32_t* state, void* out, long long nb,
+                   int ndims, int decode, int trunc, cudaStream_t s) {
+  return trunc ? launch_scan<EB, true>(in, state, out, nb, ndims, decode, s)
+               : launch_scan<EB, false>(in, state, out, nb, ndims, decode, s);
 }
 
 }  // namespace
@@ -638,15 +661,16 @@ extern "C" {
 // encode (decode == 0): in (nb * 8, ndims) i32 values, out i32 zigzag errors,
 // from the zero state. decode (decode != 0): in (nb * 8, ndims) zigzag
 // errors, u8 at elem_bits 8 and i32 at 16, out u8/u16 values; state
-// (3, ndims) i32 or null (zeros).
+// (3, ndims) i32 or null (zeros). trunc != 0: the row-major layout's
+// truncated int16 coefficient; trunc == 0: the lowdim layout's full one.
 int sprintz_fire_scan(const void* in, const void* state, void* out, long long nb,
-                      int ndims, int elem_bits, int decode, void* stream) {
+                      int ndims, int elem_bits, int decode, int trunc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* st = static_cast<const int32_t*>(state);
   if (nb < 1 || nb > MAX_BLOCKS || ndims < 1 || ndims > MAX_NDIMS)
     return (int)cudaErrorInvalidValue;
-  if (elem_bits == 8) return (int)launch<8>(in, st, out, nb, ndims, decode, s);
-  if (elem_bits == 16) return (int)launch<16>(in, st, out, nb, ndims, decode, s);
+  if (elem_bits == 8) return (int)launch<8>(in, st, out, nb, ndims, decode, trunc, s);
+  if (elem_bits == 16) return (int)launch<16>(in, st, out, nb, ndims, decode, trunc, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -27,6 +27,24 @@
 //      16-byte pieces at the tile's two ends that other tiles share leave
 //      a byte at a time. One writer a byte, and the image's zeros are the
 //      zero fill.
+//
+// pack_lowdim_kernel<ELEM_SZ>  (the lowdim layout's pack)
+//   Replaces sprintz_tpu/ops/pack.py:pack_dims_lowdim (pack.py:251), an
+//   XLA pass (one-hot matmuls or selects): JAX has no Pallas kernel here.
+//   The lowdim layout (u8 ndims <= 4, u16 ndims <= 2) is column-major
+//   within a block: dim d's 8 zigzag fields of w = widths[b, d] bits sit
+//   back to back at bits r * w of the (block, dim) section, exactly w
+//   bytes, in a dense (nb, D, EB) buffer whose EB = 8 * ELEM_SZ bytes are
+//   zero past w.
+//   Bound on this card: bytes. It reads the i32 errors and widths once and
+//   writes the dense sections once, with a shift and an OR a field.
+//   Design: a thread a (block, dim) item, neighbouring lanes on
+//   neighbouring items, so that the section stores are consecutive and
+//   the i32 reads of a row of the block are too. A thread issues its 8
+//   loads at once, ORs the masked fields into one 64-bit word (u8) or two
+//   (u16, where a field at r * w up to bit 112 may cross from the first
+//   into the second), and stores the section with one 8- or 16-byte
+//   store.
 
 #include <cstdint>
 #include <type_traits>
@@ -257,6 +275,56 @@ int launch_pack(const int32_t* e, const int32_t* w, uint8_t* o, long long nrows,
              : launch_pack<ELEM_SZ, false>(e, w, o, nrows, ndims, tile_rows, s);
 }
 
+constexpr int LOWDIM_THREADS = 256;
+
+template <int ELEM_SZ>
+__global__ void __launch_bounds__(LOWDIM_THREADS)
+    pack_lowdim_kernel(const int32_t* __restrict__ errs,
+                       const int32_t* __restrict__ widths, uint8_t* __restrict__ out,
+                       int64_t nitems, int ndims) {
+  constexpr int kMaxWidth = 8 * ELEM_SZ;
+  const int64_t i = (int64_t)blockIdx.x * LOWDIM_THREADS + threadIdx.x;
+  if (i >= nitems) return;
+  const int64_t b = i / ndims;
+  const int d = (int)(i - b * ndims);
+  int w = __ldg(widths + i);
+  w = w < 0 ? 0 : (w > kMaxWidth ? kMaxWidth : w);  // memory safety only
+  const uint32_t mask = (1u << w) - 1u;
+  const int32_t* e = errs + (b * BLOCK_SZ * ndims + d);
+  uint32_t v[BLOCK_SZ];
+#pragma unroll
+  for (int r = 0; r < BLOCK_SZ; ++r) v[r] = (uint32_t)__ldg(e + r * ndims) & mask;
+  if constexpr (ELEM_SZ == 1) {  // 8 fields of at most 8 bits: one word
+    uint64_t word = 0;
+#pragma unroll
+    for (int r = 0; r < BLOCK_SZ; ++r) word |= (uint64_t)v[r] << (r * w);
+    reinterpret_cast<uint64_t*>(out)[i] = word;
+  } else {  // at most 16 bits: a field at p < 64 spills its bits past 64 into hi
+    uint64_t lo = 0, hi = 0;
+#pragma unroll
+    for (int r = 0; r < BLOCK_SZ; ++r) {
+      const int p = r * w;
+      if (p < 64) {
+        lo |= (uint64_t)v[r] << p;
+        if (p) hi |= (uint64_t)v[r] >> (64 - p);
+      } else {
+        hi |= (uint64_t)v[r] << (p - 64);
+      }
+    }
+    reinterpret_cast<uint4*>(out)[i] =
+        make_uint4((uint32_t)lo, (uint32_t)(lo >> 32), (uint32_t)hi, (uint32_t)(hi >> 32));
+  }
+}
+
+template <int ELEM_SZ>
+int launch_pack_lowdim(const int32_t* e, const int32_t* w, uint8_t* o, long long nb,
+                       int ndims, cudaStream_t s) {
+  const long long nitems = nb * ndims;
+  const unsigned ctas = (unsigned)((nitems + LOWDIM_THREADS - 1) / LOWDIM_THREADS);
+  pack_lowdim_kernel<ELEM_SZ><<<ctas, LOWDIM_THREADS, 0, s>>>(e, w, o, nitems, ndims);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -279,6 +347,24 @@ int sprintz_pack_rows(const void* errs, const void* widths, void* out,
   uint8_t* o = static_cast<uint8_t*>(out);
   if (elem_sz == 1) return launch_pack<1>(e, w, o, nrows, ndims, tile_rows, s);
   if (elem_sz == 2) return launch_pack<2>(e, w, o, nrows, ndims, tile_rows, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// errs (nb, 8, ndims) i32 zigzag errors; widths (nb, ndims) i32 legal lowdim
+// widths -> out (nb, ndims, 8 * elem_sz) u8, each (block, dim) section its 8
+// fields of w bits back to back, zero past w bytes. out is 16-byte aligned;
+// ndims * elem_sz is at most 4 (the lowdim layout).
+int sprintz_pack_dims_lowdim(const void* errs, const void* widths, void* out,
+                             long long nb, int ndims, int elem_sz, void* stream) {
+  if (nb < 1 || ndims < 1 || ndims * elem_sz > 4 || ((uintptr_t)out & 15)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* e = static_cast<const int32_t*>(errs);
+  const int32_t* w = static_cast<const int32_t*>(widths);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  if (elem_sz == 1) return launch_pack_lowdim<1>(e, w, o, nb, ndims, s);
+  if (elem_sz == 2) return launch_pack_lowdim<2>(e, w, o, nb, ndims, s);
   return (int)cudaErrorInvalidValue;
 }
 

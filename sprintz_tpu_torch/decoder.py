@@ -1,14 +1,18 @@
-"""Row-major decoder (delta and FIRE): host header walk + device reconstruct.
+"""Decoder (delta and FIRE): host header walk + device reconstruct.
 
-Counterpart of ``sprintz_tpu/decoder.py`` for the row-major layout.
+Counterpart of ``sprintz_tpu/decoder.py`` for its two layouts, row-major
+and lowdim (u8 ndims <= 4, u16 ndims <= 2: column-major blocks).
 The compressed layout only reveals payload sizes through the group
 headers, so offset recovery is a sequential walk over the headers on the
-host (``walk_headers``); the payload rows are then gathered into one dense
-(ndata, 8, MAXB) buffer (``gather_payloads``) and everything heavy runs on
-the device. Delta: K1 ``unpack_zz`` (which also scans its tiles' totals
-into their offsets) -> K2 ``prefix_finish`` (``decode_delta_contiguous``).
-FIRE: K4 ``unpack_rows`` (its narrow mode, K5, at u8) -> ``fire_decode``'s
-serial scan. A stream with zero runs first has its payload blocks placed
+host (``walk_headers``); the payloads are then gathered into one dense
+buffer (``gather_payloads``): (ndata, 8, MAXB) rows, or (ndata, D, EB)
+sections in the lowdim layout; and everything heavy runs on the device.
+Delta: K1 ``unpack_zz`` (which also scans its tiles' totals into their
+offsets), or its lowdim twin ``unpack_zz_lowdim``, -> K2
+``prefix_finish``. FIRE: K4 ``unpack_rows`` (its narrow mode, K5, at u8),
+or the lowdim ``unpack_dims_lowdim``, -> ``fire_decode``'s serial scan
+(with the full-precision coefficient in the lowdim layout). A stream with
+zero runs first has its payload blocks placed
 on the block timeline, with run blocks of width 0 (the byte-gather
 timeline of the JAX package's ``decoder.py:582-612``), and then takes the
 same kernels: a run block decodes as zero errors, which FIRE runs through
@@ -36,7 +40,11 @@ from .device import resolve_device
 from .errors import CorruptStreamError
 from .models.forecasters import fire_decode
 from .ops.bitmath import header_to_width
-from .ops.decode_kernels import decode_delta_contiguous
+from .ops.decode_kernels import (
+    decode_delta_contiguous,
+    decode_delta_lowdim,
+    unpack_dims_lowdim,
+)
 from .ops.pack_kernels import unpack_rows
 from .planner import unpack_headers
 from .stream_format import copy_ranges, read_metadata_rle
@@ -51,12 +59,15 @@ class StreamIndex:
     out_rows: np.ndarray  # (ndata,) int64 starting row of each data block
     total_rows: int
     tail_offset: int  # byte offset of the verbatim tail
+    section_bytes: int = 0  # lowdim: EB bytes a (block, dim); 0: row-major
 
 
-def walk_headers(buf: bytes, ngroups: int, ndims: int,
-                 elem_sz: int) -> StreamIndex:
+def walk_headers(buf: bytes, ngroups: int, ndims: int, elem_sz: int,
+                 lowdim: bool = False) -> StreamIndex:
     """Sequential walk over the group headers, which start right after
-    the stream's metadata, to index payloads and runs."""
+    the stream's metadata, to index payloads and runs. A data block's
+    payload is 8 rows of ceil(sum(w) / 8) bytes, or sum(w) bytes in the
+    lowdim layout (each dim's 8 fields of w bits are w bytes)."""
     hdr_bits = nbits_sz_bits(elem_sz)
     elem_bits = 8 * elem_sz
     total_header_bytes = (ndims * hdr_bits * GROUP_SZ_BLOCKS + 7) // 8
@@ -99,7 +110,7 @@ def walk_headers(buf: bytes, ngroups: int, ndims: int,
             widths_list.append(w)
             offsets.append(pos)
             out_rows.append(row)
-            pos += BLOCK_SZ * ((wsum + 7) // 8)
+            pos += wsum if lowdim else BLOCK_SZ * ((wsum + 7) // 8)
             if pos > buf_len:
                 _overrun("a block payload")
             row += BLOCK_SZ
@@ -111,14 +122,27 @@ def walk_headers(buf: bytes, ngroups: int, ndims: int,
         out_rows=np.asarray(out_rows, dtype=np.int64),
         total_rows=row,
         tail_offset=pos,
+        section_bytes=8 * elem_sz if lowdim else 0,
     )
 
 
 def gather_payloads(buf: bytes, idx: StreamIndex) -> np.ndarray:
     """Gather the packed payload rows into a dense (ndata, 8, MAXB) uint8
     buffer, zero padded; MAXB is the stream's widest row in bytes (at
-    least 1), not a bucket."""
+    least 1), not a bucket. In the lowdim layout the (block, dim)
+    sections go into a dense (ndata, D, EB) buffer, zero past each
+    section's w bytes."""
     ndata = idx.widths.shape[0]
+    if idx.section_bytes:
+        ndims = idx.widths.shape[1]
+        dense = np.zeros((ndata, ndims, idx.section_bytes), dtype=np.uint8)
+        w = idx.widths.astype(np.int64)
+        unit_src = (np.repeat(idx.payload_offsets, ndims)
+                    + (np.cumsum(w, axis=1) - w).reshape(-1))
+        unit_dst = np.arange(ndata * ndims, dtype=np.int64) * dense.shape[2]
+        copy_ranges(dense.reshape(-1), unit_dst, np.frombuffer(buf, np.uint8),
+                    unit_src, w.reshape(-1))
+        return dense
     rb = ((idx.widths.sum(axis=1, dtype=np.int64) + 7) // 8)
     maxb = max(int(rb.max()) if ndata else 1, 1)
     dense = np.zeros((ndata, BLOCK_SZ, maxb), dtype=np.uint8)
@@ -133,12 +157,14 @@ def gather_payloads(buf: bytes, idx: StreamIndex) -> np.ndarray:
 
 def decode_device(dense: torch.Tensor, widths: torch.Tensor,
                   out_rows: torch.Tensor, total_rows: int,
-                  elem_sz: int, codec: str = "delta") -> torch.Tensor:
+                  elem_sz: int, codec: str = "delta",
+                  lowdim: bool = False) -> torch.Tensor:
     """Device pass: the gathered payload of the data blocks -> the stream's
     rows (total_rows, D), u8/u16, on the payload's device.
 
-    dense (ndata, 8, MAXB) uint8; widths (ndata, D) uint8; out_rows
-    (ndata,) int64 first row of each data block on the timeline.
+    dense (ndata, 8, MAXB) uint8, or (ndata, D, EB) with ``lowdim``;
+    widths (ndata, D) uint8; out_rows (ndata,) int64 first row of each
+    data block on the timeline.
 
     With runs, the payload blocks are first placed on the block timeline
     (runs are whole blocks, so every block start is 8-aligned): a run
@@ -155,14 +181,20 @@ def decode_device(dense: torch.Tensor, widths: torch.Tensor,
         dense = torch.cat([dense, dense.new_zeros((1,) + dense.shape[1:])])[src]
         widths = torch.cat([widths, widths.new_zeros((1, ndims))])[src]
     if codec == "xff":
-        errs = unpack_rows(dense, widths, narrow=elem_sz == 1)
-        return fire_decode(errs.reshape(-1, ndims), 8 * elem_sz)
+        if lowdim:
+            errs = unpack_dims_lowdim(dense, widths)
+        else:
+            errs = unpack_rows(dense, widths, narrow=elem_sz == 1)
+        return fire_decode(errs.reshape(-1, ndims), 8 * elem_sz,
+                           truncate_coeffs=not lowdim)
+    if lowdim:
+        return decode_delta_lowdim(dense, widths, 8 * elem_sz)
     return decode_delta_contiguous(dense, widths, 8 * elem_sz)
 
 
 def decompress(buf: bytes, codec: str = "delta", elem_sz: int = 1,
                device: str | torch.device | None = None) -> np.ndarray:
-    """Decompress a row-major delta or FIRE stream; returns the flat
+    """Decompress a delta or FIRE stream, either layout; returns the flat
     elements. The stream does not record its codec: ``codec`` must be the
     one it was compressed with.
 
@@ -188,12 +220,9 @@ def decompress(buf: bytes, codec: str = "delta", elem_sz: int = 1,
         return np.frombuffer(
             buf, dtype=udt, count=remaining_len,
             offset=METADATA_LEN_RLE).copy()
-    if ndims <= LOWDIM_MAX_NDIMS[elem_sz]:
-        raise NotImplementedError(
-            f"ndims={ndims} at elem_sz={elem_sz} uses the lowdim layout, "
-            f"which arrives with a later slice of the port")
+    lowdim = ndims <= LOWDIM_MAX_NDIMS[elem_sz]
 
-    idx = walk_headers(buf, ngroups, ndims, elem_sz)
+    idx = walk_headers(buf, ngroups, ndims, elem_sz, lowdim)
     if idx.tail_offset + remaining_len * elem_sz > len(buf):
         raise CorruptStreamError(
             f"verbatim tail truncated: need "
@@ -205,7 +234,7 @@ def decompress(buf: bytes, codec: str = "delta", elem_sz: int = 1,
         return tail.copy()
     dense = gather_payloads(buf, idx)
     vals = decode_device(*upload_payload(dense, idx, dev), idx.total_rows,
-                         elem_sz, codec)
+                         elem_sz, codec, lowdim)
     return np.concatenate([download_values(vals), tail])
 
 

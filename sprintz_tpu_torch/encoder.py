@@ -1,13 +1,16 @@
-"""Row-major encoder (delta and FIRE): device pass + host plan/assembly.
+"""Encoder (delta and FIRE): device pass + host plan/assembly.
 
-Counterpart of ``sprintz_tpu/encoder.py`` for the row-major layout.
+Counterpart of ``sprintz_tpu/encoder.py`` for its two layouts: row-major
+(u8 ndims > 4, u16 ndims > 2) and lowdim (the rest: column-major blocks).
 
 1. Device: the forecast of every block (delta: a shifted subtract; FIRE:
-   ``fire_encode``'s serial scan over rows, parallel over dims), zigzag,
-   per-block per-dim widths and header fields, and the bit-pack of every
-   block into a dense (nb, 8, D * elem_sz) buffer by K3 ``pack_rows``.
-   Forecaster state does not depend on the RLE/group structure, so this is
-   one pass over the blocks.
+   ``fire_encode``'s serial scan over rows, parallel over dims, with the
+   lowdim layout's full-precision coefficient there), zigzag, per-block
+   per-dim widths and header fields, and the bit-pack of every block:
+   row-major into a dense (nb, 8, D * elem_sz) buffer by K3 ``pack_rows``,
+   lowdim into a dense (nb, D, 8 * elem_sz) buffer of one section a
+   (block, dim) by ``pack_dims_lowdim``. Forecaster state does not depend
+   on the RLE/group structure, so this is one pass over the blocks.
 2. Host: the group/RLE emission plan from the per-block zero flags
    (``planner.build_plan``), O(blocks) bookkeeping.
 3. Host: the final byte stream (headers, payload slices of the dense
@@ -31,8 +34,8 @@ from .constants import (
 )
 from .device import resolve_device
 from .models.forecasters import delta_encode, fire_encode
-from .ops.bitmath import block_widths_rowmajor, header_value
-from .ops.pack_kernels import pack_rows
+from .ops.bitmath import block_widths_lowdim, block_widths_rowmajor, header_value
+from .ops.pack_kernels import pack_dims_lowdim, pack_rows
 from .planner import KIND_DATA, KIND_RUN, EmissionPlan, build_plan, pack_headers
 from .stream_format import copy_ranges, write_metadata_rle
 
@@ -47,16 +50,25 @@ def upload_rows(rows: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(rows).to(device).to(torch.int32)
 
 
-def encode_device(rows: torch.Tensor, elem_sz: int, codec: str = "delta"):
+def encode_device(rows: torch.Tensor, elem_sz: int, codec: str = "delta",
+                  lowdim: bool = False):
     """Device pass: rows (N, D) int32, N divisible by 8 ->
-    (widths (nb, D) int32, hdr (nb, D) int32, dense (nb, 8, D*elem_sz) u8,
-    width_sums (nb,) int32), all on the rows' device."""
+    (widths (nb, D) int32, hdr (nb, D) int32, dense u8, width_sums (nb,)
+    int32), all on the rows' device. dense is (nb, 8, D*elem_sz) row-major
+    and (nb, D, 8*elem_sz) with ``lowdim``."""
     eb = 8 * elem_sz
-    errs = (fire_encode if codec == "xff" else delta_encode)(rows, eb)
+    if codec == "xff":
+        errs = fire_encode(rows, eb, truncate_coeffs=not lowdim)
+    else:
+        errs = delta_encode(rows, eb)
     nb = rows.shape[0] // BLOCK_SZ
     blocks = errs.reshape(nb, BLOCK_SZ, rows.shape[1])
-    widths = block_widths_rowmajor(blocks.amax(dim=1), elem_sz)
-    dense = pack_rows(blocks, widths, elem_sz)
+    if lowdim:
+        widths = block_widths_lowdim(blocks.amax(dim=1), elem_sz)
+        dense = pack_dims_lowdim(blocks, widths, elem_sz)
+    else:
+        widths = block_widths_rowmajor(blocks.amax(dim=1), elem_sz)
+        dense = pack_rows(blocks, widths, elem_sz)
     return widths, header_value(widths, eb), dense, widths.sum(
         dim=1, dtype=torch.int32)
 
@@ -84,30 +96,32 @@ def compress(flat: np.ndarray, ndims: int, codec: str = "delta",
     n = flat.size
     if n < MIN_DATA_SIZE:
         return write_metadata_rle(0, n, ndims) + flat.tobytes()
-    if ndims <= LOWDIM_MAX_NDIMS[elem_sz]:
-        raise NotImplementedError(
-            f"ndims={ndims} at elem_sz={elem_sz} uses the lowdim layout, "
-            f"which arrives with a later slice of the port")
+    lowdim = ndims <= LOWDIM_MAX_NDIMS[elem_sz]
 
     nb = n // (BLOCK_SZ * ndims)
     rows = upload_rows(flat[: nb * BLOCK_SZ * ndims].reshape(-1, ndims), dev)
-    widths, hdr, dense, width_sums = encode_device(rows, elem_sz, codec)
+    widths, hdr, dense, width_sums = encode_device(rows, elem_sz, codec,
+                                                   lowdim)
     widths_np = widths.to(torch.uint8).cpu().numpy()
     hdr_np = hdr.to(torch.uint8).cpu().numpy()
     dense_np = dense.cpu().numpy()
     zero_flags = width_sums.cpu().numpy() == 0
 
-    plan = build_plan(zero_flags, n, ndims, codec == "xff")
+    # lowdim FIRE takes delta's strict run comparator (encoder.py:346)
+    plan = build_plan(zero_flags, n, ndims, codec == "xff" and not lowdim)
     return assemble_stream(plan, widths_np, hdr_np, dense_np, ndims, elem_sz,
-                           flat[n - plan.remaining_elems:])
+                           flat[n - plan.remaining_elems:], lowdim)
 
 
 def assemble_stream(plan: EmissionPlan, widths_np: np.ndarray,
                     hdr_np: np.ndarray, dense_np: np.ndarray, ndims: int,
-                    elem_sz: int, tail: np.ndarray) -> bytes:
+                    elem_sz: int, tail: np.ndarray,
+                    lowdim: bool = False) -> bytes:
     """Final stream assembly with index arithmetic: group g's header
     precedes slots 2g and 2g+1; a data slot's payload is 8 rows of
-    ceil(sum(widths) / 8) bytes; a run slot is a 1- or 2-byte varint."""
+    ceil(sum(widths) / 8) bytes (row-major) or its D sections of
+    widths[d] bytes, sum(widths) in all (lowdim); a run slot is a 1- or
+    2-byte varint."""
     hdr_bits = nbits_sz_bits(elem_sz)
     total_header_bytes = (ndims * hdr_bits * GROUP_SZ_BLOCKS + 7) // 8
 
@@ -120,8 +134,9 @@ def assemble_stream(plan: EmissionPlan, widths_np: np.ndarray,
 
     # per-slot payload lengths
     slot_len = np.ones(nslots, dtype=np.int64)  # run0 -> 1 byte
-    row_nbytes = (widths_np.sum(axis=1, dtype=np.int64) + 7) // 8
-    slot_len[data_mask] = BLOCK_SZ * row_nbytes[data_vals]
+    wsum = widths_np.sum(axis=1, dtype=np.int64)
+    row_nbytes = (wsum + 7) // 8
+    slot_len[data_mask] = (wsum if lowdim else BLOCK_SZ * row_nbytes)[data_vals]
     slot_len[run_mask] = 1 + (values[run_mask] > 0x7F)
 
     # output offsets: META + headers before/within + payloads before
@@ -149,8 +164,19 @@ def assemble_stream(plan: EmissionPlan, widths_np: np.ndarray,
     out[run_off] = (run_val & 0x7F) | (two.astype(np.int64) << 7)
     out[run_off[two] + 1] = run_val[two] >> 7
 
-    # data payloads: units are rows, 8 per block, rb bytes each
-    if data_vals.size:
+    # data payloads: lowdim units are (block, dim) sections of w bytes at
+    # the block's offset plus the exclusive cumsum of its widths; row-major
+    # units are rows, 8 per block, rb bytes each
+    if data_vals.size and lowdim:
+        w = widths_np[data_vals].astype(np.int64)  # (ndata, D)
+        unit_len = w.reshape(-1)
+        unit_out = (np.repeat(slot_off[data_mask], ndims)
+                    + (np.cumsum(w, axis=1) - w).reshape(-1))
+        unit_src = ((data_vals[:, None].astype(np.int64) * ndims
+                     + np.arange(ndims)[None, :]).reshape(-1)
+                    * dense_np.shape[2])
+        copy_ranges(out, unit_out, dense_np.reshape(-1), unit_src, unit_len)
+    elif data_vals.size:
         doff = slot_off[data_mask]
         rb = row_nbytes[data_vals]
         unit_len = np.repeat(rb, BLOCK_SZ)

@@ -7,16 +7,18 @@ Counterpart of ``sprintz_tpu/models/forecasters.py``.
   kernels of ``ops/decode_kernels.py``; ``delta_decode`` here is the plain
   reference.
 - FIRE (``codec="xff"``) is the reference's online linear forecaster
-  (``_fire_block_step``, ``forecasters.py:247-300``, with
-  ``truncate_coeffs=True``: the row-major layout's int16 coefficient). Its
-  state is serial over blocks and independent across dims.
+  (``_fire_block_step``, ``forecasters.py:247-300``). ``truncate_coeffs``
+  picks its coefficient: the row-major layout's int16 one (True, the
+  default) or the lowdim layout's full-precision ``counter >> 1`` (False).
+  Its state is serial over blocks and independent across dims.
   ``fire_encode``/``fire_decode`` launch ``csrc/fire.cu``'s
   ``fire_encode_kernel``/``fire_decode_kernel`` for a CUDA tensor: a CTA
   per 32 dims, warp-specialised around a ring of row tiles in shared
   memory (loader warps, one chain warp that runs only the recurrence,
   finisher warps). For a CPU tensor they run ``fire_*_plain``, written
   block-wise on the identities the kernels rest on (below); each wrapper
-  counts its launches in ``launches``. ``_fire_scan_plain`` is the
+  counts its launches in ``launches``, and those with the full-precision
+  coefficient apart, in ``full_launches``. ``_fire_scan_plain`` is the
   line-by-line port of ``_fire_block_step`` that the tests hold both to.
 
 The identities, all exact in wrapping arithmetic: encode's deltas depend on
@@ -24,7 +26,10 @@ the input alone; a block's eight rows are independent given its
 coefficient; the gradient sum needs one sign extension
 (``sext(sext(a + b) + c) == sext(a + b + c)``); decode's values are the
 running sum of its deltas, and its delta needs one sign extension
-(``sext(err + sext(p)) == sext(err + p)``).
+(``sext(err + sext(p)) == sext(err + p)``). The prediction keeps bits eb
+to 2 eb - 1 of ``prev_delta * coef``, so the int64 product here gives the
+same bits as JAX's wrapping int32 one, also where the full-precision u16
+coefficient (up to 2^30) makes that product wrap.
 
 FIRE's state is the (3, D) int32 carry (prev value, prev delta, learning
 counter); ``fire_decode`` takes it as ``init_state`` to enter a stream
@@ -84,7 +89,8 @@ def _state_tensor(init_state, device: torch.device,
 
 
 def _fire_scan_plain(blocks: torch.Tensor, elem_bits: int, decode: bool,
-                     init_state=None) -> torch.Tensor:
+                     init_state=None,
+                     truncate_coeffs: bool = True) -> torch.Tensor:
     """FIRE over (nb, 8, D) int64 blocks of values (encode) or zigzag
     errors (decode) -> (nb, 8, D) int64 errors or values: a line-by-line
     port of ``_fire_block_step`` in int64, one block at a time."""
@@ -94,13 +100,12 @@ def _fire_scan_plain(blocks: torch.Tensor, elem_bits: int, decode: bool,
     else:
         state = _state_tensor(init_state, blocks.device, torch.int64)
     prev_val, prev_delta, counter = state[0], state[1], state[2]
-    shft = elem_bits - 4
     mask = (1 << elem_bits) - 1
     counter_bits = FIRE_COUNTER_BITS[elem_bits // 8]
     downsample = 1 << FIRE_LOG2_LEARNING_DOWNSAMPLE
     out = torch.empty_like(blocks)
     for b in range(blocks.shape[0]):
-        coef = _sext((counter >> (FIRE_LEARNING_SHIFT + shft)) << shft, 16)
+        coef = _fire_coef(counter, elem_bits, truncate_coeffs)
         grad_sum = torch.zeros_like(prev_delta)
         for i in range(BLOCK_SZ):
             prediction = _sext((prev_delta * coef) >> elem_bits, elem_bits)
@@ -140,12 +145,18 @@ def _fire_counter_step(counter: torch.Tensor, err_odd: torch.Tensor,
                  FIRE_COUNTER_BITS[elem_bits // 8])
 
 
-def _fire_coef(counter: torch.Tensor, elem_bits: int) -> torch.Tensor:
+def _fire_coef(counter: torch.Tensor, elem_bits: int,
+               truncate_coeffs: bool) -> torch.Tensor:
+    """The block's coefficient: the int16 of the counter's bits above
+    eb - 4 (truncated), or the counter >> 1 in full."""
+    if not truncate_coeffs:
+        return counter >> FIRE_LEARNING_SHIFT
     shft = elem_bits - 4
     return _sext((counter >> (FIRE_LEARNING_SHIFT + shft)) << shft, 16)
 
 
-def _fire_encode_blocks(blocks: torch.Tensor, elem_bits: int) -> torch.Tensor:
+def _fire_encode_blocks(blocks: torch.Tensor, elem_bits: int,
+                        truncate_coeffs: bool) -> torch.Tensor:
     """(nb, 8, D) int64 values -> (nb, 8, D) int64 zigzag errors, from the
     zero state. The loop over blocks carries only the counter, through the
     odd rows' errors; everything else is one pass over the stream."""
@@ -161,7 +172,7 @@ def _fire_encode_blocks(blocks: torch.Tensor, elem_bits: int) -> torch.Tensor:
                         device=blocks.device)
     counter = zero[0]
     for b in range(nb):
-        coef = coefs[b, 0] = _fire_coef(counter, elem_bits)
+        coef = coefs[b, 0] = _fire_coef(counter, elem_bits, truncate_coeffs)
         prev_odd = prev[b, odd]
         err_odd = _sext(deltas[b, odd] - ((prev_odd * coef) >> elem_bits),
                         elem_bits)
@@ -171,7 +182,7 @@ def _fire_encode_blocks(blocks: torch.Tensor, elem_bits: int) -> torch.Tensor:
 
 
 def _fire_decode_blocks(blocks: torch.Tensor, elem_bits: int,
-                        init_state=None) -> torch.Tensor:
+                        init_state, truncate_coeffs: bool) -> torch.Tensor:
     """(nb, 8, D) int64 zigzag errors -> (nb, 8, D) int64 values. The loop
     over rows carries only the delta, and the one over blocks the counter;
     the zigzag decode runs before them and the values are a cumulative sum
@@ -190,7 +201,7 @@ def _fire_decode_blocks(blocks: torch.Tensor, elem_bits: int,
     prev = torch.empty((BLOCK_SZ, ndims), dtype=torch.int64,
                        device=blocks.device)
     for b in range(nb):
-        coef = _fire_coef(counter, elem_bits)
+        coef = _fire_coef(counter, elem_bits, truncate_coeffs)
         for i in range(BLOCK_SZ):
             prev[i] = prev_delta
             prev_delta = deltas[b, i] = _sext(
@@ -210,55 +221,70 @@ def _check_fire(name: str, x: torch.Tensor, elem_bits: int,
                          f"N a multiple of {BLOCK_SZ}")
 
 
-def fire_encode_plain(rows: torch.Tensor, elem_bits: int) -> torch.Tensor:
+def _count_launch(wrapper, truncate_coeffs: bool) -> None:
+    if truncate_coeffs:
+        wrapper.launches += 1
+    else:
+        wrapper.full_launches += 1
+
+
+def fire_encode_plain(rows: torch.Tensor, elem_bits: int,
+                      truncate_coeffs: bool = True) -> torch.Tensor:
     """Plain version of ``fire_encode``."""
     n, ndims = rows.shape
     if rows.numel() == 0:
         return rows.to(torch.int32)
     errs = _fire_encode_blocks(
-        rows.to(torch.int64).reshape(-1, BLOCK_SZ, ndims), elem_bits)
+        rows.to(torch.int64).reshape(-1, BLOCK_SZ, ndims), elem_bits,
+        truncate_coeffs)
     return errs.reshape(n, ndims).to(torch.int32)
 
 
-def fire_encode(rows: torch.Tensor, elem_bits: int) -> torch.Tensor:
+def fire_encode(rows: torch.Tensor, elem_bits: int,
+                truncate_coeffs: bool = True) -> torch.Tensor:
     """rows (N, D) int32 unsigned values, N a multiple of 8 -> zigzag
-    errors (N, D) int32, from the zero state."""
+    errors (N, D) int32, from the zero state. ``truncate_coeffs``: the
+    row-major layout's int16 coefficient (True) or the lowdim layout's
+    full-precision one (False)."""
     _check_fire("fire_encode", rows, elem_bits, torch.int32)
     if rows.device.type == "cpu":
-        return fire_encode_plain(rows, elem_bits)
+        return fire_encode_plain(rows, elem_bits, truncate_coeffs)
     n, ndims = rows.shape
     errs = torch.empty_like(rows)
     if n == 0 or ndims == 0:
         return errs
     _build.launch("sprintz_fire_scan", rows, rows.data_ptr(), None,
-                  errs.data_ptr(), n // BLOCK_SZ, ndims, elem_bits, 0)
-    fire_encode.launches += 1
+                  errs.data_ptr(), n // BLOCK_SZ, ndims, elem_bits, 0,
+                  int(truncate_coeffs))
+    _count_launch(fire_encode, truncate_coeffs)
     return errs
 
 
 fire_encode.launches = 0
+fire_encode.full_launches = 0
 
 
 def fire_decode_plain(errs_zz: torch.Tensor, elem_bits: int,
-                      init_state=None) -> torch.Tensor:
+                      init_state=None,
+                      truncate_coeffs: bool = True) -> torch.Tensor:
     """Plain version of ``fire_decode``."""
     n, ndims = errs_zz.shape
     if errs_zz.numel() == 0:
         return narrow(errs_zz.to(torch.int32), elem_bits)
     vals = _fire_decode_blocks(
         errs_zz.to(torch.int64).reshape(-1, BLOCK_SZ, ndims), elem_bits,
-        init_state)
+        init_state, truncate_coeffs)
     return narrow(vals.reshape(n, ndims).to(torch.int32), elem_bits)
 
 
-def fire_decode(errs_zz: torch.Tensor, elem_bits: int,
-                init_state=None) -> torch.Tensor:
+def fire_decode(errs_zz: torch.Tensor, elem_bits: int, init_state=None,
+                truncate_coeffs: bool = True) -> torch.Tensor:
     """Zigzag errors (N, D), N a multiple of 8 -> values (N, D) u8/u16.
 
     The errors are uint8 at elem_bits 8 (``unpack_rows(narrow=True)``) and
     int32 at 16. ``init_state``: optional (3, D) int32 carry entering the
     first block (prev value, prev delta, counter), numpy or torch; the
-    zero state when None.
+    zero state when None. ``truncate_coeffs`` as in ``fire_encode``.
     """
     _check_fire("fire_decode", errs_zz, elem_bits,
                 torch.uint8 if elem_bits == 8 else torch.int32)
@@ -267,7 +293,8 @@ def fire_decode(errs_zz: torch.Tensor, elem_bits: int,
         raise ValueError(f"fire_decode: init_state {tuple(np.shape(init_state))}"
                          f" is not (3, {ndims})")
     if errs_zz.device.type == "cpu":
-        return fire_decode_plain(errs_zz, elem_bits, init_state)
+        return fire_decode_plain(errs_zz, elem_bits, init_state,
+                                 truncate_coeffs)
     vals = torch.empty((n, ndims), dtype=narrow_dtype(elem_bits),
                        device=errs_zz.device)
     if n == 0 or ndims == 0:
@@ -276,9 +303,11 @@ def fire_decode(errs_zz: torch.Tensor, elem_bits: int,
              else _state_tensor(init_state, errs_zz.device, torch.int32))
     _build.launch("sprintz_fire_scan", errs_zz, errs_zz.data_ptr(),
                   None if state is None else state.data_ptr(),
-                  vals.data_ptr(), n // BLOCK_SZ, ndims, elem_bits, 1)
-    fire_decode.launches += 1
+                  vals.data_ptr(), n // BLOCK_SZ, ndims, elem_bits, 1,
+                  int(truncate_coeffs))
+    _count_launch(fire_decode, truncate_coeffs)
     return vals
 
 
 fire_decode.launches = 0
+fire_decode.full_launches = 0

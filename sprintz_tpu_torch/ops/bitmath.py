@@ -68,6 +68,17 @@ def block_widths_rowmajor(blockmax: torch.Tensor, elem_sz: int) -> torch.Tensor:
     return torch.where(hi > 0, 8 + whi, wlo)
 
 
+def block_widths_lowdim(blockmax: torch.Tensor, elem_sz: int) -> torch.Tensor:
+    """Lowdim per-dim width from the MAX of a block's zigzag values: the
+    bit length, with only eb-1 promoted to eb (sprintz_delta_lowdim.cpp:
+    176-177). As in ``block_widths_rowmajor``, the max has the OR's bit
+    length. u8 legal widths {0..6, 8}, u16 {0..14, 16}: 7 stays 7 at u16.
+    """
+    eb = 8 * elem_sz
+    w = bit_length(blockmax, eb)
+    return w + (w == eb - 1).to(torch.int32)
+
+
 def header_value(widths: torch.Tensor, elem_bits: int) -> torch.Tensor:
     """Stored header field: width, with elem_bits mapped to elem_bits-1
     (sprintz_delta_rle.cpp:199)."""

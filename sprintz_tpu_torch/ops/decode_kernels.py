@@ -11,6 +11,11 @@ Counterpart of ``sprintz_tpu/ops/pallas_decode.py``. Two CUDA kernels
 - K2 ``prefix_finish``: each tile's inclusive prefix plus its offset,
   masked and narrowed.
 
+The lowdim layout (u8 ndims <= 4, u16 ndims <= 2) has K1's twin,
+``unpack_zz_lowdim`` (``unpack_lowdim_kernel``), with K1's output
+contract, so that K2 runs on it unchanged; its raw mode
+``unpack_dims_lowdim`` feeds the FIRE decode.
+
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 PyTorch version (``*_plain``, computed in int32, narrowed at the end) for a
 CPU tensor; the plain versions are what the CPU tests run and what the
@@ -120,7 +125,12 @@ def tiled(deltas: torch.Tensor) -> torch.Tensor:
 def unpack_zz_plain(dense: torch.Tensor, widths: torch.Tensor,
                     elem_bits: int):
     """Plain version of ``unpack_zz``."""
-    u = extract_fields(dense, widths)
+    return zz_and_offsets(extract_fields(dense, widths), elem_bits)
+
+
+def zz_and_offsets(u: torch.Tensor, elem_bits: int):
+    """Zigzag fields (nb, 8, D) int32 -> (biased narrow deltas, the tiles'
+    exclusive offsets): K1's output from its fields."""
     delta = (u >> 1) ^ -(u & 1)
     nb, _, ndims = u.shape
     bz = narrow(delta + (1 << (elem_bits - 1)), elem_bits)
@@ -206,6 +216,125 @@ def prefix_finish(bz: torch.Tensor, tile_offsets: torch.Tensor,
 prefix_finish.launches = 0
 
 
+# ------------------------------------------------------- lowdim unpack
+
+# Blocks a CTA of the lowdim unpack owns: LD_TILES tiles of K2
+# (csrc/decode.cu's LD_BLOCKS), so that it has 256 to 1024 items.
+LOWDIM_SPAN_BLOCKS = 8 * TILE_BLOCKS
+LOWDIM_SECTION_BYTES = 32  # ndims * elem_bits at most: D <= 4 u8, D <= 2 u16
+
+
+def check_lowdim_payload(name: str, dense: torch.Tensor,
+                         widths: torch.Tensor) -> int:
+    """Checks of a lowdim unpack's inputs: dense (nb, D, EB) uint8 with EB
+    8 or 16 (elem_bits) and D * EB <= 32, widths (nb, D) uint8, on one
+    device. Returns EB."""
+    check_args(name, dense.device, dense=(dense, torch.uint8),
+               widths=(widths, torch.uint8))
+    if (dense.dim() != 3 or tuple(widths.shape) != tuple(dense.shape[:2])
+            or dense.shape[2] not in (8, 16) or dense.shape[1] < 1
+            or dense.shape[1] * dense.shape[2] > LOWDIM_SECTION_BYTES):
+        raise ValueError(f"{name}: dense {tuple(dense.shape)} and widths "
+                         f"{tuple(widths.shape)} are not a lowdim payload "
+                         f"(nb, D, EB) and (nb, D), EB 8 or 16, D * EB <= "
+                         f"{LOWDIM_SECTION_BYTES}")
+    return dense.shape[2]
+
+
+def extract_fields_lowdim(dense: torch.Tensor,
+                          widths: torch.Tensor) -> torch.Tensor:
+    """Plain lowdim field extraction: dense (nb, D, EB) u8, widths (nb, D)
+    -> zigzag fields (nb, 8, D) int32. Field r of a (block, dim) lies at
+    bit r * w of its section, read from the 3 bytes at (r * w) >> 3
+    (bytes past EB read as 0)."""
+    eb = dense.shape[2]
+    w = widths.to(torch.int32).unsqueeze(2)  # (nb, D, 1)
+    off = torch.arange(BLOCK_SZ, dtype=torch.int32, device=dense.device) * w
+    q = off >> 3  # (nb, D, 8)
+    d32 = dense.to(torch.int32)
+    word = torch.zeros(q.shape, dtype=torch.int32, device=dense.device)
+    for k in range(3):
+        idx = q + k
+        byte = torch.gather(d32, 2, idx.clamp(max=eb - 1).long())
+        word |= torch.where(idx < eb, byte, 0) << (8 * k)
+    fields = (word >> (off & 7)) & ((1 << w) - 1)
+    return fields.transpose(1, 2).contiguous()
+
+
+def unpack_zz_lowdim_plain(dense: torch.Tensor, widths: torch.Tensor,
+                           elem_bits: int):
+    """Plain version of ``unpack_zz_lowdim``."""
+    return zz_and_offsets(extract_fields_lowdim(dense, widths), elem_bits)
+
+
+def unpack_zz_lowdim(dense: torch.Tensor, widths: torch.Tensor,
+                     elem_bits: int):
+    """dense (nb, D, EB = elem_bits) uint8 lowdim sections, widths (nb, D)
+    uint8 -> K1's output: (biased deltas (nb, 8, D) u8/u16, tile offsets
+    (ceil(nb / TILE_BLOCKS), 1, D) i32), which K2 takes unchanged."""
+    odt = narrow_dtype(elem_bits)
+    if check_lowdim_payload("unpack_zz_lowdim", dense, widths) != elem_bits:
+        raise ValueError(f"unpack_zz_lowdim: sections of {dense.shape[2]} "
+                         f"bytes are not those of elem_bits {elem_bits}")
+    if dense.device.type == "cpu":
+        return unpack_zz_lowdim_plain(dense, widths, elem_bits)
+    nb, ndims, _ = dense.shape
+    ntiles = -(-nb // TILE_BLOCKS)
+    bz = torch.empty((nb, BLOCK_SZ, ndims), dtype=odt, device=dense.device)
+    toff = torch.empty((ntiles, 1, ndims), dtype=torch.int32,
+                       device=dense.device)
+    if nb == 0:
+        return bz, toff
+    dense = aligned16(dense)
+    # the look-back's status words (a span of LOWDIM_SPAN_BLOCKS blocks
+    # each) and its ticket, zeroed by the launch
+    nspans = -(-nb // LOWDIM_SPAN_BLOCKS)
+    status = torch.empty(nspans * ndims + 1, dtype=torch.int64,
+                         device=dense.device)
+    _build.launch("sprintz_unpack_lowdim", dense, dense.data_ptr(),
+                  widths.data_ptr(), bz.data_ptr(), toff.data_ptr(),
+                  status.data_ptr(), nb, ndims, elem_bits, 0)
+    unpack_zz_lowdim.launches += 1
+    return bz, toff
+
+
+unpack_zz_lowdim.launches = 0
+
+
+def unpack_dims_lowdim_plain(dense: torch.Tensor,
+                             widths: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``unpack_dims_lowdim``."""
+    fields = extract_fields_lowdim(dense, widths)
+    return fields.to(torch.uint8) if dense.shape[2] == 8 else fields
+
+
+def unpack_dims_lowdim(dense: torch.Tensor,
+                       widths: torch.Tensor) -> torch.Tensor:
+    """Raw mode of the lowdim unpack: dense (nb, D, EB) uint8, widths
+    (nb, D) uint8 -> zigzag fields (nb, 8, D) in the FIRE decode's types:
+    uint8 at EB 8 (fields of u8 streams are at most 8 bits wide) and int32
+    at EB 16. The section size tells the element size, so there is no
+    ``narrow`` switch as in ``unpack_rows``."""
+    eb = check_lowdim_payload("unpack_dims_lowdim", dense, widths)
+    if dense.device.type == "cpu":
+        return unpack_dims_lowdim_plain(dense, widths)
+    nb, ndims, _ = dense.shape
+    out = torch.empty((nb, BLOCK_SZ, ndims),
+                      dtype=torch.uint8 if eb == 8 else torch.int32,
+                      device=dense.device)
+    if nb == 0:
+        return out
+    dense = aligned16(dense)
+    _build.launch("sprintz_unpack_lowdim", dense, dense.data_ptr(),
+                  widths.data_ptr(), out.data_ptr(), None, None, nb, ndims,
+                  eb, 1)
+    unpack_dims_lowdim.launches += 1
+    return out
+
+
+unpack_dims_lowdim.launches = 0
+
+
 # ------------------------------------------------------------ pipeline
 
 
@@ -224,4 +353,13 @@ def decode_delta_contiguous(dense: torch.Tensor, widths: torch.Tensor,
     nb = dense.shape[0]
     ndims = widths.shape[1]
     bz, toff = unpack_zz(dense, widths, elem_bits)
+    return prefix_finish(bz.reshape(nb * BLOCK_SZ, ndims), toff, elem_bits)
+
+
+def decode_delta_lowdim(dense: torch.Tensor, widths: torch.Tensor,
+                        elem_bits: int) -> torch.Tensor:
+    """Run-free lowdim delta decode: dense (nb, D, EB) uint8 sections,
+    widths (nb, D) uint8 -> values (nb*8, D) u8/u16."""
+    nb, ndims, _ = dense.shape
+    bz, toff = unpack_zz_lowdim(dense, widths, elem_bits)
     return prefix_finish(bz.reshape(nb * BLOCK_SZ, ndims), toff, elem_bits)

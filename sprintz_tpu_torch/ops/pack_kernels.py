@@ -4,6 +4,10 @@ Counterpart of ``sprintz_tpu/ops/pallas_pack.py``:
 
 - K3 ``pack_rows`` (``csrc/pack.cu``): zigzag errors + widths -> the dense
   per-block payload rows.
+- ``pack_dims_lowdim`` (``csrc/pack.cu``'s ``pack_lowdim_kernel``): the
+  lowdim layout's pack, zigzag errors + widths -> one section of EB bytes
+  a (block, dim), the counterpart of ``sprintz_tpu/ops/pack.py``'s
+  ``pack_dims_lowdim`` (an XLA pass there).
 - K4 ``unpack_rows`` (``csrc/decode.cu``, the raw mode of K1's kernel):
   dense payload rows + widths -> the raw zigzag fields, int32. Its
   ``narrow=True`` mode is K5, the counterpart of ``unpack_rows_pallas_mxu``
@@ -108,6 +112,60 @@ def pack_rows(errs_zz: torch.Tensor, widths: torch.Tensor,
 
 
 pack_rows.launches = 0
+
+
+# --------------------------------------------------------- lowdim pack
+
+
+def pack_dims_lowdim_plain(errs_zz: torch.Tensor, widths: torch.Tensor,
+                           elem_sz: int) -> torch.Tensor:
+    """Plain version of ``pack_dims_lowdim``: field r of a (block, dim),
+    masked to its width w and shifted by (r * w) & 7 (<= 23 bits), adds
+    its 3 bytes at byte (r * w) >> 3 of the section. Fields are
+    bit-disjoint, so the sum is an OR."""
+    nb, _, ndims = errs_zz.shape
+    eb = 8 * elem_sz
+    w = widths.unsqueeze(2)  # (nb, D, 1)
+    off = torch.arange(BLOCK_SZ, dtype=torch.int32, device=errs_zz.device) * w
+    c = (errs_zz.transpose(1, 2) & ((1 << w) - 1)) << (off & 7)  # (nb, D, 8)
+    q = (off >> 3).long()
+    out = torch.zeros((nb, ndims, eb + 2), dtype=torch.int32,
+                      device=errs_zz.device)
+    for k in range(3):
+        out.scatter_add_(2, q + k, (c >> (8 * k)) & 0xFF)
+    return out[:, :, :eb].to(torch.uint8)
+
+
+def pack_dims_lowdim(errs_zz: torch.Tensor, widths: torch.Tensor,
+                     elem_sz: int) -> torch.Tensor:
+    """errs_zz (nb, 8, D) int32 zigzag errors, widths (nb, D) int32 legal
+    lowdim widths -> dense (nb, D, EB = 8 * elem_sz) uint8: dim d's 8
+    fields of block b back to back at bits r * w, exactly w bytes, zeros
+    after. D * elem_sz is at most 4 (the lowdim layout)."""
+    if elem_sz not in (1, 2):
+        raise ValueError(f"elem_sz must be 1 or 2, got {elem_sz}")
+    check_args("pack_dims_lowdim", errs_zz.device,
+               errs_zz=(errs_zz, torch.int32), widths=(widths, torch.int32))
+    if (errs_zz.dim() != 3 or errs_zz.shape[1] != BLOCK_SZ
+            or tuple(widths.shape) != (errs_zz.shape[0], errs_zz.shape[2])
+            or not 1 <= errs_zz.shape[2] * elem_sz <= 4):
+        raise ValueError(f"pack_dims_lowdim: errs {tuple(errs_zz.shape)} and "
+                         f"widths {tuple(widths.shape)} are not (nb, 8, D), "
+                         f"(nb, D) with D * elem_sz in 1..4")
+    if errs_zz.device.type == "cpu":
+        return pack_dims_lowdim_plain(errs_zz, widths, elem_sz)
+    nb, _, ndims = errs_zz.shape
+    out = torch.empty((nb, ndims, 8 * elem_sz), dtype=torch.uint8,
+                      device=errs_zz.device)
+    if nb == 0:
+        return out
+    _build.launch("sprintz_pack_dims_lowdim", errs_zz, errs_zz.data_ptr(),
+                  widths.data_ptr(), out.data_ptr(), nb, ndims, elem_sz)
+    pack_dims_lowdim.launches += 1
+    return out
+
+
+pack_dims_lowdim.launches = 0
 
 
 # ------------------------------------------------------------------ K4

@@ -1,6 +1,7 @@
-"""The encode side's edge shapes: inputs of K3 ``pack_rows`` and of the
-Huffman encoder ``encode_chunks`` where their tiles end raggedly and their
-widths and codes are extreme.
+"""The encode side's edge shapes: inputs of K3 ``pack_rows``, of the
+lowdim pack ``pack_dims_lowdim`` and of the Huffman encoder
+``encode_chunks`` where their tiles end raggedly and their widths and
+codes are extreme.
 
 One list for two users: ``tests/test_torch_encode_shapes.py`` holds the
 plain versions to the JAX package at these shapes on the CPU, and
@@ -19,6 +20,11 @@ from ..ops.pack_kernels import pack_tile_rows
 
 PACK_DIMS = (5, 31, 33, 64, 129, 1024)
 PACK_CASES = [(nd, es) for nd in PACK_DIMS for es in (1, 2)]
+# (D, elem_sz, nb) of the lowdim pack: every lowdim width, one block, and
+# nb * D items that end the kernel's CTAs (256 items) raggedly
+LOWDIM_PACK_CASES = [(nd, es, nb) for es, dims in ((1, (1, 2, 3, 4)),
+                                                    (2, (1, 2)))
+                     for nd in dims for nb in (1, 301)]
 HUFF_CHUNKS = (1, 31, 128, 4096)
 HUFF_KINDS = ("ragged", "short", "12-bit codes", "one symbol")
 HUFF_CASES = [(cs, kind) for cs in HUFF_CHUNKS for kind in HUFF_KINDS]
@@ -27,6 +33,28 @@ HUFF_CASES = [(cs, kind) for cs in HUFF_CHUNKS for kind in HUFF_KINDS]
 def legal_widths(eb: int) -> np.ndarray:
     """Widths the encoder emits: 7 promotes to 8, and at u16 15 to 16."""
     return np.array([w for w in range(eb + 1) if w not in (7, 15)])
+
+
+def lowdim_legal_widths(eb: int) -> np.ndarray:
+    """Widths the lowdim encoder emits: only eb-1 promotes to eb, so 7 is
+    legal at u16 (``bitmath.block_widths_lowdim``)."""
+    return np.array([w for w in range(eb + 1) if w != eb - 1])
+
+
+def pack_lowdim_case(rng, ndims: int, elem_sz: int, nb: int):
+    """The lowdim pack's inputs: errs (nb, 8, D) int32 zigzag fields within
+    their widths, widths (nb, D) int32: a block of all-zero widths, one of
+    all-maximum widths, a block for each legal width in turn (at u16,
+    fields across the section's two 64-bit words), then random legal
+    widths."""
+    eb = 8 * elem_sz
+    legal = lowdim_legal_widths(eb)
+    widths = legal[rng.integers(0, legal.size, (nb, ndims))]
+    edge = np.concatenate([[0, eb], legal])[:nb]
+    widths[:edge.size] = edge[:, None]
+    errs = rng.integers(0, 1 << eb, (nb, 8, ndims)) & (
+        (1 << widths) - 1)[:, None, :]
+    return errs.astype(np.int32), widths.astype(np.int32)
 
 
 def pack_case(rng, ndims: int, elem_sz: int):

@@ -1,8 +1,12 @@
 #!/usr/bin/env python3
 """Build the delta decode's kernels (``csrc/decode.cu``: K1/K4/K5
-``unpack_zz_kernel`` and K2 ``prefix_finish_kernel``) on the host with
-g++, and hold them to their plain versions at the cases of
-``probes/unpack_cases.py``, with no card and no nvcc.
+``unpack_zz_kernel``, K2 ``prefix_finish_kernel`` and the lowdim unpack
+``unpack_lowdim_kernel``) and the pack kernels (``csrc/pack.cu``: K3
+``pack_rows_kernel`` and the lowdim ``pack_lowdim_kernel``) on the host
+with g++, and hold them to their plain versions at the cases of
+``probes/unpack_cases.py`` (``UNPACK_CASES``, ``LOWDIM_CASES``) and
+``probes/encode_cases.py`` (``PACK_CASES``, ``LOWDIM_PACK_CASES``), with
+no card and no nvcc.
 
     python3 sprintz_tpu_torch/probes/host_build.py [--resident 1 3] [--src FILE]
 
@@ -33,6 +37,7 @@ import numpy as np
 HERE = pathlib.Path(__file__).resolve().parent
 ROOT = HERE.parents[1]
 SRC = ROOT / "sprintz_tpu_torch" / "csrc" / "decode.cu"
+PACK_SRC = ROOT / "sprintz_tpu_torch" / "csrc" / "pack.cu"
 OUT = ROOT / "build" / "sprintz_tpu_torch" / "host"
 HELPERS = re.compile(r"// ---- device helpers \(PTX\)\n.*?// ---- end of device helpers\n",
                      re.S)
@@ -71,39 +76,53 @@ extern "C" int sprintz_shim_fault() { return g_fault.exchange(0); }
 """
 
 
-def host_source(src: str) -> str:
-    """decode.cu as C++ for the shim: helpers, shared memory, launches."""
+def host_source(src: str, helpers: bool = True, kernels: int = 3) -> str:
+    """A kernel source as C++ for the shim: its device helpers (decode.cu
+    has them), its shared memory, its ``kernels`` launches."""
     out, n = HELPERS.subn(HOST_HELPERS, src)
-    assert n == 1, "the device helpers' marker lines"
+    assert n == helpers, "the device helpers' marker lines"
     out = out.replace("#include <cuda_runtime.h>\n", "")
     out, n = re.subn(r"extern __shared__ __align__\(16\) uint8_t smem\[\];",
                      "uint8_t* smem = shim_smem();", out)
-    assert n == 2, "one dynamic shared buffer a kernel"
+    out, m = re.subn(r"extern __shared__ uint4 smem\[\];",
+                     "uint4* smem = reinterpret_cast<uint4*>(shim_smem());", out)
+    assert n + m <= kernels, "a dynamic shared buffer a kernel at most"
     out, n = re.subn(r"(\w+<[^<>;]*>)<<<(.*?)>>>\(", r"shim_launch(\1, \2, ", out,
                      flags=re.S)
-    assert n == 2, "one launch a kernel"
+    assert n == kernels, "one launch a kernel"
     return out + ENTRY
 
 
-def build(src: pathlib.Path = SRC, out: pathlib.Path = OUT) -> ctypes.CDLL:
+def build(src: pathlib.Path = SRC, out: pathlib.Path = OUT,
+          helpers: bool = True, kernels: int = 3) -> ctypes.CDLL:
     """Compile ``src`` for the shim into ``out`` (reused while the source
     and the shim are unchanged) and load it."""
-    text = host_source(src.read_text())
+    text = host_source(src.read_text(), helpers, kernels)
     key = hashlib.sha256(text.encode() + (HERE / "host_shim.h").read_bytes()).hexdigest()[:16]
     out.mkdir(parents=True, exist_ok=True)
-    lib = out / f"libdecode_host_{key}.so"
+    lib = out / f"lib{src.stem}_host_{key}.so"
     if not lib.exists():
-        cpp = out / f"decode_host_{key}.cpp"
+        cpp = out / f"{src.stem}_host_{key}.cpp"
         cpp.write_text(text)
         subprocess.run(["g++", "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC",
                         "-include", str(HERE / "host_shim.h"), "-o", str(lib), str(cpp)],
                        check=True)
     so = ctypes.CDLL(str(lib))
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    so.sprintz_unpack_zz.argtypes = [P, P, P, P, P, L, I, I, I, I, P]
-    so.sprintz_prefix_finish.argtypes = [P, P, P, L, I, I, P]
+    if helpers:
+        so.sprintz_unpack_zz.argtypes = [P, P, P, P, P, L, I, I, I, I, P]
+        so.sprintz_prefix_finish.argtypes = [P, P, P, L, I, I, P]
+        so.sprintz_unpack_lowdim.argtypes = [P, P, P, P, P, L, I, I, I, P]
+    else:
+        so.sprintz_pack_rows.argtypes = [P, P, P, L, I, I, I, P]
+        so.sprintz_pack_dims_lowdim.argtypes = [P, P, P, L, I, I, P]
     so.sprintz_shim_set_resident.argtypes = [I]
     return so
+
+
+def build_pack(src: pathlib.Path = PACK_SRC, out: pathlib.Path = OUT) -> ctypes.CDLL:
+    """``build`` for pack.cu: no device helpers, two kernels."""
+    return build(src, out, helpers=False, kernels=2)
 
 
 class HostKernels:
@@ -147,6 +166,45 @@ class HostKernels:
             nb, nd, maxb, elem_bits, raw, None))
         return out if raw else (out, toff)
 
+    def unpack_lowdim(self, dense, widths, elem_bits: int, raw: int):
+        from sprintz_tpu_torch.ops import decode_kernels as dk
+
+        t = self.torch
+        nb, nd, _ = dense.shape
+        ntiles = -(-nb // dk.TILE_BLOCKS)
+        nspans = -(-nb // dk.LOWDIM_SPAN_BLOCKS)
+        if raw:
+            odt = t.uint8 if elem_bits == 8 else t.int32
+        else:
+            odt = dk.narrow_dtype(elem_bits)
+        out = self.garbage((nb, 8, nd), odt)
+        toff = self.garbage((ntiles, 1, nd), t.int32)
+        status = self.garbage((nspans * nd + 1,), t.int64)
+        dense = dk.aligned16(dense)
+        self.check(self.so.sprintz_unpack_lowdim(
+            dense.data_ptr(), widths.data_ptr(), out.data_ptr(),
+            None if raw else toff.data_ptr(), None if raw else status.data_ptr(),
+            nb, nd, elem_bits, raw, None))
+        return out if raw else (out, toff)
+
+    def pack_rows(self, errs, widths, elem_sz: int):
+        from sprintz_tpu_torch.ops import pack_kernels as pk
+
+        nb, _, nd = errs.shape
+        out = self.garbage((nb, 8, nd * elem_sz), self.torch.uint8)
+        self.check(self.so.sprintz_pack_rows(
+            errs.data_ptr(), widths.data_ptr(), out.data_ptr(), nb, nd, elem_sz,
+            pk.pack_tile_rows(nd, elem_sz), None))
+        return out
+
+    def pack_lowdim(self, errs, widths, elem_sz: int):
+        nb, _, nd = errs.shape
+        out = self.garbage((nb, nd, 8 * elem_sz), self.torch.uint8)
+        self.check(self.so.sprintz_pack_dims_lowdim(
+            errs.data_ptr(), widths.data_ptr(), out.data_ptr(), nb, nd, elem_sz,
+            None))
+        return out
+
     def prefix_finish(self, bz, toff, elem_bits: int):
         from sprintz_tpu_torch.ops import decode_kernels as dk
 
@@ -185,6 +243,54 @@ def check_case(hk: HostKernels, eb: int, nd: int, nb: int, kind: str) -> str | N
     return None
 
 
+def check_lowdim_case(hk: HostKernels, eb: int, nd: int, nb: int,
+                      kind: str) -> str | None:
+    """The host-built lowdim unpack (deltas and tile offsets; raw fields)
+    and K2 on its output against their plain versions at a
+    ``LOWDIM_CASES`` case: the name of the first that differs, or None."""
+    import torch
+
+    from sprintz_tpu_torch.ops import decode_kernels as dk
+    from sprintz_tpu_torch.probes import unpack_cases as uc
+
+    rng = np.random.default_rng(eb * 7919 + nd * 31 + nb + 1)
+    dense, widths, _ = uc.lowdim_case(rng, eb, nd, nb, kind)
+    d, w = uc.to_device(dense, widths, kind, "cpu")
+    bz, toff = dk.unpack_zz_lowdim_plain(d, w, eb)
+    got_bz, got_toff = hk.unpack_lowdim(d, w, eb, 0)
+    bz2 = bz.reshape(-1, nd)
+    pairs = [("lowdim deltas", got_bz, bz), ("lowdim tile offsets", got_toff, toff),
+             ("lowdim raw fields", hk.unpack_lowdim(d, w, eb, 1),
+              dk.unpack_dims_lowdim_plain(d, w)),
+             ("K2", hk.prefix_finish(got_bz.reshape(-1, nd), got_toff, eb),
+              dk.prefix_finish_plain(bz2, toff, eb))]
+    for name, got, want in pairs:
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            return name
+    return None
+
+
+def check_pack_case(hk: HostKernels, nd: int, es: int, nb: int | None = None) -> str | None:
+    """The host-built lowdim pack (``nb`` given: a ``LOWDIM_PACK_CASES``
+    case) or K3 (a ``PACK_CASES`` case) against its plain version: the
+    name of the kernel if it differs, or None."""
+    import torch
+
+    from sprintz_tpu_torch.ops import pack_kernels as pk
+    from sprintz_tpu_torch.probes import encode_cases as ec
+
+    rng = np.random.default_rng(nd * 31 + es * 7 + (nb or 0))
+    if nb is None:
+        errs, widths = (torch.from_numpy(a) for a in ec.pack_case(rng, nd, es))
+        name, got, want = ("K3", hk.pack_rows(errs, widths, es),
+                           pk.pack_rows_plain(errs, widths, es))
+    else:
+        errs, widths = (torch.from_numpy(a) for a in ec.pack_lowdim_case(rng, nd, es, nb))
+        name, got, want = ("lowdim pack", hk.pack_lowdim(errs, widths, es),
+                           pk.pack_dims_lowdim_plain(errs, widths, es))
+    return None if torch.equal(got, want) else name
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--resident", type=int, nargs="+", default=[1, 3])
@@ -194,18 +300,37 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from sprintz_tpu_torch.probes import unpack_cases as uc
 
+    from sprintz_tpu_torch.probes import encode_cases as ec
+
     so = build(args.src)
+    so_pack = build_pack()
+
+    def report(what, bad, good):
+        print(f"[host] {what}: " + (f"{bad} differs from its plain version" if bad
+                                    else good), flush=True)
+        return bool(bad)
 
     for resident in args.resident:
         hk = HostKernels(so, resident)
         for case in uc.UNPACK_CASES:
             what = "u{} D {} nb {} {}, {} resident".format(*case, resident)
-            bad = check_case(hk, *case)
-            if bad:
-                print(f"[host] {what}: {bad} differs from its plain version", flush=True)
+            if report(what, check_case(hk, *case), "K1, K4" + (", K5" if case[0] == 8 else "")
+                      + " and K2 equal their plain versions"):
                 return 1
-            print(f"[host] {what}: K1, K4" + (", K5" if case[0] == 8 else "")
-                  + " and K2 equal their plain versions", flush=True)
+        for case in uc.LOWDIM_CASES:
+            what = "lowdim u{} D {} nb {} {}, {} resident".format(*case, resident)
+            if report(what, check_lowdim_case(hk, *case),
+                      "the lowdim unpack and K2 equal their plain versions"):
+                return 1
+        hp = HostKernels(so_pack, resident)
+        for nd, es in ec.PACK_CASES:
+            if report(f"K3 D {nd} u{8 * es}, {resident} resident",
+                      check_pack_case(hp, nd, es), "equals its plain version"):
+                return 1
+        for nd, es, nb in ec.LOWDIM_PACK_CASES:
+            if report(f"lowdim pack D {nd} u{8 * es} nb {nb}, {resident} resident",
+                      check_pack_case(hp, nd, es, nb), "equals its plain version"):
+                return 1
     return 0
 
 

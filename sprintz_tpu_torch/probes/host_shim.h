@@ -1,6 +1,6 @@
 // CUDA's names for a build of a kernel source on the host, with g++ (see
-// host_build.py, which rewrites the source's launches and device helpers
-// before it includes this). Each CUDA thread is a std::thread; the CTAs of
+// host_build.py, which rewrites the sources' launches and device helpers
+// before it includes this: decode.cu and pack.cu). Each CUDA thread is a std::thread; the CTAs of
 // a launch run `resident` at a time, their threads all at once. Shared
 // memory is a buffer per CTA filled with garbage and followed by a canary;
 // __syncthreads is a barrier of the CTA, a shuffle a barrier of its mask's
@@ -33,6 +33,10 @@ struct dim3 {
 struct alignas(16) uint4 {
   unsigned x, y, z, w;
 };
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
 using cudaError_t = int;
 using cudaStream_t = void*;
 constexpr int cudaSuccess = 0;
@@ -103,12 +107,30 @@ inline T __shfl_sync(unsigned mask, T v, int src, int width = 32) {
   return shim_exchange(mask, v, l - l % width + src % width, true);
 }
 
+// The sum of what the lanes of `mask` post, to each of them.
+inline unsigned __reduce_add_sync(unsigned mask, unsigned v) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  long long* x = g_cta->xch.data() + 32 * w;
+  std::barrier<>& b = g_cta->lanes(w, mask);
+  x[l] = (long long)v;
+  b.arrive_and_wait();
+  unsigned sum = 0;
+  for (int i = 0; i < 32; ++i) {
+    if (mask >> i & 1u) sum += (unsigned)x[i];
+  }
+  b.arrive_and_wait();
+  return sum;
+}
+
 template <class T>
 inline T __ldg(const T* p) {
   return *p;
 }
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return std::atomic_ref<unsigned>(*p).fetch_add(v);
+}
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_or(v);
 }
 inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned s) {
   return (unsigned)((((uint64_t)hi << 32) | lo) >> (s & 31));

@@ -1,5 +1,6 @@
 """The delta decode's edge cases: inputs of the unpack kernel (K1
-``unpack_zz``, K4 ``unpack_rows``, K5 its narrow mode) and of K2
+``unpack_zz``, K4 ``unpack_rows``, K5 its narrow mode), of its lowdim twin
+(``unpack_zz_lowdim``, raw mode ``unpack_dims_lowdim``) and of K2
 ``prefix_finish`` where their tiles end raggedly, their rows are odd or
 wide, and their payloads are short, empty or misaligned.
 
@@ -23,6 +24,15 @@ A case is (elem_bits, D, nb, kind):
 - "wide": rows wider than the shared memory of one tile, which the
   kernels take in chunks of dims (at u16 D 400, an odd number of them,
   over three tiles).
+
+``LOWDIM_CASES`` are the lowdim layout's (u8 D 1-4, u16 D 1-2, so K2 runs
+at these widths too, on the lowdim unpack's output): "random" (legal
+lowdim widths, with a block of all-zero widths, one of all-maximum
+widths, and one block for each legal width in turn, which at u16 widths
+9-14 puts a field across the section's two 64-bit words), "zero widths"
+and "misaligned" as above. nb 1, 31, 33 and 4101 end tiles (32 blocks)
+and the kernel's spans (256 blocks) raggedly, and 257 starts a second
+span with one block.
 """
 
 from __future__ import annotations
@@ -31,8 +41,8 @@ import numpy as np
 import torch
 
 from ..ops.decode_kernels import TILE_BLOCKS
-from ..ops.pack_kernels import pack_rows_plain
-from .encode_cases import legal_widths
+from ..ops.pack_kernels import pack_dims_lowdim_plain, pack_rows_plain
+from .encode_cases import legal_widths, lowdim_legal_widths
 
 UNPACK_CASES = [
     (8, 5, 33, "random"),
@@ -52,6 +62,23 @@ UNPACK_CASES = [
     (16, 400, 70, "wide"),
 ]
 
+LOWDIM_CASES = [
+    (8, 1, 4101, "random"),
+    (8, 1, 31, "zero widths"),
+    (8, 2, 33, "random"),
+    (8, 2, 100, "misaligned"),
+    (8, 3, 257, "random"),
+    (8, 3, 100, "zero widths"),
+    (8, 4, 1, "random"),
+    (8, 4, 31, "random"),
+    (8, 4, 4101, "zero widths"),
+    (16, 1, 33, "random"),
+    (16, 1, 31, "misaligned"),
+    (16, 2, 4101, "random"),
+    (16, 2, 1, "random"),
+    (16, 2, 100, "zero widths"),
+]
+
 
 def case_widths(rng, eb: int, ndims: int, nb: int, kind: str) -> np.ndarray:
     """(nb, D) uint8 widths of a case."""
@@ -69,6 +96,33 @@ def case_widths(rng, eb: int, ndims: int, nb: int, kind: str) -> np.ndarray:
         for b, row in enumerate(edge[:nb]):
             w[b] = row
     return w.astype(np.uint8)
+
+
+def lowdim_case_widths(rng, eb: int, ndims: int, nb: int,
+                       kind: str) -> np.ndarray:
+    """(nb, D) uint8 lowdim widths of a case."""
+    legal = lowdim_legal_widths(eb)
+    w = legal[rng.integers(0, legal.size, (nb, ndims))]
+    if kind == "zero widths":
+        w[::3] = 0
+        w[TILE_BLOCKS:2 * TILE_BLOCKS] = 0
+    else:
+        edge = np.concatenate([[0, eb], legal])[:nb]
+        w[:edge.size] = edge[:, None]
+    return w.astype(np.uint8)
+
+
+def lowdim_case(rng, eb: int, ndims: int, nb: int, kind: str):
+    """-> (dense (nb, D, EB) uint8, widths (nb, D) uint8, fields
+    (nb, 8, D) int64): random zigzag fields within their widths, packed in
+    sections as a lowdim stream packs them."""
+    w = lowdim_case_widths(rng, eb, ndims, nb, kind)
+    fields = rng.integers(0, 1 << eb, (nb, 8, ndims)) & (
+        (1 << w.astype(np.int64)) - 1)[:, None, :]
+    dense = pack_dims_lowdim_plain(torch.from_numpy(fields.astype(np.int32)),
+                                   torch.from_numpy(w.astype(np.int32)),
+                                   eb // 8).numpy()
+    return dense, w, fields
 
 
 def unpack_case(rng, eb: int, ndims: int, nb: int, kind: str):

@@ -132,20 +132,16 @@ def test_outside_the_slice_raises():
         codec.compress_batch([x, x])
     with pytest.raises(NotImplementedError, match="batch"):
         codec.decompress_batch([compress(x, device="cpu")])
-    with pytest.raises(NotImplementedError, match="lowdim"):
-        compress(np.zeros((64, 3), np.uint8), codec="xff", device="cpu")
-    with pytest.raises(NotImplementedError, match="lowdim"):
-        compress(np.zeros((64, 4), np.uint8), device="cpu")
-    with pytest.raises(NotImplementedError, match="lowdim"):
-        compress(np.zeros((64, 2), np.uint16), device="cpu")
     with pytest.raises(NotImplementedError, match="sidecar"):
         SprintzCodec(device="cpu").decompress(b"\0" * 8, sidecar=object())
-    # a lowdim stream made by the JAX package is refused, not misread
+    # a d4 stream made by the JAX package (the lowdim layout) decodes, and
+    # the port makes the same bytes
     from sprintz_tpu import encoder as jenc
 
-    lowdim = jenc.compress(np.arange(400, dtype=np.uint8), 4)
-    with pytest.raises(NotImplementedError, match="lowdim"):
-        decompress(lowdim, device="cpu")
+    x4 = np.arange(400, dtype=np.uint8)
+    lowdim = jenc.compress(x4, 4)
+    np.testing.assert_array_equal(decompress(lowdim, device="cpu"), x4)
+    assert compress(x4.reshape(-1, 4), device="cpu") == lowdim
 
 
 def test_default_device_is_cuda():

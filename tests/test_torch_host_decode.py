@@ -1,12 +1,14 @@
-"""The delta decode's CUDA kernels (``csrc/decode.cu``: K1/K4/K5 and K2)
-built on the host with g++ against a shim of CUDA's names
-(``sprintz_tpu_torch/probes/host_build.py``: one std::thread a CUDA
+"""The delta decode's CUDA kernels (``csrc/decode.cu``: K1/K4/K5, K2 and
+the lowdim unpack) built on the host with g++ against a shim of CUDA's
+names (``sprintz_tpu_torch/probes/host_build.py``: one std::thread a CUDA
 thread, three CTAs at a time so that K1's look-back waits on tiles beside
 it, shared memory and outputs filled with garbage first) and held to their
-plain versions at ``probes/unpack_cases.py``'s cases, bit-exact. The plain
-versions are held to the JAX package at the same cases by
-``test_torch_unpack_shapes.py``; on the card, ``chip_smoke.py`` holds the
-kernels built with nvcc to them."""
+plain versions at ``probes/unpack_cases.py``'s cases (``UNPACK_CASES``,
+and ``LOWDIM_CASES`` for the lowdim unpack and K2 on its output),
+bit-exact. The plain versions are held to the JAX package at the same
+cases by ``test_torch_unpack_shapes.py`` and ``test_torch_lowdim_pack.py``;
+on the card, ``chip_smoke.py`` holds the kernels built with nvcc to
+them."""
 
 import shutil
 
@@ -28,3 +30,8 @@ def host_kernels(tmp_path_factory):
 @pytest.mark.parametrize("eb,ndims,nb,kind", uc.UNPACK_CASES)
 def test_host_built_kernels_equal_plain(host_kernels, eb, ndims, nb, kind):
     assert hb.check_case(host_kernels, eb, ndims, nb, kind) is None
+
+
+@pytest.mark.parametrize("eb,ndims,nb,kind", uc.LOWDIM_CASES)
+def test_host_built_lowdim_unpack_equals_plain(host_kernels, eb, ndims, nb, kind):
+    assert hb.check_lowdim_case(host_kernels, eb, ndims, nb, kind) is None

@@ -78,13 +78,15 @@ def test_xff_reference_vectors(name, ndims, elem_sz):
     assert codec.compress(want, ndims=ndims) == ref
 
 
-def test_xff_outside_the_slice_raises():
-    """Lowdim xff (full-precision coefficients) is a later slice; the
-    port refuses it on both sides rather than misreading it."""
+def test_xff_lowdim_matches_jax():
+    """Lowdim xff (full-precision coefficients) through the public entry
+    points: the port's bytes are the JAX package's, and each package
+    decodes the other's stream."""
     x = np.arange(400, dtype=np.uint8).reshape(-1, 4)
-    with pytest.raises(NotImplementedError, match="lowdim"):
-        sprintz_tpu_torch.compress(x, codec="xff", device="cpu")
-    with pytest.raises(NotImplementedError, match="lowdim"):
-        sprintz_tpu_torch.decompress(jenc.compress(x.reshape(-1), 4,
-                                                   codec="xff"),
-                                     codec="xff", device="cpu")
+    want = jenc.compress(x.reshape(-1), 4, codec="xff")
+    got = sprintz_tpu_torch.compress(x, codec="xff", device="cpu")
+    assert got == want
+    np.testing.assert_array_equal(sprintz_tpu_torch.decompress(
+        want, codec="xff", device="cpu"), x.reshape(-1))
+    np.testing.assert_array_equal(
+        jdec.decompress(got, codec="xff", elem_sz=1), x.reshape(-1))
