@@ -8,8 +8,9 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases, each of which raises (exit code != 0) when it fails:
 
 1. build: compile ``sprintz_tpu_torch/csrc/*.cu`` with nvcc for sm_90a into
-   ``build/sprintz_tpu_torch/``, one nvcc per source, all at once (set-up
-   time);
+   ``build/sprintz_tpu_torch/``, one nvcc per source, all at once, and the
+   host library ``csrc/sprintz_host.cpp`` with g++ (set-up time; the g++
+   and its flags are printed);
 2. kernels: every kernel against its plain PyTorch version on the card,
    bit-exact: K1 unpack_zz (biased deltas and tile offsets), K4
    unpack_rows, K5 (K4's narrow mode), K2 prefix_finish and K3 pack_rows
@@ -45,8 +46,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    version, a Python loop over blocks, runs once there); the pack, both
    unpack modes and K2 at the 4 MiB u8 d4 and u16 d2 streams;
 3. main path: compress then decompress with device="cuda", every kernel's
-   launch counter set to 0 before that run and read after it (every kernel
-   must have launched): delta on the 8 MiB u8 and u16 random walks, the
+   launch counter and every host entry point's call counter set to 0
+   before that run and read after it (every kernel must have launched, and
+   the host library's walk, row-major gather, plan, assembly and histogram
+   must have been called): delta on the 8 MiB u8 and u16 random walks, the
    8 MiB runs stream and a 64 MiB u8 walk; FIRE (xff) on the 8 MiB u8 and
    u16 walks and the runs stream; +Huf with delta and with xff on the 8 MiB
    u8 walk, a smooth 8 MiB stream (steps in [-2, 2], where Huffman must
@@ -58,13 +61,21 @@ Phases, each of which raises (exit code != 0) when it fails:
    vectors in tests/vectors, row-major and lowdim, decode and re-encode
    exactly;
 3b. lowdim path, its counts set to 0 before it and read after it (every
-   kernel of the lowdim path must have launched): delta and xff on
+   kernel of the lowdim path must have launched, and the host library's
+   walk, lowdim gather, plan, assembly and histogram must have been
+   called): delta and xff on
    bench.py's lowdim stream (1M rows x 4 dims of a u8 walk, 4 MiB) and
    its u16 twin (1M x 2), and on u8 d1, d2, d3 and u16 d1 walks of 256k
    rows; delta on a d4 runs stream; delta+Huf on a d4 smooth stream,
    where the container must win (K6 and the encoder then held to their
    plain versions on its sprintz stream). Card bytes equal CPU bytes:
    delta on every whole stream, xff on each stream's first 32k rows;
+3c. host: on every stream of both paths, for each codec the paths ran
+   it with, the host library's walk, gather, plan and assembly equal their
+   plain Python versions (the same arrays; the assembled bytes are the
+   path's stream) and its histogram equals ``np.bincount``; each timed on
+   the host's clock, the library's a median of 5 calls and the Python
+   version's one call;
 4. timings: each kernel's wrapper, the time inside its kernel launches
    alone, its plain version and, where one exists, one PyTorch call of the
    same function, by CUDA events (median of 25 after warm-up, L2 flushed
@@ -82,8 +93,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    plain version's one run). Then compress and
    decompress end to end, split into host, H2D, device pass, kernels (the
    part of the device pass inside the kernel launches) and D2H, for delta,
-   xff and +Huf, and for delta and xff on the 4 MiB lowdim streams (timed
-   once: their Python walk takes seconds).
+   xff and +Huf, and for delta and xff on the 4 MiB lowdim streams
+   (medians of 3 runs).
 
 The last two lines of standard output are the card's name and power limit
 followed by ``{"ok": true, "device": {...}}``; the line before them is
@@ -106,6 +117,7 @@ import numpy as np
 SEED = 0
 REPS = 25
 E2E_REPS = 3
+HOST_REPS = 5
 # Peak rates for bound_ms (NVIDIA data sheets, dense, at full power).
 # The data sheets list no int32 rate; the kernels' integer
 # work is held against the float32 CUDA-core rate, a higher rate, so the
@@ -167,6 +179,11 @@ KERNELS = {  # name -> (source, the TPU pass it replaces: file:line)
 LOWDIM_PATH = {"pack_lowdim", "unpack_lowdim", "unpack_lowdim_raw",
                "prefix_finish", "fire_encode_full", "fire_decode_full",
                "huff_decode", "huff_encode"}
+# the host library's entry points each path must call
+HOST_ROWMAJOR_PATH = {"walk_headers", "gather_blocks", "build_plan",
+                      "assemble_stream", "histogram"}
+HOST_LOWDIM_PATH = {"walk_headers", "gather_dims", "build_plan",
+                    "assemble_stream", "histogram"}
 ROWMAJOR_PATH = {"unpack_zz", "prefix_finish", "pack_rows", "unpack_rows",
                  "unpack_rows_narrow", "huff_decode", "huff_encode",
                  "fire_encode", "fire_decode"}
@@ -218,7 +235,8 @@ def main() -> int:
         return 2
     try:
         import sprintz_tpu_torch
-        from sprintz_tpu_torch import SprintzCodec, decoder, encoder
+        from sprintz_tpu_torch import (SprintzCodec, decoder, encoder,
+                                       native_host, planner)
         from sprintz_tpu_torch.entropy import huffman as hf
         from sprintz_tpu_torch.models import forecasters as fc
         from sprintz_tpu_torch.ops import _build
@@ -280,6 +298,32 @@ def main() -> int:
         ptxas = p.with_suffix(".log")
         if ptxas.exists():
             print(ptxas.read_text(), file=sys.stderr)
+    t0 = time.perf_counter()
+    host_lib = native_host.build()
+    gxx = subprocess.run([native_host._gxx(), "--version"], check=True,
+                         capture_output=True, text=True, timeout=60)
+    log(f"[build] host library {time.perf_counter() - t0:.1f} s: "
+        f"{host_lib.name}, by {gxx.stdout.splitlines()[0]} with "
+        + " ".join(native_host.GXX_FLAGS))
+
+    def zero_counts():
+        """Every kernel's launch count and every host entry point's call
+        count set to 0."""
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        for fn in native_host.ENTRY_POINTS:
+            fn.calls = 0
+
+    def host_calls(what: str, needed: set) -> dict:
+        """The host entry points' call counts; raise if one the path needs
+        was never called."""
+        calls = {fn.__name__: fn.calls for fn in native_host.ENTRY_POINTS}
+        log(f"[{what}] host calls: {json.dumps(calls)}")
+        missing = sorted(k for k in needed if calls[k] == 0)
+        if missing:
+            raise AssertionError(f"{what} path never called the host "
+                                 f"library's {missing}")
+        return calls
 
     # -------------------------------------------------------- 2. kernels
     rng = np.random.default_rng(SEED)
@@ -714,8 +758,7 @@ def main() -> int:
                             entropy=entropy, device="cuda")
 
     bufs = {}
-    for obj, attr in counters.values():
-        setattr(obj, attr, 0)
+    zero_counts()
     for case in cases:
         x = streams[case[0]]
         buf = codec_of(case).compress(x)
@@ -723,6 +766,7 @@ def main() -> int:
             raise AssertionError(f"main path {case}: round trip differs")
         bufs[case] = buf
     launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    host_calls("main", HOST_ROWMAJOR_PATH)
     for case in cases:
         x, buf = streams[case[0]], bufs[case]
         log(f"[main] {' '.join(case)}: {x.nbytes} B -> {len(buf)} B (ratio "
@@ -826,8 +870,7 @@ def main() -> int:
         "u8 d2 walk 512 KiB", "u8 d3 walk 768 KiB", "u16 d1 walk 512 KiB")]
     ld_cases += [("u8 d4 runs 4 MiB", "delta", "none"),
                  ("u8 d4 smooth 4 MiB", "delta", "huffman")]
-    for obj, attr in counters.values():
-        setattr(obj, attr, 0)
+    zero_counts()
     for case in ld_cases:
         x = streams[case[0]]
         buf = codec_of(case).compress(x)
@@ -836,6 +879,7 @@ def main() -> int:
         bufs[case] = buf
     ld_launches = {k: getattr(obj, attr) for k, (obj, attr) in
                    counters.items()}
+    host_calls("lowdim", HOST_LOWDIM_PATH)
     for case in ld_cases:
         x, buf = streams[case[0]], bufs[case]
         log(f"[lowdim] {' '.join(case)}: {x.nbytes} B -> {len(buf)} B (ratio "
@@ -875,6 +919,87 @@ def main() -> int:
                                  f"differ from CPU bytes")
     log("[lowdim] card bytes == CPU bytes on every lowdim stream (xff on its "
         f"first {FIRE_PLAIN_ROWS} rows)")
+
+    # ---------------------------------------------------------- 3c. host
+    # The host library against its plain Python versions on every stream
+    # of both paths, for each codec the paths ran it with: the device pass
+    # on the card gives the plan's and the assembly's inputs; the assembled
+    # bytes must be the path's stream, which the walk and the gather then
+    # index. Host clock; the library's time a median of HOST_REPS calls,
+    # the Python version's one call.
+    def host_ms(fn, reps=HOST_REPS):
+        times, out = [], None
+        for _ in range(reps):
+            c = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - c)
+        return out, statistics.median(times) * 1e3
+
+    def same(a, b, what):
+        if not (a.shape == b.shape and a.dtype == b.dtype
+                and np.array_equal(a, b)):
+            raise AssertionError(f"host {what}: the library differs from "
+                                 f"the Python version")
+
+    host = {}
+    for what, codec in dict.fromkeys((w, c) for w, c, _ in cases + ld_cases):
+        x = streams[what]
+        es, nd, flat = x.dtype.itemsize, x.shape[1], x.reshape(-1)
+        lowdim = nd <= LOWDIM_MAX_NDIMS[es]
+        key = f"{what} {codec}"
+        stream = bufs.get((what, codec, "none")) or SprintzCodec(
+            codec, es, device="cuda").compress(x)
+        nb = flat.size // (8 * nd)
+        w, h, d, ws = encoder.encode_device(encoder.upload_rows(
+            flat[:nb * 8 * nd].reshape(-1, nd), dev), es, codec, lowdim)
+        w, h, d, ws = (w.to(torch.uint8).cpu().numpy(),
+                       h.to(torch.uint8).cpu().numpy(), d.cpu().numpy(),
+                       ws.cpu().numpy())
+        eq = codec == "xff" and not lowdim
+        t = {}
+        plan, t["plan"] = host_ms(lambda: build_plan(ws == 0, flat.size, nd,
+                                                     eq))
+        plan_py, t["plan py"] = host_ms(lambda: planner._build_plan_py(
+            ws == 0, flat.size, nd, eq), 1)
+        for f in ("kinds", "values"):
+            same(getattr(plan, f), getattr(plan_py, f), f"{key} plan {f}")
+        if (plan.ngroups, plan.consumed_blocks, plan.remaining_elems) != (
+                plan_py.ngroups, plan_py.consumed_blocks,
+                plan_py.remaining_elems):
+            raise AssertionError(f"host {key} plan: counts differ")
+        tail = flat[flat.size - plan.remaining_elems:]
+        out, t["assemble"] = host_ms(lambda: encoder.assemble_stream(
+            plan, w, h, d, nd, es, tail, lowdim, ws))
+        out_py, t["assemble py"] = host_ms(lambda: encoder._assemble_stream_py(
+            plan, w, h, d, nd, es, tail, lowdim), 1)
+        if not out == out_py == stream:
+            raise AssertionError(f"host {key} assembly: bytes differ")
+        ng, _, _ = read_metadata_rle(stream)
+        idx, t["walk"] = host_ms(lambda: decoder.walk_headers(
+            stream, ng, nd, es, lowdim))
+        idx_py, t["walk py"] = host_ms(lambda: decoder._walk_headers_py(
+            stream, ng, nd, es, lowdim), 1)
+        for f in ("widths", "payload_offsets", "out_rows", "row_bytes"):
+            same(getattr(idx, f), getattr(idx_py, f), f"{key} walk {f}")
+        if (idx.total_rows, idx.tail_offset, idx.section_bytes) != (
+                idx_py.total_rows, idx_py.tail_offset, idx_py.section_bytes):
+            raise AssertionError(f"host {key} walk: rows or tail differ")
+        dense, t["gather"] = host_ms(lambda: decoder.gather_payloads(
+            stream, idx))
+        dense_py, t["gather py"] = host_ms(
+            lambda: decoder._gather_payloads_py(stream, idx_py), 1)
+        same(dense, dense_py, f"{key} gather")
+        sym = np.frombuffer(stream, np.uint8)
+        counts, t["histogram"] = host_ms(lambda: native_host.histogram(sym))
+        counts_py, t["histogram py"] = host_ms(
+            lambda: np.bincount(sym, minlength=256), 1)
+        same(counts, counts_py, f"{key} histogram")
+        host[key] = t
+        log(f"[host] {key} ({len(stream)} B): library == Python; ms library"
+            " / Python: " + ", ".join(
+                f"{k} {t[k]:.3f} / {t[k + ' py']:.3f}" for k in
+                ("walk", "gather", "plan", "assemble", "histogram")))
+    log("[host] " + json.dumps({"card": smi, "streams": host}))
 
     # -------------------------------------------------------- 4. timings
     flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
@@ -1260,14 +1385,15 @@ def main() -> int:
         rows = sp.sync("h2d", lambda: encoder.upload_rows(x, dev))
         widths, hdr, dense, ws = sp.device(
             "device", lambda: encoder.encode_device(rows, es, codec, lowdim))
-        w_np, h_np, d_np, z = sp.host("d2h", lambda: (
+        w_np, h_np, d_np, ws_np = sp.host("d2h", lambda: (
             widths.to(torch.uint8).cpu().numpy(),
             hdr.to(torch.uint8).cpu().numpy(), dense.cpu().numpy(),
-            ws.cpu().numpy() == 0))
+            ws.cpu().numpy()))
         plan = sp.host("plan", lambda: build_plan(
-            z, x.size, nd, codec == "xff" and not lowdim))
+            ws_np == 0, x.size, nd, codec == "xff" and not lowdim))
         return sp.host("assemble", lambda: encoder.assemble_stream(
-            plan, w_np, h_np, d_np, nd, es, x[:0, 0], lowdim))
+            plan, w_np, h_np, d_np, nd, es,
+            x.reshape(-1)[x.size - plan.remaining_elems:], lowdim, ws_np))
 
     def split_huff_encode(sp: Split, stream: bytes):
         data = np.frombuffer(stream, np.uint8)
@@ -1299,12 +1425,10 @@ def main() -> int:
         runs = [fn() for _ in range(reps)]
         return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
 
-    def e2e_of(case, reps=None) -> dict:
+    def e2e_of(case, reps=E2E_REPS) -> dict:
         x, buf = streams[case[0]], bufs[case]
         codec, entropy = case[1], case[2]
         es = x.dtype.itemsize
-        if reps is None:
-            reps = 1 if x.nbytes > (8 << 20) else E2E_REPS
 
         def enc():
             c = time.perf_counter()
@@ -1335,14 +1459,12 @@ def main() -> int:
                 "encode_s": {**med(enc, reps), **med(enc_split, reps)},
                 "decode_s": {**med(dec, reps), **med(dec_split, reps)}}
 
-    # the lowdim streams' Python walk takes seconds (65536 groups at 4 MiB),
-    # so their e2e rows are timed once
     e2e = {}
     ld_e2e = [(w, c, "none") for w in ("u8 d4 walk 4 MiB", "u16 d2 walk 4 MiB")
               for c in ("delta", "xff")]
     for case in cases + ld_e2e:
         key = " ".join(case)
-        r = e2e[key] = e2e_of(case, 1 if case in ld_e2e else None)
+        r = e2e[key] = e2e_of(case)
         for side in ("encode_s", "decode_s"):
             log(f"[e2e] {key} {side[:6]}: " + ", ".join(
                 f"{k} {v * 1e3:.3f} ms ({r['bytes'] / v / 1e9:.4f} GB/s)"

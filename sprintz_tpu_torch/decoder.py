@@ -6,7 +6,9 @@ The compressed layout only reveals payload sizes through the group
 headers, so offset recovery is a sequential walk over the headers on the
 host (``walk_headers``); the payloads are then gathered into one dense
 buffer (``gather_payloads``): (ndata, 8, MAXB) rows, or (ndata, D, EB)
-sections in the lowdim layout; and everything heavy runs on the device.
+sections in the lowdim layout. Both run in the port's host library
+(``native_host``, C++), for either device; everything heavy then runs on
+the device.
 Delta: K1 ``unpack_zz`` (which also scans its tiles' totals into their
 offsets), or its lowdim twin ``unpack_zz_lowdim``, -> K2
 ``prefix_finish``. FIRE: K4 ``unpack_rows`` (its narrow mode, K5, at u8),
@@ -36,6 +38,7 @@ from .constants import (
     MIN_DATA_SIZE,
     nbits_sz_bits,
 )
+from . import native_host
 from .device import resolve_device
 from .errors import CorruptStreamError
 from .models.forecasters import fire_decode
@@ -57,6 +60,7 @@ class StreamIndex:
     widths: np.ndarray  # (ndata, D) uint8 per data block (max width 16)
     payload_offsets: np.ndarray  # (ndata,) int64 byte offset of block payload
     out_rows: np.ndarray  # (ndata,) int64 starting row of each data block
+    row_bytes: np.ndarray  # (ndata,) int32 ceil(sum(widths) / 8)
     total_rows: int
     tail_offset: int  # byte offset of the verbatim tail
     section_bytes: int = 0  # lowdim: EB bytes a (block, dim); 0: row-major
@@ -65,9 +69,22 @@ class StreamIndex:
 def walk_headers(buf: bytes, ngroups: int, ndims: int, elem_sz: int,
                  lowdim: bool = False) -> StreamIndex:
     """Sequential walk over the group headers, which start right after
-    the stream's metadata, to index payloads and runs. A data block's
-    payload is 8 rows of ceil(sum(w) / 8) bytes, or sum(w) bytes in the
-    lowdim layout (each dim's 8 fields of w bits are w bytes)."""
+    the stream's metadata, to index payloads and runs, in the port's host
+    library (``native_host.walk_headers``). A data block's payload is 8
+    rows of ceil(sum(w) / 8) bytes, or sum(w) bytes in the lowdim layout
+    (each dim's 8 fields of w bits are w bytes). ``_walk_headers_py`` is
+    its plain version."""
+    widths, offsets, out_rows, row_bytes, total_rows, tail_offset = (
+        native_host.walk_headers(buf, ngroups, ndims, elem_sz, lowdim))
+    return StreamIndex(
+        widths=widths, payload_offsets=offsets, out_rows=out_rows,
+        row_bytes=row_bytes, total_rows=total_rows, tail_offset=tail_offset,
+        section_bytes=8 * elem_sz if lowdim else 0)
+
+
+def _walk_headers_py(buf: bytes, ngroups: int, ndims: int, elem_sz: int,
+                     lowdim: bool = False) -> StreamIndex:
+    """``walk_headers``' plain version: a Python loop over the groups."""
     hdr_bits = nbits_sz_bits(elem_sz)
     elem_bits = 8 * elem_sz
     total_header_bytes = (ndims * hdr_bits * GROUP_SZ_BLOCKS + 7) // 8
@@ -115,11 +132,14 @@ def walk_headers(buf: bytes, ngroups: int, ndims: int, elem_sz: int,
                 _overrun("a block payload")
             row += BLOCK_SZ
     ndata = len(widths_list)
+    widths = (np.stack(widths_list).astype(np.uint8)
+              if ndata else np.zeros((0, ndims), np.uint8))
     return StreamIndex(
-        widths=(np.stack(widths_list).astype(np.uint8)
-                if ndata else np.zeros((0, ndims), np.uint8)),
+        widths=widths,
         payload_offsets=np.asarray(offsets, dtype=np.int64),
         out_rows=np.asarray(out_rows, dtype=np.int64),
+        row_bytes=((widths.sum(axis=1, dtype=np.int64) + 7) // 8).astype(
+            np.int32),
         total_rows=row,
         tail_offset=pos,
         section_bytes=8 * elem_sz if lowdim else 0,
@@ -128,10 +148,21 @@ def walk_headers(buf: bytes, ngroups: int, ndims: int, elem_sz: int,
 
 def gather_payloads(buf: bytes, idx: StreamIndex) -> np.ndarray:
     """Gather the packed payload rows into a dense (ndata, 8, MAXB) uint8
-    buffer, zero padded; MAXB is the stream's widest row in bytes (at
-    least 1), not a bucket. In the lowdim layout the (block, dim)
-    sections go into a dense (ndata, D, EB) buffer, zero past each
-    section's w bytes."""
+    buffer, zero padded, in the port's host library; MAXB is the stream's
+    widest row in bytes (at least 1), not a bucket. In the lowdim layout
+    the (block, dim) sections go into a dense (ndata, D, EB) buffer, zero
+    past each section's w bytes. ``_gather_payloads_py`` is its plain
+    version."""
+    if idx.section_bytes:
+        return native_host.gather_dims(buf, idx.payload_offsets, idx.widths,
+                                       idx.section_bytes)
+    maxb = max(int(idx.row_bytes.max()) if idx.row_bytes.size else 1, 1)
+    return native_host.gather_blocks(buf, idx.payload_offsets, idx.row_bytes,
+                                     maxb)
+
+
+def _gather_payloads_py(buf: bytes, idx: StreamIndex) -> np.ndarray:
+    """``gather_payloads``' plain version: numpy index arithmetic."""
     ndata = idx.widths.shape[0]
     if idx.section_bytes:
         ndims = idx.widths.shape[1]

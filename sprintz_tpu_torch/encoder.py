@@ -16,6 +16,8 @@ Counterpart of ``sprintz_tpu/encoder.py`` for its two layouts: row-major
 3. Host: the final byte stream (headers, payload slices of the dense
    buffer, run varints, verbatim tail).
 
+Both host steps run in the port's host library (``native_host``, C++).
+
 Output is byte-identical to the reference and to the JAX package.
 """
 
@@ -24,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import native_host
 from .constants import (
     BLOCK_SZ,
     GROUP_SZ_BLOCKS,
@@ -105,23 +108,36 @@ def compress(flat: np.ndarray, ndims: int, codec: str = "delta",
     widths_np = widths.to(torch.uint8).cpu().numpy()
     hdr_np = hdr.to(torch.uint8).cpu().numpy()
     dense_np = dense.cpu().numpy()
-    zero_flags = width_sums.cpu().numpy() == 0
+    wsums_np = width_sums.cpu().numpy()
 
     # lowdim FIRE takes delta's strict run comparator (encoder.py:346)
-    plan = build_plan(zero_flags, n, ndims, codec == "xff" and not lowdim)
+    plan = build_plan(wsums_np == 0, n, ndims, codec == "xff" and not lowdim)
     return assemble_stream(plan, widths_np, hdr_np, dense_np, ndims, elem_sz,
-                           flat[n - plan.remaining_elems:], lowdim)
+                           flat[n - plan.remaining_elems:], lowdim, wsums_np)
 
 
 def assemble_stream(plan: EmissionPlan, widths_np: np.ndarray,
                     hdr_np: np.ndarray, dense_np: np.ndarray, ndims: int,
-                    elem_sz: int, tail: np.ndarray,
-                    lowdim: bool = False) -> bytes:
-    """Final stream assembly with index arithmetic: group g's header
-    precedes slots 2g and 2g+1; a data slot's payload is 8 rows of
-    ceil(sum(widths) / 8) bytes (row-major) or its D sections of
-    widths[d] bytes, sum(widths) in all (lowdim); a run slot is a 1- or
-    2-byte varint."""
+                    elem_sz: int, tail: np.ndarray, lowdim: bool = False,
+                    wsums: np.ndarray | None = None) -> bytes:
+    """Final stream assembly in the port's host library
+    (``native_host.assemble_stream``): group g's header precedes slots 2g
+    and 2g+1; a data slot's payload is 8 rows of ceil(sum(widths) / 8)
+    bytes (row-major) or its D sections of widths[d] bytes, sum(widths) in
+    all (lowdim); a run slot is a 1- or 2-byte varint. ``wsums``: the
+    blocks' width sums, which the device pass computes; the library sums
+    the widths itself without them. ``_assemble_stream_py`` is its plain
+    version."""
+    return native_host.assemble_stream(
+        plan.kinds, plan.values, plan.ngroups, plan.remaining_elems,
+        widths_np, hdr_np, dense_np, ndims, elem_sz, lowdim, tail, wsums)
+
+
+def _assemble_stream_py(plan: EmissionPlan, widths_np: np.ndarray,
+                        hdr_np: np.ndarray, dense_np: np.ndarray, ndims: int,
+                        elem_sz: int, tail: np.ndarray,
+                        lowdim: bool = False) -> bytes:
+    """``assemble_stream``'s plain version, with numpy index arithmetic."""
     hdr_bits = nbits_sz_bits(elem_sz)
     total_header_bytes = (ndims * hdr_bits * GROUP_SZ_BLOCKS + 7) // 8
 

@@ -32,6 +32,7 @@ import heapq
 import numpy as np
 import torch
 
+from .. import native_host
 from ..device import resolve_device
 from ..errors import CorruptStreamError
 from ..ops.huffman_kernels import (MAX_CODE_LEN, decode_chunks, encode_chunks,
@@ -175,7 +176,9 @@ def _as_bytes(data: np.ndarray | bytes) -> np.ndarray:
 
 
 def build_table(data: np.ndarray | bytes) -> HuffmanTable:
-    lengths = _limited_lengths(np.bincount(_as_bytes(data), minlength=256))
+    """The table of ``data``'s symbols; its byte counts come from the port's
+    host library (``native_host.histogram``, ``np.bincount``'s counts)."""
+    lengths = _limited_lengths(native_host.histogram(_as_bytes(data)))
     return HuffmanTable(lengths=lengths, codes=_canonical_codes(lengths))
 
 

@@ -1,0 +1,253 @@
+"""The port's host runtime (``csrc/sprintz_host.cpp``), built with g++ and
+bound with ctypes.
+
+The stream format's per-block bookkeeping runs on the host whatever the
+device: the decode's header walk and payload gather, the encode's emission
+plan and stream assembly, and the +Huf table's byte histogram. At first use
+the source is compiled with g++ into ``build/sprintz_tpu_torch/`` at the
+root of the checkout (``ops/_build.BUILD_DIR``), under a name keyed by the
+source, the flags and the compiler's target (``-march=native``), so an
+edited source or another host's CPU gets its own library. A missing g++ or
+a failed build raises ``RuntimeError``; nothing falls back to the Python
+versions, which stay beside their callers as the plain versions the tests
+hold this library to.
+
+Each wrapper counts its calls into the library in its ``calls`` attribute,
+as the kernel wrappers count their launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+import numpy as np
+
+from .constants import BLOCK_SZ, METADATA_LEN_RLE
+from .errors import CorruptStreamError
+from .ops import _build
+
+SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "sprintz_host.cpp"
+GXX_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-shared", "-pthread",
+             "-march=native")
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+SIGNATURES = {
+    "sprintz_walk_headers": (_P, _L, _L, _L, _I, _I, _I, _L, _P, _P, _P, _P,
+                             _P),
+    "sprintz_gather_blocks": (_P, _L, _P, _P, _L, _L, _P, _L),
+    "sprintz_gather_dims": (_P, _L, _P, _P, _L, _I, _L, _P, _L),
+    "sprintz_build_plan": (_P, _L, _I, _I, _P, _P, _P),
+    "sprintz_assemble_stream": (_P, _P, _L, _L, _L, _P, _P, _P, _L, _I, _I,
+                                _I, _P, _L, _P, _L, _P),
+    "sprintz_histogram": (_P, _L, _P),
+}
+
+
+def _gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH: the host runtime of "
+                           "sprintz_tpu_torch (csrc/sprintz_host.cpp) "
+                           "cannot be built")
+    return gxx
+
+
+def _target(gxx: str) -> pathlib.Path:
+    """The library's path: a hash of the source, the flags and the macros
+    g++ defines for them here (its version and the host's ISA)."""
+    macros = subprocess.run(
+        [gxx, *GXX_FLAGS, "-dM", "-E", "-x", "c++", "-"], input=b"",
+        capture_output=True, timeout=120)
+    if macros.returncode:
+        raise RuntimeError(f"g++ failed (rc {macros.returncode}):\n"
+                           + (macros.stdout + macros.stderr).decode())
+    key = hashlib.sha256(b"\0".join(
+        [" ".join(GXX_FLAGS).encode(), SRC.read_bytes(), macros.stdout]))
+    return _build.BUILD_DIR / f"libsprintz_host_{key.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile ``csrc/sprintz_host.cpp`` unless its library exists; return
+    the library's path. Concurrent processes (test workers) each write a
+    file of their own and move it into place."""
+    gxx = _gxx()
+    lib = _target(gxx)
+    if not lib.exists():
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        try:
+            out = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(SRC)],
+                                 capture_output=True, timeout=600)
+            if out.returncode:
+                raise RuntimeError(
+                    f"g++ failed:\n{SRC.name} (rc {out.returncode}): "
+                    + (out.stdout + out.stderr).decode())
+            os.replace(tmp, lib)
+        finally:
+            tmp.unlink(missing_ok=True)
+    return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int64
+    return lib
+
+
+def _ptr(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
+def _u8(buf) -> np.ndarray:
+    """A bytes-like stream as a flat uint8 array, without a copy."""
+    if isinstance(buf, np.ndarray):
+        return np.ascontiguousarray(buf, dtype=np.uint8).reshape(-1)
+    return np.frombuffer(buf, dtype=np.uint8)
+
+
+def walk_headers(buf, ngroups: int, ndims: int, elem_sz: int,
+                 lowdim: bool):
+    """The header walk over ``ngroups`` groups, which start right after the
+    stream's metadata ->
+    (widths (ndata, D) uint8, payload offsets (ndata,) int64, first rows
+    (ndata,) int64, row bytes (ndata,) int32, total rows, tail offset).
+    Raises ``CorruptStreamError`` when the walk would overrun the buffer.
+
+    Every data block takes at least one payload byte, so a stream of n
+    bytes holds fewer than n of them: the outputs are sized by the smaller
+    of that and the metadata's 2 * ngroups, which a corrupt stream may set
+    to billions."""
+    data = _u8(buf)
+    cap = max(min(2 * int(ngroups), data.size), 1)
+    widths = np.empty((cap, ndims), dtype=np.uint8)
+    offsets = np.empty(cap, dtype=np.int64)
+    out_rows = np.empty(cap, dtype=np.int64)
+    row_bytes = np.empty(cap, dtype=np.int32)
+    meta = np.zeros(3, dtype=np.int64)
+    walk_headers.calls += 1
+    ndata = _library().sprintz_walk_headers(
+        _ptr(data), data.size, METADATA_LEN_RLE, ngroups, ndims, elem_sz,
+        int(lowdim),
+        cap, _ptr(widths), _ptr(offsets), _ptr(out_rows), _ptr(row_bytes),
+        _ptr(meta))
+    if ndata < 0:
+        raise CorruptStreamError(
+            f"stream walk overran the buffer (len {data.size}): truncated "
+            f"stream or inconsistent metadata")
+    return (widths[:ndata], offsets[:ndata], out_rows[:ndata],
+            row_bytes[:ndata], int(meta[1]), int(meta[2]))
+
+
+def gather_blocks(buf, offsets: np.ndarray, row_bytes: np.ndarray,
+                  maxb: int) -> np.ndarray:
+    """Row-major payload gather: block i's 8 rows of ``row_bytes[i]`` bytes
+    at ``offsets[i]`` -> (ndata, 8, maxb) uint8, zero past each row."""
+    data = _u8(buf)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    row_bytes = np.ascontiguousarray(row_bytes, dtype=np.int32)
+    out = np.empty((offsets.size, BLOCK_SZ, maxb), dtype=np.uint8)
+    gather_blocks.calls += 1
+    if _library().sprintz_gather_blocks(
+            _ptr(data), data.size, _ptr(offsets), _ptr(row_bytes),
+            offsets.size, maxb, _ptr(out), out.size) < 0:
+        raise CorruptStreamError("a block's payload lies outside the stream")
+    return out
+
+
+def gather_dims(buf, offsets: np.ndarray, widths: np.ndarray,
+                section_bytes: int) -> np.ndarray:
+    """Lowdim payload gather: block i's D sections of ``widths[i, d]`` bytes
+    from ``offsets[i]`` on -> (ndata, D, section_bytes) uint8, zero past
+    each section's w bytes."""
+    data = _u8(buf)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    widths = np.ascontiguousarray(widths, dtype=np.uint8)
+    ndata, ndims = widths.shape
+    out = np.empty((ndata, ndims, section_bytes), dtype=np.uint8)
+    gather_dims.calls += 1
+    if _library().sprintz_gather_dims(
+            _ptr(data), data.size, _ptr(offsets), _ptr(widths), ndata, ndims,
+            section_bytes, _ptr(out), out.size) < 0:
+        raise CorruptStreamError("a block's payload lies outside the stream")
+    return out
+
+
+def build_plan(zero_flags: np.ndarray, n_elems: int, ndims: int,
+               run_cmp_allows_equal: bool):
+    """The emission plan -> (kinds int8, values int32, ngroups,
+    consumed blocks, remaining elements)."""
+    zf = np.ascontiguousarray(zero_flags, dtype=np.uint8).reshape(-1)
+    cap = 2 * max(zf.size, 1) + 4
+    kinds = np.empty(cap, dtype=np.int8)
+    values = np.empty(cap, dtype=np.int32)
+    meta = np.zeros(4, dtype=np.int64)
+    build_plan.calls += 1
+    nslots = _library().sprintz_build_plan(
+        _ptr(zf), n_elems, ndims, int(run_cmp_allows_equal), _ptr(kinds),
+        _ptr(values), _ptr(meta))
+    if not 0 <= nslots <= cap:
+        raise RuntimeError(f"sprintz_build_plan returned {nslots} slots "
+                           f"(capacity {cap})")
+    return (kinds[:nslots], values[:nslots], int(meta[1]), int(meta[2]),
+            int(meta[3]))
+
+
+def assemble_stream(kinds: np.ndarray, values: np.ndarray, ngroups: int,
+                    remaining_elems: int, widths: np.ndarray,
+                    hdrvals: np.ndarray, dense: np.ndarray, ndims: int,
+                    elem_sz: int, lowdim: bool, tail: np.ndarray,
+                    wsums: np.ndarray | None = None) -> bytes:
+    """The final byte stream. ``widths`` and ``hdrvals`` are (nb, D)
+    uint8, ``dense`` (nb, 8, maxb) or, ``lowdim``, (nb, D, maxb) uint8;
+    ``wsums`` the (nb,) int32 width sums, which spare the library a pass
+    over the widths. Raises ``RuntimeError`` when the library refuses: the
+    buffer is sized for any plan, so that is a bug, not a bad input."""
+    kinds = np.ascontiguousarray(kinds, dtype=np.int8)
+    values = np.ascontiguousarray(values, dtype=np.int32)
+    widths = np.ascontiguousarray(widths, dtype=np.uint8)
+    hdrvals = np.ascontiguousarray(hdrvals, dtype=np.uint8)
+    dense = np.ascontiguousarray(dense, dtype=np.uint8)
+    tail = np.ascontiguousarray(tail).reshape(-1).view(np.uint8)
+    if wsums is not None:
+        wsums = np.ascontiguousarray(wsums, dtype=np.int32)
+    # the metadata, a header of at most ndims + 1 bytes and at most 8 + 2
+    # bytes of varints a slot, every payload (no larger than its dense
+    # block), the tail
+    cap = (8 + dense.nbytes + kinds.size * (ndims + 11) + tail.size)
+    out = np.empty(cap, dtype=np.uint8)
+    assemble_stream.calls += 1
+    n = _library().sprintz_assemble_stream(
+        _ptr(kinds), _ptr(values), kinds.size, ngroups, remaining_elems,
+        _ptr(widths), _ptr(hdrvals), _ptr(dense), dense.shape[-1], ndims,
+        elem_sz, int(lowdim), _ptr(tail), tail.size, _ptr(out), cap,
+        None if wsums is None else _ptr(wsums))
+    if n < 0:
+        raise RuntimeError(f"sprintz_assemble_stream refused its buffer of "
+                           f"{cap} bytes")
+    return out[:n].tobytes()
+
+
+def histogram(data) -> np.ndarray:
+    """Byte counts of ``data`` -> (256,) int64, as ``np.bincount(data,
+    minlength=256)``."""
+    data = _u8(data)
+    counts = np.empty(256, dtype=np.int64)
+    histogram.calls += 1
+    _library().sprintz_histogram(_ptr(data), data.size, _ptr(counts))
+    return counts
+
+
+ENTRY_POINTS = (walk_headers, gather_blocks, gather_dims, build_plan,
+                assemble_stream, histogram)
+for _fn in ENTRY_POINTS:
+    _fn.calls = 0

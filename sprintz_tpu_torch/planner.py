@@ -21,6 +21,7 @@ import dataclasses
 
 import numpy as np
 
+from . import native_host
 from .constants import BLOCK_SZ, GROUP_SZ_BLOCKS, MAX_RUN_NBLOCKS
 
 KIND_DATA = 0
@@ -47,7 +48,9 @@ def build_plan(
     ndims: int,
     run_cmp_allows_equal: bool = False,
 ) -> EmissionPlan:
-    """Replicates the reference encoder's consumption order over zero flags.
+    """Replicates the reference encoder's consumption order over zero flags,
+    in the port's host library (``native_host.build_plan``);
+    ``_build_plan_py`` is its plain version.
 
     ``zero_flags[b]`` is True iff block b's zigzagged errors are all zero.
     A run continues while the next block starts before the last full
@@ -55,6 +58,19 @@ def build_plan(
     (sprintz_delta_rle.cpp:226); row-major FIRE's allows equality
     (``run_cmp_allows_equal=True``, the JAX package's ``encoder.py:346``).
     """
+    kinds, values, ngroups, consumed, remaining = native_host.build_plan(
+        zero_flags, n_elems, ndims, run_cmp_allows_equal)
+    return EmissionPlan(kinds=kinds, values=values, ngroups=ngroups,
+                        consumed_blocks=consumed, remaining_elems=remaining)
+
+
+def _build_plan_py(
+    zero_flags: np.ndarray,
+    n_elems: int,
+    ndims: int,
+    run_cmp_allows_equal: bool = False,
+) -> EmissionPlan:
+    """``build_plan``'s plain version: a Python loop over the blocks."""
     block_elems = BLOCK_SZ * ndims
     group_sz = block_elems * GROUP_SZ_BLOCKS
     last_start = n_elems - group_sz
