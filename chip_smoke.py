@@ -37,14 +37,16 @@ Phases, each of which raises (exit code != 0) when it fails:
    31, 33, 70, 100 and 4101, MAXB cut inside the rows, all-zero-width
    blocks, a payload one byte off a 16-byte boundary);
 2b. lowdim kernels (u8 D <= 4, u16 D <= 2), bit-exact against their
-   plain versions: the lowdim unpack in both modes and K2 on its output
-   at ``unpack_cases.LOWDIM_CASES`` (every lowdim width, D 1-4 u8 and 1-2
-   u16, nb 1-4101, runs, a misaligned payload), the lowdim pack at
-   ``encode_cases.LOWDIM_PACK_CASES``; FIRE with its full-precision
-   coefficient at the ring shapes for those widths, from carried states
-   whose counter wraps, and over a 32k-row stream a width (its plain
-   version, a Python loop over blocks, runs once there); the pack, both
-   unpack modes and K2 at the 4 MiB u8 d4 and u16 d2 streams;
+   plain versions: the lowdim decode (values) and its raw mode at
+   ``unpack_cases.LOWDIM_CASES`` (every lowdim width, D 1-4 u8 and 1-2
+   u16, nb 1-4101, runs, a misaligned payload), the lowdim encode pass
+   from the rows and from errors at ``encode_cases.LOWDIM_PACK_CASES``
+   (nb 1-4101: every width, all-zero and all-maximum blocks); FIRE with
+   its full-precision coefficient at the ring shapes for those widths,
+   from carried states whose counter wraps, and over a 32k-row stream a
+   width (its plain version, a Python loop over blocks, runs once there);
+   the encode pass (from the rows, and from FIRE's errors), the decode
+   and its raw mode at the 4 MiB u8 d4 and u16 d2 streams;
 3. main path: compress then decompress with device="cuda", every kernel's
    launch counter and every host entry point's call counter set to 0
    before that run and read after it (every kernel must have launched, and
@@ -61,9 +63,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    vectors in tests/vectors, row-major and lowdim, decode and re-encode
    exactly;
 3b. lowdim path, its counts set to 0 before it and read after it (every
-   kernel of the lowdim path must have launched, and the host library's
-   walk, lowdim gather, plan, assembly and histogram must have been
-   called): delta and xff on
+   kernel of the lowdim path must have launched, K1 and K2 never, and the
+   host library's walk, lowdim gather, plan, assembly and histogram must
+   have been called; a delta encode and decode's device pass launch one
+   kernel each): delta and xff on
    bench.py's lowdim stream (1M rows x 4 dims of a u8 walk, 4 MiB) and
    its u16 twin (1M x 2), and on u8 d1, d2, d3 and u16 d1 walks of 256k
    rows; delta on a d4 runs stream; delta+Huf on a d4 smooth stream,
@@ -87,10 +90,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    chain bound: blocks x the dependent integer operations of a block,
    counted in csrc/fire.cu's header, x the latency of one dependent
    multiply-add, which a one-warp probe kernel measures on the card
-   beside the SM clock. The lowdim rows: the pack, both unpack modes and
-   K2 at the 4 MiB u8 d4 and u16 d2 streams, FIRE's full-coefficient
-   kernels there (no plain time) and at the 32k-row streams (beside the
-   plain version's one run). Then compress and
+   beside the SM clock. The lowdim rows: the encode pass (from the rows
+   and from FIRE's errors), the decode and its raw mode at the 4 MiB u8
+   d4 and u16 d2 streams, FIRE's full-coefficient kernels there (no plain
+   time) and at the 32k-row streams (beside the plain version's one run).
+   Then compress and
    decompress end to end, split into host, H2D, device pass, kernels (the
    part of the device pass inside the kernel launches) and D2H, for delta,
    xff and +Huf, and for delta and xff on the 4 MiB lowdim streams
@@ -129,7 +133,8 @@ CORE_OPS_PER_S = 67e12
 OPS_PER_ELEM = {"unpack_zz": 12, "unpack_rows": 9, "unpack_rows_narrow": 9,
                 "prefix_finish": 3, "pack_rows": 6, "fire_encode": 18,
                 "fire_decode": 15, "huff_decode": 30, "huff_encode": 12,
-                "pack_lowdim": 5, "unpack_lowdim": 10, "unpack_lowdim_raw": 5,
+                "encode_lowdim": 12, "encode_lowdim_errs": 9, "decode_lowdim": 12,
+                "unpack_lowdim_raw": 5,
                 "fire_encode_full": 16, "fire_decode_full": 15}
 # FIRE's serial chain: dependent integer operations a block, by elem_bits
 # (the count is in csrc/fire.cu's header), and its tiling; the
@@ -161,12 +166,14 @@ KERNELS = {  # name -> (source, the TPU pass it replaces: file:line)
                     "sprintz_tpu/models/forecasters.py:303"),
     "fire_decode": ("sprintz_tpu_torch/csrc/fire.cu",
                     "sprintz_tpu/models/forecasters.py:303"),
-    # the lowdim layout: XLA passes in JAX, and FIRE with its full-precision
-    # coefficient (TRUNC false)
-    "pack_lowdim": ("sprintz_tpu_torch/csrc/pack.cu",
-                    "sprintz_tpu/ops/pack.py:251"),
-    "unpack_lowdim": ("sprintz_tpu_torch/csrc/decode.cu",
-                      "sprintz_tpu/ops/pack.py:683"),
+    # the lowdim layout: fused XLA passes in JAX, and FIRE with its
+    # full-precision coefficient (TRUNC false)
+    "encode_lowdim": ("sprintz_tpu_torch/csrc/pack.cu",
+                      "sprintz_tpu/encoder.py:132"),
+    "encode_lowdim_errs": ("sprintz_tpu_torch/csrc/pack.cu",
+                           "sprintz_tpu/ops/pack.py:251"),
+    "decode_lowdim": ("sprintz_tpu_torch/csrc/decode.cu",
+                      "sprintz_tpu/decoder.py:265"),
     "unpack_lowdim_raw": ("sprintz_tpu_torch/csrc/decode.cu",
                           "sprintz_tpu/ops/pack.py:683"),
     "fire_encode_full": ("sprintz_tpu_torch/csrc/fire.cu",
@@ -176,8 +183,8 @@ KERNELS = {  # name -> (source, the TPU pass it replaces: file:line)
 }
 # the kernels each main path must launch: the row-major one and the lowdim
 # one (u8 ndims <= 4, u16 ndims <= 2)
-LOWDIM_PATH = {"pack_lowdim", "unpack_lowdim", "unpack_lowdim_raw",
-               "prefix_finish", "fire_encode_full", "fire_decode_full",
+LOWDIM_PATH = {"encode_lowdim", "encode_lowdim_errs", "decode_lowdim",
+               "unpack_lowdim_raw", "fire_encode_full", "fire_decode_full",
                "huff_decode", "huff_encode"}
 # the host library's entry points each path must call
 HOST_ROWMAJOR_PATH = {"walk_headers", "gather_blocks", "build_plan",
@@ -244,8 +251,7 @@ def main() -> int:
         from sprintz_tpu_torch.ops import huffman_kernels as hk
         from sprintz_tpu_torch.ops import pack_kernels as pk
         from sprintz_tpu_torch.constants import LOWDIM_MAX_NDIMS
-        from sprintz_tpu_torch.ops.bitmath import (block_widths_lowdim,
-                                                   block_widths_rowmajor)
+        from sprintz_tpu_torch.ops.bitmath import block_widths_rowmajor
         from sprintz_tpu_torch.planner import build_plan
         from sprintz_tpu_torch.errors import CorruptStreamError
         from sprintz_tpu_torch.probes import decode_cases as dc
@@ -281,8 +287,9 @@ def main() -> int:
         "huff_encode": (hk.encode_chunks, "launches"),
         "fire_encode": (fc.fire_encode, "launches"),
         "fire_decode": (fc.fire_decode, "launches"),
-        "pack_lowdim": (pk.pack_dims_lowdim, "launches"),
-        "unpack_lowdim": (dk.unpack_zz_lowdim, "launches"),
+        "encode_lowdim": (pk.encode_lowdim, "launches"),
+        "encode_lowdim_errs": (pk.encode_lowdim, "errs_launches"),
+        "decode_lowdim": (dk.decode_delta_lowdim, "launches"),
         "unpack_lowdim_raw": (dk.unpack_dims_lowdim, "launches"),
         "fire_encode_full": (fc.fire_encode, "full_launches"),
         "fire_decode_full": (fc.fire_decode, "full_launches"),
@@ -595,33 +602,33 @@ def main() -> int:
 
     # ---------------------------------------------- 2b. lowdim kernels
     # The lowdim layout's cases, the CPU tests' lists: both modes of the
-    # lowdim unpack and K2 on its output (D 1-4 u8, 1-2 u16), the lowdim
-    # pack; then FIRE with its full-precision coefficient at the ring
-    # shapes, from wrapping states and over a 32k-row stream a width; then
-    # the pack and unpack at the full-size streams. A generator of its own,
-    # so that the streams of the other phases stay those of earlier runs.
+    # lowdim decode (D 1-4 u8, 1-2 u16), the encode pass from the rows and
+    # from errors; then FIRE with its full-precision coefficient at the
+    # ring shapes, from wrapping states and over a 32k-row stream a width;
+    # then the encode and decode at the full-size streams. A generator of
+    # its own, so that the streams of the other phases stay those of
+    # earlier runs.
     lrng = np.random.default_rng(SEED + 5)
     for eb, nd, nb, ukind in uc.LOWDIM_CASES:
         d, w = uc.to_device(*uc.lowdim_case(lrng, eb, nd, nb, ukind)[:2],
                             ukind, dev)
         what = f"lowdim case u{eb} D {nd} nb {nb} {ukind}"
-        bz, toff = dk.unpack_zz_lowdim(d, w, eb)
-        check("unpack_lowdim", (bz, toff), dk.unpack_zz_lowdim_plain(d, w, eb),
-              what)
+        check("decode_lowdim", dk.decode_delta_lowdim(d, w, eb),
+              dk.decode_delta_lowdim_plain(d, w, eb), what)
         check("unpack_lowdim_raw", dk.unpack_dims_lowdim(d, w),
               dk.unpack_dims_lowdim_plain(d, w), what)
-        bz = bz.reshape(-1, nd)
-        check("prefix_finish", dk.prefix_finish(bz, toff, eb),
-              dk.prefix_finish_plain(bz, toff, eb), what)
     for nd, es, nb in ec.LOWDIM_PACK_CASES:
-        errs, widths = (torch.from_numpy(t).to(dev)
-                        for t in ec.pack_lowdim_case(lrng, nd, es, nb))
-        check("pack_lowdim", pk.pack_dims_lowdim(errs, widths, es),
-              pk.pack_dims_lowdim_plain(errs, widths, es),
-              f"lowdim pack case nb {nb} D {nd} u{8 * es}")
-    log(f"[kernels] unpack_lowdim, unpack_lowdim_raw and prefix_finish at "
-        f"{len(uc.LOWDIM_CASES)} lowdim cases, pack_lowdim at "
-        f"{len(ec.LOWDIM_PACK_CASES)}, equal their plain versions")
+        rows, errs = ec.lowdim_rows_case(lrng, nd, es, nb)
+        rows, errs = ec.rows_tensor(rows).to(dev), torch.from_numpy(errs).to(dev)
+        what = f"lowdim encode case nb {nb} D {nd} u{8 * es}"
+        check("encode_lowdim", pk.encode_lowdim(rows, es),
+              pk.encode_lowdim_plain(rows, es), what)
+        check("encode_lowdim_errs", pk.encode_lowdim(errs, es, errors=True),
+              pk.encode_lowdim_plain(errs, es, errors=True), what)
+    log(f"[kernels] decode_lowdim and unpack_lowdim_raw at "
+        f"{len(uc.LOWDIM_CASES)} lowdim cases, encode_lowdim from the rows "
+        f"and from errors at {len(ec.LOWDIM_PACK_CASES)}, equal their plain "
+        f"versions")
 
     nchecked = 0
     for eb in (8, 16):
@@ -667,34 +674,33 @@ def main() -> int:
 
     def lowdim_inputs(x: np.ndarray, elem_sz: int):
         """Device inputs of the lowdim kernels from stream x, as the path
-        makes them: the pack's (errs, widths) and the unpack's (dense,
-        widths) from the stream's delta bytes."""
+        makes them: the encode's narrow rows, FIRE's errors of the rows
+        (the full-coefficient kernel's), and the decode's (dense, widths)
+        from the stream's delta bytes."""
         eb, nd = 8 * elem_sz, x.shape[1]
+        nrows = encoder.upload_rows(x, dev, narrow=True)
         rows = encoder.upload_rows(x, dev)
-        blocks = fc.delta_encode(rows, eb).reshape(-1, 8, nd)
-        widths = block_widths_lowdim(blocks.amax(dim=1), elem_sz)
         buf = encoder.compress(x.reshape(-1), nd, device=dev)
         idx = decoder.walk_headers(buf, read_metadata_rle(buf)[0], nd,
                                    elem_sz, lowdim=True)
         dense, dwidths, _ = decoder.upload_payload(
             decoder.gather_payloads(buf, idx), idx, dev)
-        return dict(blocks=blocks, widths=widths, dense=dense,
-                    dwidths=dwidths, eb=eb, es=elem_sz, rows=rows)
+        return dict(nrows=nrows, dense=dense, dwidths=dwidths, eb=eb,
+                    es=elem_sz, rows=rows,
+                    ferrs=fc.fire_encode(rows, eb, truncate_coeffs=False))
 
     def check_lowdim(what, a):
         eb, es = a["eb"], a["es"]
-        check("pack_lowdim", pk.pack_dims_lowdim(a["blocks"], a["widths"], es),
-              pk.pack_dims_lowdim_plain(a["blocks"], a["widths"], es), what)
-        bz, toff = dk.unpack_zz_lowdim(a["dense"], a["dwidths"], eb)
-        check("unpack_lowdim", (bz, toff),
-              dk.unpack_zz_lowdim_plain(a["dense"], a["dwidths"], eb), what)
+        check("encode_lowdim", pk.encode_lowdim(a["nrows"], es),
+              pk.encode_lowdim_plain(a["nrows"], es), what)
+        check("encode_lowdim_errs", pk.encode_lowdim(a["ferrs"], es, True),
+              pk.encode_lowdim_plain(a["ferrs"], es, True), what)
         check("unpack_lowdim_raw", dk.unpack_dims_lowdim(a["dense"],
                                                          a["dwidths"]),
               dk.unpack_dims_lowdim_plain(a["dense"], a["dwidths"]), what)
-        a["bz"], a["toff"] = bz.reshape(-1, a["dense"].shape[1]), toff
-        vals = dk.prefix_finish(a["bz"], toff, eb)
-        check("prefix_finish", vals, dk.prefix_finish_plain(a["bz"], toff, eb),
-              what)
+        vals = dk.decode_delta_lowdim(a["dense"], a["dwidths"], eb)
+        check("decode_lowdim", vals,
+              dk.decode_delta_lowdim_plain(a["dense"], a["dwidths"], eb), what)
         return vals
 
     ld_shapes = {
@@ -707,11 +713,11 @@ def main() -> int:
         vals = check_lowdim(what, a)
         if not np.array_equal(decoder.download_values(vals),
                               x[: vals.shape[0]].reshape(-1)):
-            raise AssertionError(f"lowdim unpack -> K2 {what}: values differ "
+            raise AssertionError(f"lowdim decode {what}: values differ "
                                  f"from the input")
-        log(f"[kernels] {what}: pack_lowdim, unpack_lowdim (both modes) and "
-            f"prefix_finish equal their plain versions; unpack -> K2 gives "
-            f"the stream")
+        log(f"[kernels] {what}: encode_lowdim (from the rows and from "
+            f"FIRE's errors), decode_lowdim and unpack_lowdim_raw equal "
+            f"their plain versions; the decode gives the stream")
     # FIRE over one 32k-row stream a width: its plain version loops over
     # blocks in Python, so it runs once, and that run is its plain_ms
     ld_fire = {}
@@ -849,6 +855,33 @@ def main() -> int:
     log("[main] reference vectors (row-major and lowdim) decode and "
         "re-encode exactly")
 
+    class KernelClock:
+        """Card time inside the kernel launches: CUDA events recorded on
+        the launch's stream just before and after each C entry point is
+        called. Where the card waits for the host's launch, the wait
+        counts, so this is an upper bound on the kernels' own time."""
+
+        def __enter__(self):
+            self.events, self.launch = [], _build.launch
+
+            def timed(name, like, *args):
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                self.launch(name, like, *args)
+                e.record()
+                self.events.append((s, e))
+
+            _build.launch = timed
+            return self
+
+        def __exit__(self, *exc):
+            _build.launch = self.launch
+
+        def seconds(self) -> float:
+            torch.cuda.synchronize()
+            return sum(s.elapsed_time(e) for s, e in self.events) / 1e3
+
     # ------------------------------------------------ 3b. lowdim main path
     # bench.py's extra_lowdim stream (1M rows x 4 dims of a u8 walk,
     # bench.py:451-479) and its u16 twin (1M x 2), a d4 runs stream and a
@@ -893,6 +926,26 @@ def main() -> int:
     missing = [k for k in LOWDIM_PATH if ld_launches[k] == 0]
     if missing:
         raise AssertionError(f"lowdim path never launched: {missing}")
+    stray = [k for k in ROWMAJOR_PATH - LOWDIM_PATH if ld_launches[k]]
+    if stray:
+        raise AssertionError(f"lowdim path launched row-major kernels: {stray}")
+    # a lowdim delta encode's and decode's device pass: one kernel each
+    x = streams["u8 d4 walk 4 MiB"]
+    buf = bufs[("u8 d4 walk 4 MiB", "delta", "none")]
+    idx = decoder.walk_headers(buf, read_metadata_rle(buf)[0], 4, 1, True)
+    up = decoder.upload_payload(decoder.gather_payloads(buf, idx), idx, dev)
+    rows = encoder.upload_rows(x, dev, narrow=True)
+    for side, fn in (("encode", lambda: encoder.encode_device(rows, 1, "delta",
+                                                              True)),
+                     ("decode", lambda: decoder.decode_device(
+                         *up, idx.total_rows, 1, "delta", True))):
+        with KernelClock() as clock:
+            fn()
+        if len(clock.events) != 1:
+            raise AssertionError(f"lowdim delta {side}: {len(clock.events)} "
+                                 f"kernel launches in its device pass, not 1")
+    log("[lowdim] K1 and K2 never launched; a delta encode's and decode's "
+        "device pass launch one kernel each")
     # a kernel's launches on the main paths: both paths' counts
     launches = {k: launches[k] + ld_launches[k] for k in KERNELS}
     # K6 and the encoder on the lowdim +Huf case's own sprintz stream
@@ -951,7 +1004,8 @@ def main() -> int:
             codec, es, device="cuda").compress(x)
         nb = flat.size // (8 * nd)
         w, h, d, ws = encoder.encode_device(encoder.upload_rows(
-            flat[:nb * 8 * nd].reshape(-1, nd), dev), es, codec, lowdim)
+            flat[:nb * 8 * nd].reshape(-1, nd), dev,
+            narrow=lowdim and codec == "delta"), es, codec, lowdim)
         w, h, d, ws = (w.to(torch.uint8).cpu().numpy(),
                        h.to(torch.uint8).cpu().numpy(), d.cpu().numpy(),
                        ws.cpu().numpy())
@@ -1003,33 +1057,6 @@ def main() -> int:
 
     # -------------------------------------------------------- 4. timings
     flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
-
-    class KernelClock:
-        """Card time inside the kernel launches: CUDA events recorded on
-        the launch's stream just before and after each C entry point is
-        called. Where the card waits for the host's launch, the wait
-        counts, so this is an upper bound on the kernels' own time."""
-
-        def __enter__(self):
-            self.events, self.launch = [], _build.launch
-
-            def timed(name, like, *args):
-                s = torch.cuda.Event(enable_timing=True)
-                e = torch.cuda.Event(enable_timing=True)
-                s.record()
-                self.launch(name, like, *args)
-                e.record()
-                self.events.append((s, e))
-
-            _build.launch = timed
-            return self
-
-        def __exit__(self, *exc):
-            _build.launch = self.launch
-
-        def seconds(self) -> float:
-            torch.cuda.synchronize()
-            return sum(s.elapsed_time(e) for s, e in self.events) / 1e3
 
     def time_ms(fn) -> float:
         for _ in range(3):
@@ -1270,42 +1297,39 @@ def main() -> int:
     del d64, dw64, out64, bz64, toff64
 
     def lowdim_rows(what, a):
-        """The lowdim pack and unpack (both modes), K2 on the unpack's
-        output and the full-precision FIRE kernels at a 4 MiB stream (the
-        plain FIRE is timed at 32k rows, in ``fire_full_rows``)."""
-        eb, es, nd = a["eb"], a["es"], a["dense"].shape[1]
-        out_p = pk.pack_dims_lowdim(a["blocks"], a["widths"], es)
-        out_u = dk.unpack_zz_lowdim(a["dense"], a["dwidths"], eb)
+        """The lowdim encode pass (from the rows and from FIRE's errors),
+        the decode and its raw mode, and the full-precision FIRE kernels at
+        a 4 MiB stream (the plain FIRE is timed at 32k rows, in
+        ``fire_full_rows``)."""
+        eb, es = a["eb"], a["es"]
+        nr, fe32 = a["nrows"], a["ferrs"]
+        out_e = pk.encode_lowdim(nr, es)
+        out_f = pk.encode_lowdim(fe32, es, True)
+        out_d = dk.decode_delta_lowdim(a["dense"], a["dwidths"], eb)
         out_r = dk.unpack_dims_lowdim(a["dense"], a["dwidths"])
-        bz_tiles = (a["bz"].view(torch.int16) if es == 2 else a["bz"]).view(
-            -1, dk.TILE_ROWS, nd)
-        nvals = a["bz"].numel()
-        fe = fc.fire_encode(a["rows"], eb, truncate_coeffs=False)
-        fe = fe.to(torch.uint8) if eb == 8 else fe
+        nvals = nr.numel()
+        fe = fe32.to(torch.uint8) if eb == 8 else fe32
         out_fd = fc.fire_decode(fe, eb, truncate_coeffs=False)
         nblocks = a["rows"].shape[0] // 8
         return [
-            row("pack_lowdim",
-                lambda: pk.pack_dims_lowdim(a["blocks"], a["widths"], es),
-                lambda: pk.pack_dims_lowdim_plain(a["blocks"], a["widths"], es),
-                None, nbytes(a["blocks"], a["widths"], out_p),
-                OPS_PER_ELEM["pack_lowdim"] * nvals),
-            row("unpack_lowdim",
-                lambda: dk.unpack_zz_lowdim(a["dense"], a["dwidths"], eb),
-                lambda: dk.unpack_zz_lowdim_plain(a["dense"], a["dwidths"], eb),
-                None, nbytes(a["dense"], a["dwidths"], *out_u),
-                OPS_PER_ELEM["unpack_lowdim"] * nvals),
+            row("encode_lowdim", lambda: pk.encode_lowdim(nr, es),
+                lambda: pk.encode_lowdim_plain(nr, es), None,
+                nbytes(nr, *out_e), OPS_PER_ELEM["encode_lowdim"] * nvals),
+            row("encode_lowdim_errs", lambda: pk.encode_lowdim(fe32, es, True),
+                lambda: pk.encode_lowdim_plain(fe32, es, True), None,
+                nbytes(fe32, *out_f),
+                OPS_PER_ELEM["encode_lowdim_errs"] * nvals),
+            row("decode_lowdim",
+                lambda: dk.decode_delta_lowdim(a["dense"], a["dwidths"], eb),
+                lambda: dk.decode_delta_lowdim_plain(a["dense"], a["dwidths"],
+                                                     eb),
+                None, nbytes(a["dense"], a["dwidths"], out_d),
+                OPS_PER_ELEM["decode_lowdim"] * nvals),
             row("unpack_lowdim_raw",
                 lambda: dk.unpack_dims_lowdim(a["dense"], a["dwidths"]),
                 lambda: dk.unpack_dims_lowdim_plain(a["dense"], a["dwidths"]),
                 None, nbytes(a["dense"], a["dwidths"], out_r),
                 OPS_PER_ELEM["unpack_lowdim_raw"] * nvals),
-            row("prefix_finish",
-                lambda: dk.prefix_finish(a["bz"], a["toff"], eb),
-                lambda: dk.prefix_finish_plain(a["bz"], a["toff"], eb),
-                lambda: torch.cumsum(bz_tiles, dim=1, dtype=torch.int32),
-                nbytes(a["bz"], a["toff"], a["bz"]),
-                OPS_PER_ELEM["prefix_finish"] * nvals),
             row("fire_encode_full",
                 lambda: fc.fire_encode(a["rows"], eb, truncate_coeffs=False),
                 None, None, 2 * nbytes(a["rows"]),
@@ -1382,7 +1406,8 @@ def main() -> int:
     def split_encode(sp: Split, x: np.ndarray, codec: str) -> bytes:
         es, nd = x.dtype.itemsize, x.shape[1]
         lowdim = nd <= LOWDIM_MAX_NDIMS[es]
-        rows = sp.sync("h2d", lambda: encoder.upload_rows(x, dev))
+        rows = sp.sync("h2d", lambda: encoder.upload_rows(
+            x, dev, narrow=lowdim and codec == "delta"))
         widths, hdr, dense, ws = sp.device(
             "device", lambda: encoder.encode_device(rows, es, codec, lowdim))
         w_np, h_np, d_np, ws_np = sp.host("d2h", lambda: (
@@ -1476,8 +1501,8 @@ def main() -> int:
             "chain_bound_ms")
     line = (table["u8 main (nb 16384, D 64)"] + table[huff_what]
             + [r for r in table["u8 d4 walk 4 MiB (nb 131072, D 4)"]
-               if r["name"] in ("pack_lowdim", "unpack_lowdim",
-                                "unpack_lowdim_raw")]
+               if r["name"] in ("encode_lowdim", "encode_lowdim_errs",
+                                "decode_lowdim", "unpack_lowdim_raw")]
             + table["u8 d4 walk 32k rows (nb 4096, D 4)"])
     assert sorted(r["name"] for r in line) == sorted(KERNELS)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in line]}),

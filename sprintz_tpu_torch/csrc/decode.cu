@@ -1,4 +1,5 @@
-// Row-major delta decode kernels for Hopper (sm_90a), bound with ctypes.
+// Delta decode kernels for Hopper (sm_90a), bound with ctypes: the row-major
+// layout's and the lowdim layout's.
 //
 // unpack_zz_kernel<EB, RAW, CONTIG>  (K1, and K4 and K5 as its RAW mode)
 //   Replaces sprintz_tpu/ops/pallas_decode.py:_unpack_zz_kernel (unpack_zz)
@@ -64,37 +65,49 @@
 //   each thread walks its run again from its prefix, writing the values in
 //   place; the image leaves in 16-byte stores as in K1.
 //
-// unpack_lowdim_kernel<EB, RAW>  (the lowdim layout's unpack, K1's twin)
-//   Replaces sprintz_tpu/ops/pack.py:unpack_dims_lowdim (pack.py:683), an
-//   XLA pass (one-hot einsums or selects), and in its non-raw mode also the
-//   zigzag decode and tile sums that the lowdim delta decode fuses around
-//   it (sprintz_tpu/decoder.py:265-308); JAX has no Pallas kernel here.
-//   The lowdim layout (u8 ndims <= 4, u16 ndims <= 2) stores a block
-//   column-major: dim d's 8 fields of w bits at bits r * w of its
-//   (block, dim) section of EB bytes (dense (nb, D, EB) u8; EB bytes hold
-//   8 samples of EB bits). Non-raw mode has K1's output contract, so K2
-//   runs on it unchanged: biased narrow deltas (nb, 8, D) and the tiles'
-//   exclusive offsets (ceil(nb / TILE_BLOCKS), D). RAW mode stores the
-//   fields, u8 at EB 8 and i32 at EB 16, for the FIRE decode.
+// decode_lowdim_kernel<EB, ND, RAW>  (the lowdim layout's delta decode)
+//   Replaces the JAX package's fused lowdim delta pass,
+//   sprintz_tpu/decoder.py:_decode_lowdim_grouped (decoder.py:265): the
+//   unpack (sprintz_tpu/ops/pack.py:unpack_dims_lowdim, pack.py:683, an XLA
+//   pass of one-hot einsums or selects), the zigzag decode and the prefix
+//   over rows; JAX has no Pallas kernel here. The lowdim layout (u8 ND <= 4,
+//   u16 ND <= 2) stores a block column-major: dim d's 8 fields of w bits at
+//   bits r * w of its (block, dim) section of EB bytes (dense (nb, ND, EB)
+//   u8). Its non-raw mode writes the values, (nb * 8, ND) u8/u16: the
+//   running sum of the zigzag-decoded fields down each dim, modulo 2^EB.
+//   RAW mode writes the fields, u8 at EB 8 and i32 at EB 16, for the FIRE
+//   decode.
 //   Bound on this card: bytes. It reads each section and width once and
-//   writes one narrow value a field, with about ten integer operations a
-//   field.
-//   Design: a tile of 32 blocks holds at most 128 (block, dim) items at
-//   these widths, too little work for a CTA, so a CTA of 256 threads owns
-//   a span of LD_TILES tiles (LD_BLOCKS blocks):
-//   1. the span's sections, one contiguous range, go to shared memory in
-//      16-byte cp.async copies (stage_range, as in K1);
-//   2. each thread takes (block, dim) items, neighbouring lanes on
-//      neighbouring items: the section is one or two 64-bit words, each
-//      field a shift and a mask, written into a shared image of the
-//      span's output rows. A warp's 32 items lie in one tile (a tile is
-//      32 * D items), so a warp reduction a dim gives the warp's share of
-//      the tile's totals;
-//   3. D threads scan the span's tile totals into offsets within the
-//      span and publish the span's total; the image leaves in 16-byte
-//      stores (store_range); then the same D threads run one look-back
-//      over the spans before it (K1's look_back, status words and ticket,
-//      a span in place of a tile) and write every tile's offset.
+//   writes one narrow value a field, with about a dozen integer operations
+//   a field.
+//   Design: a row of these widths is ND * EB <= 32 bits, so the kernel
+//   keeps a row's ND values in one 32-bit word and adds rows lane by lane
+//   (vadd: a SIMD add of ND lanes of EB bits, carries kept in their lane):
+//   the prefix of every dim is one scan of words. A thread owns K whole
+//   blocks (K = 4 / (ND * EB / 8), 1 at u8 D 3: 24 or 32 bytes of sections
+//   in and as many bytes of values out) and a CTA of LD_THREADS threads a
+//   span of LD_THREADS * K blocks:
+//   1. the CTA takes its span from an atomic ticket (non-raw), then the
+//      span's sections and widths go to shared memory in 16-byte cp.async
+//      copies (stage_range);
+//   2. each thread extracts its blocks' fields (one or two 64-bit words a
+//      section, each field a shift and a mask), zigzag-decodes them into
+//      its rows' words and scans its 8K rows in registers;
+//   3. the CTA scans its threads' totals (a warp scan of shuffles, then the
+//      8 warps' totals); warp 0 publishes the span's total in its status
+//      word as soon as it has it, then runs the look-back over the spans
+//      before it, 32 status words at once (a lane a word: a ballot finds
+//      the nearest inclusive prefix, a warp reduction sums the totals up to
+//      it; a span waits only on spans whose tickets came before its own),
+//      and publishes its inclusive prefix;
+//   4. each thread adds its exclusive prefix to its rows and writes them
+//      into a shared image of the span's output, which leaves in 16-byte
+//      stores (store_range).
+//   The status words need no memset: the last span to finish its look-back
+//   (a second atomic counter) zeroes them and both counters, so every
+//   launch leaves them as it found them, and the wrapper keeps one zeroed
+//   buffer a device and stream. RAW mode takes steps 1, 2 and 4, its span
+//   from blockIdx.
 
 #include <cstdint>
 
@@ -154,7 +167,7 @@ struct Plan {
   int out_off, w_off, aux_off, smem;  // w_off: K1's widths, K2's tile offsets
 };
 
-__host__ __device__ inline int round16(long long n) { return (int)((n + 15) / 16 * 16); }
+__host__ __device__ constexpr int round16(long long n) { return (int)((n + 15) / 16 * 16); }
 
 // ---- device helpers (PTX)
 
@@ -576,128 +589,254 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-constexpr int LD_TILES = 8;  // K2 tiles a CTA of the lowdim unpack owns
-constexpr int LD_BLOCKS = LD_TILES * TILE_BLOCKS;
-constexpr int LD_MAX_DIMS = 4;       // u8 ndims <= 4, u16 ndims <= 2:
-constexpr int LD_SECTION_BYTES = 32; // ndims * EB bytes of a block at most
-constexpr int LD_CHUNKS = LD_BLOCKS * LD_MAX_DIMS / 32;  // warps' item chunks
+// ---- the lowdim layout: u8 ND <= 4, u16 ND <= 2, so a row is ND * EB <= 32 bits
 
-// Shared memory of the lowdim unpack: the span's sections, its output
-// image (D * sizeof(out) <= 8 bytes a row), the warps' partial sums, the
-// tiles' offsets within the span and the ticket.
-template <int EB, bool RAW>
-struct LowdimSmem {
-  static constexpr int kOut = (int)sizeof(typename UnpackOut<EB, RAW>::type);
-  static constexpr int kIn = 0;
-  static constexpr int kImage = kIn + LD_BLOCKS * LD_SECTION_BYTES;
-  static constexpr int kPart = kImage + LD_BLOCKS * BLOCK_SZ * (kOut == 4 ? 8 : 4);
-  static constexpr int kToff = kPart + 4 * LD_CHUNKS * LD_MAX_DIMS;
-  static constexpr int kTicket = kToff + 4 * LD_TILES * LD_MAX_DIMS;
-  static constexpr int kBytes = kTicket + 16;
+constexpr int LD_THREADS = 256;
+constexpr int LD_WARPS = LD_THREADS / 32;
+constexpr int LD_LOOK_BACK = 4;  // status words a lane of the look-back reads at once
+
+// A thread's share of a span: K whole blocks, 8K rows of RB bytes, CW 8-byte
+// words of sections (and as many of values); a span is LD_THREADS threads'.
+template <int ES, int ND>
+struct LowdimShape {
+  static constexpr int RB = ND * ES;
+  static constexpr int K = RB == 3 ? 1 : 4 / RB;
+  static constexpr int NR = BLOCK_SZ * K;
+  static constexpr int CW = K * RB;
+  static constexpr int SPAN = LD_THREADS * K;
 };
 
-template <int EB, bool RAW>
-__global__ void __launch_bounds__(THREADS)
-    unpack_lowdim_kernel(const uint8_t* __restrict__ dense, const uint8_t* __restrict__ widths,
-                         typename UnpackOut<EB, RAW>::type* __restrict__ out,
-                         int32_t* __restrict__ tile_off, unsigned long long* __restrict__ status,
-                         int64_t nb, int ndims) {
-  using OutT = typename UnpackOut<EB, RAW>::type;
-  using L = LowdimSmem<EB, RAW>;
-  constexpr int OS = sizeof(OutT);
-  constexpr uint32_t kBias = 1u << (EB - 1);
+// Lane-wise sum of two rows of 8- or 16-bit lanes: the lanes' top bits are
+// added apart, so that no carry leaves its lane.
+template <int EB>
+__device__ __forceinline__ uint32_t vadd(uint32_t a, uint32_t b) {
+  constexpr uint32_t H = EB == 8 ? 0x80808080u : 0x80008000u;
+  return ((a & ~H) + (b & ~H)) ^ ((a ^ b) & H);
+}
+
+// The rows' words a thread leaves in order: NR rows of RB bytes, packed
+// into NR * RB / 8 words of 8 bytes.
+template <int RB, int NR>
+__device__ __forceinline__ void put_rows(uint64_t* dst, const uint32_t (&row)[NR]) {
+  uint64_t acc = 0;
+  int nbits = 0, wi = 0;
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const uint64_t v = row[r] & (uint32_t)((1ull << (8 * RB)) - 1);
+    acc |= v << nbits;
+    nbits += 8 * RB;
+    if (nbits >= 64) {
+      dst[wi++] = acc;
+      nbits -= 64;
+      acc = nbits ? v >> (8 * RB - nbits) : 0;
+    }
+  }
+}
+
+// The exclusive prefix of span `span` from the status words of the spans
+// before it, 32 * LD_LOOK_BACK words a round (lane l reads span - 1 - l,
+// then 32 words further back, ...), nearest first, until one holds an
+// inclusive prefix. When every span starts at once, a span's rounds meet
+// the prefixes spreading from span 0 after about span / (64 * LD_LOOK_BACK)
+// rounds. Every lane returns it.
+template <int EB>
+__device__ __forceinline__ uint32_t lowdim_look_back(unsigned long long* status, int64_t span,
+                                                     int lane) {
+  uint32_t excl = 0;
+  for (int64_t next = span - 1;; next -= 32 * LD_LOOK_BACK) {
+    unsigned long long v[LD_LOOK_BACK];
+#pragma unroll
+    for (int j = 0; j < LD_LOOK_BACK; ++j) {  // before span 0: a prefix of 0
+      const int64_t i = next - 32 * j - lane;
+      v[j] = i >= 0 ? ld_status(status + i) : FLAG_PREFIX;
+    }
+#pragma unroll
+    for (int j = 0; j < LD_LOOK_BACK; ++j) {
+      while (__any_sync(0xffffffffu, v[j] < FLAG_TOTAL)) {
+        if (v[j] < FLAG_TOTAL) v[j] = ld_status(status + next - 32 * j - lane);
+      }
+      const unsigned pre = __ballot_sync(0xffffffffu, v[j] >= FLAG_PREFIX);
+      const int stop = pre ? __ffs((int)pre) - 1 : 31;  // the nearest prefix's lane
+      uint32_t x = lane <= stop ? (uint32_t)v[j] : 0u;
+#pragma unroll
+      for (int o = 16; o; o >>= 1) x = vadd<EB>(x, __shfl_xor_sync(0xffffffffu, x, o));
+      excl = vadd<EB>(excl, x);
+      if (pre) return excl;
+    }
+  }
+}
+
+// Shared memory of the lowdim decode: the span's sections and widths, its
+// output image, the warps' totals, the span's exclusive prefix and its
+// ticket. A thread's part of the image is kOutWords 8-byte words (3, 4 or
+// 8), kept kPadWords apart, an odd number, so that the 8-byte stores of a
+// half-warp's threads fall in 16 different banks.
+template <int EB, int ND, bool RAW>
+struct DecodeLowdimSmem {
+  using S = LowdimShape<EB / 8, ND>;
+  static constexpr int kOutWords = RAW && EB == 16 ? S::NR * ND / 2 : S::CW;
+  static constexpr int kPadWords = kOutWords | 1;
+  static constexpr int kIn = 0;
+  static constexpr int kWidths = kIn + 8 * S::CW * LD_THREADS;
+  static constexpr int kImage = kWidths + round16(S::SPAN * ND);
+  static constexpr int kWarp = kImage + 8 * kPadWords * LD_THREADS;
+  static constexpr int kBytes = kWarp + 4 * LD_WARPS + 16;
+};
+
+template <int EB, int ND, bool RAW>
+__global__ void __launch_bounds__(LD_THREADS)
+    decode_lowdim_kernel(const uint8_t* __restrict__ dense, const uint8_t* __restrict__ widths,
+                         uint8_t* __restrict__ out, unsigned long long* __restrict__ status,
+                         int64_t nb) {
+  using S = LowdimShape<EB / 8, ND>;
+  using L = DecodeLowdimSmem<EB, ND, RAW>;
+  constexpr int K = S::K, NR = S::NR, SPAN = S::SPAN;
+  constexpr uint32_t kMask = (1u << EB) - 1u;
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* s_in = smem + L::kIn;
-  uint8_t* s_out = smem + L::kImage;
-  uint32_t* s_part = reinterpret_cast<uint32_t*>(smem + L::kPart);  // [LD_CHUNKS][LD_MAX_DIMS]
-  uint32_t* s_toff = reinterpret_cast<uint32_t*>(smem + L::kToff);  // [LD_TILES][LD_MAX_DIMS]
-  int32_t* s_ticket = reinterpret_cast<int32_t*>(smem + L::kTicket);
+  const uint64_t* s_in = reinterpret_cast<const uint64_t*>(smem + L::kIn);
+  uint8_t* s_w = smem + L::kWidths;
+  uint8_t* s_img = smem + L::kImage;
+  uint32_t* s_warp = reinterpret_cast<uint32_t*>(smem + L::kWarp);  // [LD_WARPS]
+  uint32_t* s_excl = s_warp + LD_WARPS;
+  int32_t* s_ticket = reinterpret_cast<int32_t*>(s_excl + 1);
+  // status[0]: the ticket and finish counters; status[1 + s]: span s's word
+  unsigned* counters = reinterpret_cast<unsigned*>(status);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int64_t nspans = (nb + LD_BLOCKS - 1) / LD_BLOCKS;
+  const int warp = tid >> 5;
+  const int64_t nspans = (nb + SPAN - 1) / SPAN;
 
+  // 1. The span, then its sections and widths (both from a 16-byte boundary:
+  // b0 is a multiple of SPAN) into shared memory.
   int64_t span = blockIdx.x;
   if (!RAW) {
-    if (tid == 0) {
-      *s_ticket = (int32_t)atomicAdd(reinterpret_cast<unsigned*>(status + nspans * ndims), 1u);
-    }
+    if (tid == 0) *s_ticket = (int32_t)atomicAdd(counters, 1u);
     __syncthreads();
     span = *s_ticket;
   }
-  const int64_t b0 = span * LD_BLOCKS;
-  const int nbs = (int)(nb - b0 < LD_BLOCKS ? nb - b0 : LD_BLOCKS);
-  const int nitems = nbs * ndims;
-  // 1. The span's sections, from a 16-byte boundary (b0 is a multiple of
-  // LD_BLOCKS), into shared memory.
-  stage_range(s_in, dense, b0 * ndims * EB, nitems * EB, nb * ndims * EB, tid, THREADS);
+  const int64_t b0 = span * SPAN;
+  const int nbs = (int)(nb - b0 < SPAN ? nb - b0 : SPAN);
+  stage_range(smem + L::kIn, dense, b0 * ND * EB, nbs * ND * EB, nb * ND * EB, tid, LD_THREADS);
+  stage_range(s_w, widths, b0 * ND, nbs * ND, nb * ND, tid, LD_THREADS);
   cp_async_wait_all();
   __syncthreads();
 
-  // 2. (block, dim) items; the loop's trip count is uniform in the CTA,
-  // so that every lane of a warp takes part in its reductions.
-  for (int base = 0; base < nitems; base += THREADS) {
-    const int it = base + tid;
-    const bool live = it < nitems;
-    const int b = it / ndims;
-    const int d = it - b * ndims;
-    const int w0 = live ? widths[b0 * ndims + it] : 0;
-    const int w = w0 < EB ? w0 : EB;  // widths are <= EB
-    const uint32_t mask = (1u << w) - 1u;
-    uint32_t u[BLOCK_SZ];
-    if constexpr (EB == 8) {
-      const uint64_t x = live ? reinterpret_cast<const uint64_t*>(s_in)[it] : 0;
+  // 2. The thread's K blocks: fields -> zigzag-decoded deltas in the lanes
+  // of their rows' words (raw: the fields; at EB 16 i32 fields, in f32);
+  // blocks past nb are zeros.
+  uint64_t* img = reinterpret_cast<uint64_t*>(s_img) + tid * L::kPadWords;
+  uint32_t row[NR];
+  uint32_t f32[RAW && EB == 16 ? NR * ND : 1];
 #pragma unroll
-      for (int r = 0; r < BLOCK_SZ; ++r) u[r] = (uint32_t)(x >> (r * w)) & mask;
-    } else {  // a field at p < 64 may take its high bits from the second word
-      const uint64_t lo = live ? reinterpret_cast<const uint64_t*>(s_in)[2 * it] : 0;
-      const uint64_t hi = live ? reinterpret_cast<const uint64_t*>(s_in)[2 * it + 1] : 0;
+  for (int r = 0; r < NR; ++r) row[r] = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int blk = tid * K + k;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      const int it = blk * ND + d;
+      const int w0 = blk < nbs ? s_w[it] : 0;
+      const int w = w0 < EB ? w0 : EB;  // widths are <= EB
+      const uint32_t mask = (1u << w) - 1u;
+      uint32_t u[BLOCK_SZ];
+      if constexpr (EB == 8) {
+        const uint64_t x = blk < nbs ? s_in[it] : 0;
+#pragma unroll
+        for (int r = 0; r < BLOCK_SZ; ++r) u[r] = (uint32_t)(x >> (r * w)) & mask;
+      } else {  // a field at p < 64 may take its high bits from the second word
+        const uint64_t lo = blk < nbs ? s_in[2 * it] : 0;
+        const uint64_t hi = blk < nbs ? s_in[2 * it + 1] : 0;
+#pragma unroll
+        for (int r = 0; r < BLOCK_SZ; ++r) {
+          const int p = r * w;
+          const uint64_t x = p < 64 ? (lo >> p) | (p ? hi << (64 - p) : 0) : hi >> (p - 64);
+          u[r] = (uint32_t)x & mask;
+        }
+      }
 #pragma unroll
       for (int r = 0; r < BLOCK_SZ; ++r) {
-        const int p = r * w;
-        const uint64_t x = p < 64 ? (lo >> p) | (p ? hi << (64 - p) : 0) : hi >> (p - 64);
-        u[r] = (uint32_t)x & mask;
+        if constexpr (RAW && EB == 16) {
+          f32[(k * BLOCK_SZ + r) * ND + d] = u[r];
+        } else {
+          const uint32_t v = RAW ? u[r] : ((u[r] >> 1) ^ (0u - (u[r] & 1u))) & kMask;
+          row[k * BLOCK_SZ + r] |= v << (d * EB);
+        }
       }
     }
-    uint32_t sum = 0;
-    OutT* o = reinterpret_cast<OutT*>(s_out) + (b * BLOCK_SZ * ndims + d);
+  }
+
+  if constexpr (!RAW) {
+    // 2b. The rows' running sum in registers.
 #pragma unroll
-    for (int r = 0; r < BLOCK_SZ; ++r) {
-      if constexpr (RAW) {
-        if (live) o[r * ndims] = (OutT)u[r];
-      } else {
-        const uint32_t delta = (u[r] >> 1) ^ (0u - (u[r] & 1u));
-        if (live) o[r * ndims] = (OutT)(delta + kBias);
-        sum += delta;
+    for (int r = 1; r < NR; ++r) row[r] = vadd<EB>(row[r - 1], row[r]);
+    // 3. The CTA's scan of the threads' totals; warp 0 publishes the span's
+    // total, looks back and publishes its inclusive prefix, while the other
+    // warps sum the totals of the warps before them.
+    uint32_t incl = row[NR - 1];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl = vadd<EB>(incl, t);
+    }
+    uint32_t base = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) base = 0;
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      uint32_t agg = lane < LD_WARPS ? s_warp[lane] : 0u;
+#pragma unroll
+      for (int o = 16; o; o >>= 1) agg = vadd<EB>(agg, __shfl_xor_sync(0xffffffffu, agg, o));
+      unsigned long long* st = status + 1;
+      if (lane == 0) st_status(st + span, (span == 0 ? FLAG_PREFIX : FLAG_TOTAL) | agg);
+      if (span > 0) {
+        const uint32_t excl = lowdim_look_back<EB>(st, span, lane);
+        if (lane == 0) st_status(st + span, FLAG_PREFIX | vadd<EB>(excl, agg));
+        if (lane == 0) *s_excl = excl;
+      } else if (lane == 0) {
+        *s_excl = 0;
       }
     }
-    if (!RAW) {  // the warp's share of its tile's totals, a dim at a time
-      for (int k = 0; k < ndims; ++k) {
-        const uint32_t t = __reduce_add_sync(0xffffffffu, live && d == k ? sum : 0u);
-        if (lane == k) s_part[(it >> 5) * LD_MAX_DIMS + k] = t;
-      }
+    for (int i = 0; i < warp; ++i) base = vadd<EB>(base, s_warp[i]);
+    __syncthreads();
+    base = vadd<EB>(base, *s_excl);
+    // 4. Values into the image.
+#pragma unroll
+    for (int r = 0; r < NR; ++r) row[r] = vadd<EB>(base, row[r]);
+  }
+  if constexpr (RAW && EB == 16) {
+#pragma unroll
+    for (int i = 0; i < L::kOutWords; ++i) {
+      img[i] = (uint64_t)f32[2 * i + 1] << 32 | f32[2 * i];
     }
+  } else {
+    put_rows<S::RB>(img, row);
   }
   __syncthreads();
-
-  // 3. Each dim's tile totals -> offsets within the span, and the span's
-  // total published; the image out; the look-back over the spans before.
-  const int ntl = (nbs + TILE_BLOCKS - 1) / TILE_BLOCKS;
-  uint32_t span_total = 0;
-  if (!RAW && tid < ndims) {
-    const int nchunks = (nitems + 31) / 32;  // a tile is ndims chunks
-    for (int t = 0; t < ntl; ++t) {
-      s_toff[t * LD_MAX_DIMS + tid] = span_total;
-      const int c1 = (t + 1) * ndims < nchunks ? (t + 1) * ndims : nchunks;
-      for (int c = t * ndims; c < c1; ++c) span_total += s_part[c * LD_MAX_DIMS + tid];
+  // The image out in 16-byte stores (the span's output starts on 16 bytes;
+  // its last unit may be one word).
+  constexpr int W = L::kOutWords, WP = L::kPadWords;
+  constexpr int WB = W / K;  // 8-byte words of a block's output
+  const int nwords = nbs * WB;
+  const uint64_t* s_words = reinterpret_cast<const uint64_t*>(s_img);
+  uint64_t* dst = reinterpret_cast<uint64_t*>(out) + b0 * WB;
+  for (int q = 2 * tid; q < nwords; q += 2 * LD_THREADS) {
+    const uint64_t lo = s_words[q / W * WP + q % W];
+    if (q + 1 < nwords) {
+      const uint64_t hi = s_words[(q + 1) / W * WP + (q + 1) % W];
+      *reinterpret_cast<uint4*>(dst + q) =
+          make_uint4((uint32_t)lo, (uint32_t)(lo >> 32), (uint32_t)hi, (uint32_t)(hi >> 32));
+    } else {
+      dst[q] = lo;
     }
-    st_status(status + span * ndims + tid, (span == 0 ? FLAG_PREFIX : FLAG_TOTAL) | span_total);
   }
-  store_range(reinterpret_cast<uint8_t*>(out), b0 * BLOCK_SZ * ndims * OS,
-              nitems * BLOCK_SZ * OS, s_out, tid, THREADS);
-  if (!RAW && tid < ndims) {
-    const uint32_t excl = look_back(status, span, ndims, tid, span_total);
-    for (int t = 0; t < ntl; ++t) {
-      tile_off[(span * LD_TILES + t) * ndims + tid] = (int32_t)(excl + s_toff[t * LD_MAX_DIMS + tid]);
+  if (!RAW && warp == 0) {  // the last span to finish zeroes the status words
+    unsigned last = 0;
+    if (lane == 0) {
+      __threadfence();
+      last = atomicAdd(counters + 1, 1u) == (unsigned)(nspans - 1);
+    }
+    if (__shfl_sync(0xffffffffu, last, 0)) {
+      for (int64_t i = lane; i <= nspans; i += 32) status[i] = 0;
     }
   }
 }
@@ -815,21 +954,32 @@ int launch_finish(const void* bz, const int32_t* tile_off, void* out, long long 
                   : launch_finish<EB, false>(bz, tile_off, out, rows, ndims, p, s);
 }
 
-template <int EB, bool RAW>
-int launch_lowdim(const uint8_t* dense, const uint8_t* widths, void* out, int32_t* tile_off,
-                  unsigned long long* status, long long nb, int ndims, cudaStream_t s) {
-  using OutT = typename UnpackOut<EB, RAW>::type;
-  const long long nspans = (nb + LD_BLOCKS - 1) / LD_BLOCKS;
-  constexpr int smem = LowdimSmem<EB, RAW>::kBytes;
-  static_assert(smem <= SMEM_DEFAULT, "the lowdim unpack stays in the default shared memory");
-  if (!RAW) {  // the status words and the ticket
-    const cudaError_t err =
-        cudaMemsetAsync(status, 0, (size_t)(nspans * ndims + 1) * sizeof(*status), s);
-    if (err != cudaSuccess) return (int)err;
-  }
-  unpack_lowdim_kernel<EB, RAW><<<(unsigned)nspans, THREADS, (size_t)smem, s>>>(
-      dense, widths, static_cast<OutT*>(out), tile_off, status, nb, ndims);
+template <int EB, int ND, bool RAW>
+int launch_lowdim(const uint8_t* dense, const uint8_t* widths, void* out,
+                  unsigned long long* status, long long nb, cudaStream_t s) {
+  constexpr int span = LowdimShape<EB / 8, ND>::SPAN;
+  constexpr int smem = DecodeLowdimSmem<EB, ND, RAW>::kBytes;
+  static_assert(smem <= SMEM_DEFAULT, "the lowdim decode stays in the default shared memory");
+  // the status words are zero: the last span of every launch zeroes them
+  decode_lowdim_kernel<EB, ND, RAW><<<(unsigned)((nb + span - 1) / span), LD_THREADS,
+                                      (size_t)smem, s>>>(
+      dense, widths, static_cast<uint8_t*>(out), status, nb);
   return (int)cudaGetLastError();
+}
+
+template <bool RAW>
+int launch_lowdim(const uint8_t* dense, const uint8_t* widths, void* out,
+                  unsigned long long* status, long long nb, int ndims, int elem_bits,
+                  cudaStream_t s) {
+  switch (elem_bits * 8 + ndims) {
+    case 8 * 8 + 1: return launch_lowdim<8, 1, RAW>(dense, widths, out, status, nb, s);
+    case 8 * 8 + 2: return launch_lowdim<8, 2, RAW>(dense, widths, out, status, nb, s);
+    case 8 * 8 + 3: return launch_lowdim<8, 3, RAW>(dense, widths, out, status, nb, s);
+    case 8 * 8 + 4: return launch_lowdim<8, 4, RAW>(dense, widths, out, status, nb, s);
+    case 16 * 8 + 1: return launch_lowdim<16, 1, RAW>(dense, widths, out, status, nb, s);
+    case 16 * 8 + 2: return launch_lowdim<16, 2, RAW>(dense, widths, out, status, nb, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -878,30 +1028,25 @@ int sprintz_prefix_finish(const void* bz, const void* tile_off, void* out, long 
 
 // The lowdim layout: dense (nb, ndims, elem_bits) u8 sections (8 fields of
 // w bits at bits r * w); widths (nb, ndims) u8, each at most elem_bits;
-// ndims * elem_bits <= 32; dense and out 16-byte aligned.
-// raw == 0: out (nb, 8, ndims) u8/u16 biased deltas; tile_off
-//           (ceil(nb / 32), ndims) i32 exclusive offsets of the tiles;
-//           status ceil(nb / 256) * ndims + 1 words of 8 bytes, scratch.
+// ndims * elem_bits <= 32; dense, widths and out 16-byte aligned.
+// raw == 0: out (nb * 8, ndims) u8/u16 values, the running sum of the
+//           zigzag-decoded fields down each dim modulo 2^elem_bits; status
+//           ceil(nb / span) + 1 words of 8 bytes, zero on entry and left
+//           zero (span: 256 * max(1, 4 / (ndims * elem_bits / 8)) blocks,
+//           256 at u8 D 3).
 // raw != 0: out (nb, 8, ndims) fields, u8 at elem_bits 8 and i32 at 16;
-//           tile_off and status unused.
-int sprintz_unpack_lowdim(const void* dense, const void* widths, void* out, void* tile_off,
-                          void* status, long long nb, int ndims, int elem_bits, int raw,
-                          void* stream) {
-  if (nb < 1 || ndims < 1 || ndims * elem_bits > LD_SECTION_BYTES ||
-      (((uintptr_t)dense | (uintptr_t)out) & 15)) {
+//           status unused.
+int sprintz_decode_lowdim(const void* dense, const void* widths, void* out, void* status,
+                          long long nb, int ndims, int elem_bits, int raw, void* stream) {
+  if (nb < 1 || ((uintptr_t)dense | (uintptr_t)widths | (uintptr_t)out) & 15) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* dn = static_cast<const uint8_t*>(dense);
   const uint8_t* wd = static_cast<const uint8_t*>(widths);
-  int32_t* to = static_cast<int32_t*>(tile_off);
   unsigned long long* st = static_cast<unsigned long long*>(status);
-  if (raw && elem_bits == 8) return launch_lowdim<8, true>(dn, wd, out, to, st, nb, ndims, s);
-  if (raw && elem_bits == 16) return launch_lowdim<16, true>(dn, wd, out, to, st, nb, ndims, s);
-  if (raw) return (int)cudaErrorInvalidValue;
-  if (elem_bits == 8) return launch_lowdim<8, false>(dn, wd, out, to, st, nb, ndims, s);
-  if (elem_bits == 16) return launch_lowdim<16, false>(dn, wd, out, to, st, nb, ndims, s);
-  return (int)cudaErrorInvalidValue;
+  return raw ? launch_lowdim<true>(dn, wd, out, st, nb, ndims, elem_bits, s)
+             : launch_lowdim<false>(dn, wd, out, st, nb, ndims, elem_bits, s);
 }
 
 // The message of a CUDA error code, for the errors of every library here.

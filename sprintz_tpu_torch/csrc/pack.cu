@@ -1,4 +1,5 @@
-// Row-major bit-pack kernel for Hopper (sm_90a), bound with ctypes.
+// Encode kernels for Hopper (sm_90a), bound with ctypes: the row-major
+// layout's bit-pack and the lowdim layout's encode pass.
 //
 // pack_rows_kernel<ELEM_SZ>  (K3)
 //   Replaces sprintz_tpu/ops/pallas_pack.py:_pack_kernel (pack_rows_pallas).
@@ -28,23 +29,48 @@
 //      a byte at a time. One writer a byte, and the image's zeros are the
 //      zero fill.
 //
-// pack_lowdim_kernel<ELEM_SZ>  (the lowdim layout's pack)
-//   Replaces sprintz_tpu/ops/pack.py:pack_dims_lowdim (pack.py:251), an
-//   XLA pass (one-hot matmuls or selects): JAX has no Pallas kernel here.
-//   The lowdim layout (u8 ndims <= 4, u16 ndims <= 2) is column-major
-//   within a block: dim d's 8 zigzag fields of w = widths[b, d] bits sit
-//   back to back at bits r * w of the (block, dim) section, exactly w
-//   bytes, in a dense (nb, D, EB) buffer whose EB = 8 * ELEM_SZ bytes are
-//   zero past w.
-//   Bound on this card: bytes. It reads the i32 errors and widths once and
-//   writes the dense sections once, with a shift and an OR a field.
-//   Design: a thread a (block, dim) item, neighbouring lanes on
-//   neighbouring items, so that the section stores are consecutive and
-//   the i32 reads of a row of the block are too. A thread issues its 8
-//   loads at once, ORs the masked fields into one 64-bit word (u8) or two
-//   (u16, where a field at r * w up to bit 112 may cross from the first
-//   into the second), and stores the section with one 8- or 16-byte
-//   store.
+// encode_lowdim_kernel<ES, ND, FROM_ROWS>  (the lowdim layout's encode pass)
+//   Replaces the JAX package's fused lowdim delta encode,
+//   sprintz_tpu/encoder.py:_encode_lowdim_grouped (encoder.py:132) and
+//   _encode_lowdim_dmajor (encoder.py:76), chosen in _encode_pass
+//   (encoder.py:239), and, for FIRE's errors (FROM_ROWS false), the width
+//   and pack passes of _encode_pass's lowdim branch: the pack is
+//   sprintz_tpu/ops/pack.py:pack_dims_lowdim (pack.py:251), an XLA pass of
+//   one-hot matmuls or selects; JAX has no Pallas kernel here. The lowdim
+//   layout (u8 ND <= 4, u16 ND <= 2) is column-major within a block: dim
+//   d's 8 zigzag fields of w = widths[b, d] bits sit back to back at bits
+//   r * w of the (block, dim) section, exactly w bytes, in a dense
+//   (nb, ND, EB) buffer whose EB = 8 * ES bytes are zero past w.
+//   From the rows (u8, or u16 sent as int16: the delta encode, each row
+//   less the row before, 0 before row 0) or from FIRE's i32 zigzag errors,
+//   it writes the encoder's whole device pass: widths (nb, ND) u8 (the bit
+//   length of the block's largest error, only EB - 1 promoted to EB),
+//   header fields (nb, ND) u8 (EB stored as EB - 1), the sections, and
+//   each block's width sum (nb,) i32.
+//   Bound on this card: bytes. It reads each row once and writes the
+//   sections, widths, headers and sums once, with about a dozen integer
+//   operations a field.
+//   Design: a row of these widths is ND * EB <= 32 bits, so the kernel
+//   keeps a row's ND values in one 32-bit word and works on them lane by
+//   lane (vsub, vzigzag: SIMD operations on ND lanes of EB bits, borrows
+//   kept in their lane). A thread owns K whole blocks (K = 4 / (ND * ES),
+//   1 at u8 D 3: 24 or 32 bytes of rows in, as many bytes of sections out)
+//   and a CTA of LD_THREADS threads a span of LD_THREADS * K blocks, so no
+//   block straddles two threads or warps (at D 3 neither):
+//   1. the span's rows, from the 16 bytes before its first (which end in
+//      the row before it), go to shared memory in 16-byte cp.async copies
+//      (stage_range); each thread reads its rows and the one before them
+//      as 8-byte words and forms each row's zigzag delta from its
+//      predecessor. FIRE's errors come straight from memory, 16 bytes a
+//      load;
+//   2. for each of its blocks, the OR of its rows' words gives every
+//      dim's width at once (a bit length a lane); each section is packed
+//      in registers (one 64-bit word, or two at u16, where a field at
+//      r * w up to bit 112 may cross into the second) into a shared image
+//      of the span's sections;
+//   3. the widths, header fields and sums leave straight from registers
+//      (a warp's are consecutive bytes), the sections' image in 16-byte
+//      stores (store_range).
 
 #include <cstdint>
 #include <type_traits>
@@ -275,54 +301,275 @@ int launch_pack(const int32_t* e, const int32_t* w, uint8_t* o, long long nrows,
              : launch_pack<ELEM_SZ, false>(e, w, o, nrows, ndims, tile_rows, s);
 }
 
-constexpr int LOWDIM_THREADS = 256;
+// ---- device helpers (PTX)
 
-template <int ELEM_SZ>
-__global__ void __launch_bounds__(LOWDIM_THREADS)
-    pack_lowdim_kernel(const int32_t* __restrict__ errs,
-                       const int32_t* __restrict__ widths, uint8_t* __restrict__ out,
-                       int64_t nitems, int ndims) {
-  constexpr int kMaxWidth = 8 * ELEM_SZ;
-  const int64_t i = (int64_t)blockIdx.x * LOWDIM_THREADS + threadIdx.x;
-  if (i >= nitems) return;
-  const int64_t b = i / ndims;
-  const int d = (int)(i - b * ndims);
-  int w = __ldg(widths + i);
-  w = w < 0 ? 0 : (w > kMaxWidth ? kMaxWidth : w);  // memory safety only
-  const uint32_t mask = (1u << w) - 1u;
-  const int32_t* e = errs + (b * BLOCK_SZ * ndims + d);
-  uint32_t v[BLOCK_SZ];
-#pragma unroll
-  for (int r = 0; r < BLOCK_SZ; ++r) v[r] = (uint32_t)__ldg(e + r * ndims) & mask;
-  if constexpr (ELEM_SZ == 1) {  // 8 fields of at most 8 bits: one word
-    uint64_t word = 0;
-#pragma unroll
-    for (int r = 0; r < BLOCK_SZ; ++r) word |= (uint64_t)v[r] << (r * w);
-    reinterpret_cast<uint64_t*>(out)[i] = word;
-  } else {  // at most 16 bits: a field at p < 64 spills its bits past 64 into hi
-    uint64_t lo = 0, hi = 0;
-#pragma unroll
-    for (int r = 0; r < BLOCK_SZ; ++r) {
-      const int p = r * w;
-      if (p < 64) {
-        lo |= (uint64_t)v[r] << p;
-        if (p) hi |= (uint64_t)v[r] >> (64 - p);
-      } else {
-        hi |= (uint64_t)v[r] << (p - 64);
-      }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ---- end of device helpers
+
+// Copy bytes [g0, g0 + len) of src (16-byte aligned, gtot bytes) into img,
+// where img[0] stands for byte g0 & ~15: whole 16-byte units by cp.async
+// (the caller waits), a unit that runs past gtot a byte at a time. Thread t
+// of nt takes every nt-th unit. (decode.cu's, as are store_range and the
+// lowdim shape.)
+__device__ __forceinline__ void stage_range(uint8_t* img, const uint8_t* src, int64_t g0,
+                                            int len, int64_t gtot, int t, int nt) {
+  if (len <= 0) return;
+  const int64_t a = g0 & ~(int64_t)15;
+  const int units = (int)((g0 + len - a + 15) >> 4);
+  for (int u = t; u < units; u += nt) {
+    const int64_t g = a + 16 * (int64_t)u;
+    if (g + 16 <= gtot) {
+      cp_async16(img + 16 * u, src + g);
+    } else {
+      for (int k = 0; k < 16 && g + k < gtot; ++k) img[16 * u + k] = src[g + k];
     }
-    reinterpret_cast<uint4*>(out)[i] =
-        make_uint4((uint32_t)lo, (uint32_t)(lo >> 32), (uint32_t)hi, (uint32_t)(hi >> 32));
   }
 }
 
-template <int ELEM_SZ>
-int launch_pack_lowdim(const int32_t* e, const int32_t* w, uint8_t* o, long long nb,
-                       int ndims, cudaStream_t s) {
-  const long long nitems = nb * ndims;
-  const unsigned ctas = (unsigned)((nitems + LOWDIM_THREADS - 1) / LOWDIM_THREADS);
-  pack_lowdim_kernel<ELEM_SZ><<<ctas, LOWDIM_THREADS, 0, s>>>(e, w, o, nitems, ndims);
+// Store bytes [g0, g0 + len) of dst from img (img[0] stands for byte
+// g0 & ~15): whole units in one 16-byte store, the units at the two ends,
+// whose other bytes belong to other CTAs, a byte at a time.
+__device__ __forceinline__ void store_range(uint8_t* dst, int64_t g0, int len,
+                                            const uint8_t* img, int t, int nt) {
+  if (len <= 0) return;
+  const int64_t a = g0 & ~(int64_t)15;
+  const int64_t e = g0 + len;
+  const int units = (int)((e - a + 15) >> 4);
+  for (int u = t; u < units; u += nt) {
+    const int64_t g = a + 16 * (int64_t)u;
+    if (g >= g0 && g + 16 <= e) {
+      *reinterpret_cast<uint4*>(dst + g) = *reinterpret_cast<const uint4*>(img + 16 * u);
+    } else {
+      for (int k = 0; k < 16; ++k) {
+        if (g + k >= g0 && g + k < e) dst[g + k] = img[16 * u + k];
+      }
+    }
+  }
+}
+
+// ---- the lowdim layout: u8 ND <= 4, u16 ND <= 2, so a row is ND * EB <= 32 bits
+
+constexpr int LD_THREADS = 256;
+
+// A thread's share of a span: K whole blocks, 8K rows of RB bytes, CW 8-byte
+// words of rows (and as many of sections); a span is LD_THREADS threads'.
+template <int ES, int ND>
+struct LowdimShape {
+  static constexpr int RB = ND * ES;
+  static constexpr int K = RB == 3 ? 1 : 4 / RB;
+  static constexpr int NR = BLOCK_SZ * K;
+  static constexpr int CW = K * RB;
+  static constexpr int SPAN = LD_THREADS * K;
+};
+
+// Lane-wise a - b of rows of 8- or 16-bit lanes: each lane's top bit is set
+// in a and cleared in b, so that no borrow leaves its lane, then fixed.
+template <int EB>
+__device__ __forceinline__ uint32_t vsub(uint32_t a, uint32_t b) {
+  constexpr uint32_t H = EB == 8 ? 0x80808080u : 0x80008000u;
+  return ((a | H) - (b & ~H)) ^ ((a ^ ~b) & H);
+}
+
+// Lane-wise zigzag of EB-bit two's complement lanes: (x << 1) ^ (x >> (EB - 1)).
+template <int EB>
+__device__ __forceinline__ uint32_t vzigzag(uint32_t x) {
+  constexpr uint32_t H = EB == 8 ? 0x80808080u : 0x80008000u;
+  constexpr uint32_t kLane = (1u << EB) - 1u;
+  const uint32_t sign = (x & H) >> (EB - 1);  // 1 in each negative lane
+  return ((x << 1) & ~(H >> (EB - 1))) ^ (sign * kLane);
+}
+
+// The RB bytes at byte `pos` of w (pos is known at compile time once the
+// caller's loop is unrolled).
+template <int RB>
+__device__ __forceinline__ uint32_t row_at(const uint64_t* w, int pos) {
+  const int q = pos >> 3, s = 8 * (pos & 7);
+  uint64_t x = w[q] >> s;
+  if (s + 8 * RB > 64) x |= w[q + 1] << (64 - s);
+  return (uint32_t)x & (uint32_t)((1ull << (8 * RB)) - 1);
+}
+
+// N <= 4 bytes of v, little-endian, at dst (aligned to N where N is 2 or 4).
+template <int N>
+__device__ __forceinline__ void store_bytes(uint8_t* dst, uint32_t v) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<uint32_t*>(dst) = v;
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<uint16_t*>(dst) = (uint16_t)v;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) dst[i] = (uint8_t)(v >> (8 * i));
+  }
+}
+
+// Shared memory of the lowdim encode: the span's rows from the 16 bytes
+// before its first, and its sections' image.
+template <int ES, int ND>
+struct EncodeLowdimSmem {
+  static constexpr int kBytesA = 8 * LowdimShape<ES, ND>::CW * LD_THREADS;  // rows or sections
+  static constexpr int kRows = 0;
+  static constexpr int kImage = kRows + 16 + kBytesA + 16;
+  static constexpr int kBytes = kImage + kBytesA;
+};
+
+template <int ES, int ND, bool FROM_ROWS>
+__global__ void __launch_bounds__(LD_THREADS)
+    encode_lowdim_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ widths,
+                         uint8_t* __restrict__ hdr, uint8_t* __restrict__ dense,
+                         int32_t* __restrict__ wsums, int64_t nb) {
+  using S = LowdimShape<ES, ND>;
+  using L = EncodeLowdimSmem<ES, ND>;
+  constexpr int EB = 8 * ES, RB = S::RB, K = S::K, NR = S::NR, CW = S::CW, SPAN = S::SPAN;
+  constexpr uint32_t kMask = (1u << EB) - 1u;
+  extern __shared__ uint4 smem[];  // K3's declaration: one type a name
+  uint8_t* s_rows = reinterpret_cast<uint8_t*>(smem) + L::kRows;  // [16]: the span's first row
+  uint8_t* s_img = reinterpret_cast<uint8_t*>(smem) + L::kImage;
+  const int tid = threadIdx.x;
+  const int64_t b0 = (int64_t)blockIdx.x * SPAN;
+  const int nbs = (int)(nb - b0 < SPAN ? nb - b0 : SPAN);
+  const int64_t row0 = b0 * BLOCK_SZ;
+
+  // 1. The thread's rows -> their zigzag errors, a row's ND errors in the
+  // lanes of one word. Rows past nb are garbage that only blocks past nb
+  // see.
+  uint32_t zz[NR];
+  if constexpr (FROM_ROWS) {
+    const int64_t gtot = nb * BLOCK_SZ * RB;
+    if (b0 == 0) {  // row 0's predecessor is 0
+      if (tid < 2) reinterpret_cast<uint64_t*>(s_rows)[tid] = 0;
+      stage_range(s_rows + 16, src, 0, nbs * BLOCK_SZ * RB, gtot, tid, LD_THREADS);
+    } else {  // row0 * RB is a multiple of 16
+      stage_range(s_rows, src, row0 * RB - 16, 16 + nbs * BLOCK_SZ * RB, gtot, tid, LD_THREADS);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    const uint64_t* sw = reinterpret_cast<const uint64_t*>(s_rows + 16) + tid * CW - 1;
+    uint64_t w[CW + 1];  // the word that ends in the row before the thread's, then its rows
+#pragma unroll
+    for (int i = 0; i <= CW; ++i) w[i] = sw[i];
+    uint32_t prev = row_at<RB>(w, 8 - RB);
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const uint32_t cur = row_at<RB>(w, 8 + r * RB);
+      zz[r] = vzigzag<EB>(vsub<EB>(cur, prev));
+      prev = cur;
+    }
+  } else {
+    constexpr int NV = NR * ND / 4;  // 16-byte loads of a thread's errors
+    const int4* e4 = reinterpret_cast<const int4*>(src) + (row0 + (int64_t)tid * NR) * ND / 4;
+    int4 v[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {  // a block's errors are 2 * ND loads
+      v[i] = tid * K + i / (2 * ND) < nbs ? __ldg(e4 + i) : make_int4(0, 0, 0, 0);
+    }
+    const int32_t* e = reinterpret_cast<const int32_t*>(v);
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      zz[r] = 0;
+#pragma unroll
+      for (int d = 0; d < ND; ++d) zz[r] |= ((uint32_t)e[r * ND + d] & kMask) << (d * EB);
+    }
+  }
+
+  // 2. Each block: its dims' widths from the OR of its rows, header
+  // fields, width sum, and sections into the image.
+  uint32_t wbytes = 0, hbytes = 0;  // the thread's K * ND widths and headers
+  int32_t wsum[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    uint32_t orw = 0;
+#pragma unroll
+    for (int r = 0; r < BLOCK_SZ; ++r) orw |= zz[k * BLOCK_SZ + r];
+    wsum[k] = 0;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      int w = 32 - __clz((int)((orw >> (d * EB)) & kMask));
+      w += w == EB - 1;  // the lowdim rule: only eb - 1 promotes
+      wbytes |= (uint32_t)w << (8 * (k * ND + d));
+      hbytes |= (uint32_t)(w - (w == EB)) << (8 * (k * ND + d));
+      wsum[k] += w;
+      uint64_t* sec = reinterpret_cast<uint64_t*>(s_img) + ((tid * K + k) * ND + d) * ES;
+      if constexpr (ES == 1) {  // 8 fields of at most 8 bits: one word
+        uint64_t x = 0;
+#pragma unroll
+        for (int r = 0; r < BLOCK_SZ; ++r) {
+          x |= (uint64_t)((zz[k * BLOCK_SZ + r] >> (d * EB)) & kMask) << (r * w);
+        }
+        sec[0] = x;
+      } else {  // at most 16 bits: a field at p < 64 spills its bits past 64 into hi
+        uint64_t lo = 0, hi = 0;
+#pragma unroll
+        for (int r = 0; r < BLOCK_SZ; ++r) {
+          const uint64_t f = (zz[k * BLOCK_SZ + r] >> (d * EB)) & kMask;
+          const int p = r * w;
+          if (p < 64) {
+            lo |= f << p;
+            if (p) hi |= f >> (64 - p);
+          } else {
+            hi |= f << (p - 64);
+          }
+        }
+        sec[0] = lo;
+        sec[1] = hi;
+      }
+    }
+  }
+
+  // 3. Widths, headers and sums from registers; the sections' image out.
+  const int blk = tid * K;
+  const int64_t gb = b0 + blk;
+  if (blk + K <= nbs) {
+    store_bytes<K * ND>(widths + gb * ND, wbytes);
+    store_bytes<K * ND>(hdr + gb * ND, hbytes);
+#pragma unroll
+    for (int k = 0; k < K; ++k) wsums[gb + k] = wsum[k];
+  } else {
+    for (int k = 0; k < K && blk + k < nbs; ++k) {
+      for (int d = 0; d < ND; ++d) {
+        widths[(gb + k) * ND + d] = (uint8_t)(wbytes >> (8 * (k * ND + d)));
+        hdr[(gb + k) * ND + d] = (uint8_t)(hbytes >> (8 * (k * ND + d)));
+      }
+      wsums[gb + k] = wsum[k];
+    }
+  }
+  __syncthreads();
+  store_range(dense, b0 * ND * EB, nbs * ND * EB, s_img, tid, LD_THREADS);
+}
+
+template <int ES, int ND, bool FROM_ROWS>
+int launch_encode_lowdim(const uint8_t* src, uint8_t* widths, uint8_t* hdr, uint8_t* dense,
+                         int32_t* wsums, long long nb, cudaStream_t s) {
+  constexpr int span = LowdimShape<ES, ND>::SPAN;
+  constexpr int smem = EncodeLowdimSmem<ES, ND>::kBytes;
+  static_assert(smem <= SMEM_DEFAULT, "the lowdim encode stays in the default shared memory");
+  encode_lowdim_kernel<ES, ND, FROM_ROWS><<<(unsigned)((nb + span - 1) / span), LD_THREADS,
+                                            (size_t)smem, s>>>(src, widths, hdr, dense, wsums,
+                                                               nb);
   return (int)cudaGetLastError();
+}
+
+template <bool FROM_ROWS>
+int launch_encode_lowdim(const uint8_t* src, uint8_t* widths, uint8_t* hdr, uint8_t* dense,
+                         int32_t* wsums, long long nb, int ndims, int elem_sz, cudaStream_t s) {
+  switch (elem_sz * 8 + ndims) {
+    case 8 + 1: return launch_encode_lowdim<1, 1, FROM_ROWS>(src, widths, hdr, dense, wsums, nb, s);
+    case 8 + 2: return launch_encode_lowdim<1, 2, FROM_ROWS>(src, widths, hdr, dense, wsums, nb, s);
+    case 8 + 3: return launch_encode_lowdim<1, 3, FROM_ROWS>(src, widths, hdr, dense, wsums, nb, s);
+    case 8 + 4: return launch_encode_lowdim<1, 4, FROM_ROWS>(src, widths, hdr, dense, wsums, nb, s);
+    case 16 + 1: return launch_encode_lowdim<2, 1, FROM_ROWS>(src, widths, hdr, dense, wsums, nb, s);
+    case 16 + 2: return launch_encode_lowdim<2, 2, FROM_ROWS>(src, widths, hdr, dense, wsums, nb, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -350,22 +597,27 @@ int sprintz_pack_rows(const void* errs, const void* widths, void* out,
   return (int)cudaErrorInvalidValue;
 }
 
-// errs (nb, 8, ndims) i32 zigzag errors; widths (nb, ndims) i32 legal lowdim
-// widths -> out (nb, ndims, 8 * elem_sz) u8, each (block, dim) section its 8
-// fields of w bits back to back, zero past w bytes. out is 16-byte aligned;
-// ndims * elem_sz is at most 4 (the lowdim layout).
-int sprintz_pack_dims_lowdim(const void* errs, const void* widths, void* out,
-                             long long nb, int ndims, int elem_sz, void* stream) {
-  if (nb < 1 || ndims < 1 || ndims * elem_sz > 4 || ((uintptr_t)out & 15)) {
+// The lowdim layout's encode pass (ndims * elem_sz <= 4). src: the rows
+// (nb * 8, ndims), u8 at elem_sz 1 and u16 at 2, with from_rows; else FIRE's
+// (nb * 8, ndims) i32 zigzag errors, each below 2^(8 * elem_sz) -> widths
+// (nb, ndims) u8 lowdim widths, hdr (nb, ndims) u8 header fields, dense
+// (nb, ndims, 8 * elem_sz) u8 sections (each dim's 8 fields of w bits back
+// to back, zero past w bytes), wsums (nb,) i32 width sums. Every pointer
+// 16-byte aligned.
+int sprintz_encode_lowdim(const void* src, void* widths, void* hdr, void* dense, void* wsums,
+                          long long nb, int ndims, int elem_sz, int from_rows, void* stream) {
+  if (nb < 1 || ((uintptr_t)src | (uintptr_t)widths | (uintptr_t)hdr | (uintptr_t)dense |
+                 (uintptr_t)wsums) & 15) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int32_t* e = static_cast<const int32_t*>(errs);
-  const int32_t* w = static_cast<const int32_t*>(widths);
-  uint8_t* o = static_cast<uint8_t*>(out);
-  if (elem_sz == 1) return launch_pack_lowdim<1>(e, w, o, nb, ndims, s);
-  if (elem_sz == 2) return launch_pack_lowdim<2>(e, w, o, nb, ndims, s);
-  return (int)cudaErrorInvalidValue;
+  const uint8_t* x = static_cast<const uint8_t*>(src);
+  uint8_t* w = static_cast<uint8_t*>(widths);
+  uint8_t* h = static_cast<uint8_t*>(hdr);
+  uint8_t* d = static_cast<uint8_t*>(dense);
+  int32_t* ws = static_cast<int32_t*>(wsums);
+  return from_rows ? launch_encode_lowdim<true>(x, w, h, d, ws, nb, ndims, elem_sz, s)
+                   : launch_encode_lowdim<false>(x, w, h, d, ws, nb, ndims, elem_sz, s);
 }
 
 }  // extern "C"

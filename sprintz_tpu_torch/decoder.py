@@ -10,8 +10,9 @@ sections in the lowdim layout. Both run in the port's host library
 (``native_host``, C++), for either device; everything heavy then runs on
 the device.
 Delta: K1 ``unpack_zz`` (which also scans its tiles' totals into their
-offsets), or its lowdim twin ``unpack_zz_lowdim``, -> K2
-``prefix_finish``. FIRE: K4 ``unpack_rows`` (its narrow mode, K5, at u8),
+offsets) -> K2 ``prefix_finish``; in the lowdim layout one kernel,
+``decode_delta_lowdim``, from sections to values. FIRE: K4 ``unpack_rows``
+(its narrow mode, K5, at u8),
 or the lowdim ``unpack_dims_lowdim``, -> ``fire_decode``'s serial scan
 (with the full-precision coefficient in the lowdim layout). A stream with
 zero runs first has its payload blocks placed

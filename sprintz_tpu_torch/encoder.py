@@ -9,8 +9,10 @@ Counterpart of ``sprintz_tpu/encoder.py`` for its two layouts: row-major
    per-dim widths and header fields, and the bit-pack of every block:
    row-major into a dense (nb, 8, D * elem_sz) buffer by K3 ``pack_rows``,
    lowdim into a dense (nb, D, 8 * elem_sz) buffer of one section a
-   (block, dim) by ``pack_dims_lowdim``. Forecaster state does not depend
-   on the RLE/group structure, so this is one pass over the blocks.
+   (block, dim) by ``encode_lowdim``, one kernel from the narrow rows
+   (delta) or FIRE's errors to every output of the pass. Forecaster state
+   does not depend on the RLE/group structure, so this is one pass over
+   the blocks.
 2. Host: the group/RLE emission plan from the per-block zero flags
    (``planner.build_plan``), O(blocks) bookkeeping.
 3. Host: the final byte stream (headers, payload slices of the dense
@@ -37,43 +39,51 @@ from .constants import (
 )
 from .device import resolve_device
 from .models.forecasters import delta_encode, fire_encode
-from .ops.bitmath import block_widths_lowdim, block_widths_rowmajor, header_value
-from .ops.pack_kernels import pack_dims_lowdim, pack_rows
+from .ops.bitmath import block_widths_rowmajor, header_value
+from .ops.pack_kernels import encode_lowdim, pack_rows, rows_dtype
 from .planner import KIND_DATA, KIND_RUN, EmissionPlan, build_plan, pack_headers
 from .stream_format import copy_ranges, write_metadata_rle
 
 
-def upload_rows(rows: np.ndarray, device: torch.device) -> torch.Tensor:
-    """(N, D) u8/u16 rows -> int32 on ``device``, transferred narrow."""
+def upload_rows(rows: np.ndarray, device: torch.device,
+                narrow: bool = False) -> torch.Tensor:
+    """(N, D) u8/u16 rows -> int32 on ``device``, transferred narrow; with
+    ``narrow``, as transferred: uint8, or u16 as int16."""
     if not rows.flags.writeable:  # torch.from_numpy wants a writable array
         rows = rows.copy()
-    if rows.dtype == np.uint16:  # transferred as int16, widened on device
+    if rows.dtype == np.uint16:  # transferred as int16
         t = torch.from_numpy(rows.view(np.int16)).to(device)
-        return t.to(torch.int32) & 0xFFFF
-    return torch.from_numpy(rows).to(device).to(torch.int32)
+        return t if narrow else t.to(torch.int32) & 0xFFFF
+    t = torch.from_numpy(rows).to(device)
+    return t if narrow else t.to(torch.int32)
 
 
 def encode_device(rows: torch.Tensor, elem_sz: int, codec: str = "delta",
                   lowdim: bool = False):
-    """Device pass: rows (N, D) int32, N divisible by 8 ->
-    (widths (nb, D) int32, hdr (nb, D) int32, dense u8, width_sums (nb,)
-    int32), all on the rows' device. dense is (nb, 8, D*elem_sz) row-major
-    and (nb, D, 8*elem_sz) with ``lowdim``."""
+    """Device pass: rows (N, D), N divisible by 8 ->
+    (widths (nb, D), hdr (nb, D), dense u8, width_sums (nb,) int32), all on
+    the rows' device. Row-major: rows int32, widths and hdr int32, dense
+    (nb, 8, D*elem_sz). ``lowdim``: widths and hdr uint8, dense
+    (nb, D, 8*elem_sz); delta takes the rows narrow, as
+    ``upload_rows(..., narrow=True)`` gives them (int32 rows are narrowed
+    first)."""
     eb = 8 * elem_sz
+    if lowdim and codec == "delta":
+        if rows.dtype == torch.int32:
+            rows = (rows - ((rows & 0x8000) << 1) if elem_sz == 2
+                    else rows).to(rows_dtype(elem_sz))
+        return encode_lowdim(rows, elem_sz)
     if codec == "xff":
         errs = fire_encode(rows, eb, truncate_coeffs=not lowdim)
     else:
         errs = delta_encode(rows, eb)
-    nb = rows.shape[0] // BLOCK_SZ
-    blocks = errs.reshape(nb, BLOCK_SZ, rows.shape[1])
     if lowdim:
-        widths = block_widths_lowdim(blocks.amax(dim=1), elem_sz)
-        dense = pack_dims_lowdim(blocks, widths, elem_sz)
-    else:
-        widths = block_widths_rowmajor(blocks.amax(dim=1), elem_sz)
-        dense = pack_rows(blocks, widths, elem_sz)
-    return widths, header_value(widths, eb), dense, widths.sum(
-        dim=1, dtype=torch.int32)
+        return encode_lowdim(errs, elem_sz, errors=True)
+    blocks = errs.reshape(-1, BLOCK_SZ, rows.shape[1])
+    widths = block_widths_rowmajor(blocks.amax(dim=1), elem_sz)
+    return (widths, header_value(widths, eb), pack_rows(blocks, widths,
+                                                        elem_sz),
+            widths.sum(dim=1, dtype=torch.int32))
 
 
 def compress(flat: np.ndarray, ndims: int, codec: str = "delta",
@@ -102,7 +112,8 @@ def compress(flat: np.ndarray, ndims: int, codec: str = "delta",
     lowdim = ndims <= LOWDIM_MAX_NDIMS[elem_sz]
 
     nb = n // (BLOCK_SZ * ndims)
-    rows = upload_rows(flat[: nb * BLOCK_SZ * ndims].reshape(-1, ndims), dev)
+    rows = upload_rows(flat[: nb * BLOCK_SZ * ndims].reshape(-1, ndims), dev,
+                       narrow=lowdim and codec == "delta")
     widths, hdr, dense, width_sums = encode_device(rows, elem_sz, codec,
                                                    lowdim)
     widths_np = widths.to(torch.uint8).cpu().numpy()

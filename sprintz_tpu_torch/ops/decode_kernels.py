@@ -11,10 +11,10 @@ Counterpart of ``sprintz_tpu/ops/pallas_decode.py``. Two CUDA kernels
 - K2 ``prefix_finish``: each tile's inclusive prefix plus its offset,
   masked and narrowed.
 
-The lowdim layout (u8 ndims <= 4, u16 ndims <= 2) has K1's twin,
-``unpack_zz_lowdim`` (``unpack_lowdim_kernel``), with K1's output
-contract, so that K2 runs on it unchanged; its raw mode
-``unpack_dims_lowdim`` feeds the FIRE decode.
+The lowdim layout (u8 ndims <= 4, u16 ndims <= 2) has one kernel for the
+whole delta decode, ``decode_delta_lowdim`` (``decode_lowdim_kernel``:
+sections to values, the unpack, zigzag and prefix of K1 and K2 in one
+pass); its raw mode ``unpack_dims_lowdim`` feeds the FIRE decode.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 PyTorch version (``*_plain``, computed in int32, narrowed at the end) for a
@@ -216,17 +216,23 @@ def prefix_finish(bz: torch.Tensor, tile_offsets: torch.Tensor,
 prefix_finish.launches = 0
 
 
-# ------------------------------------------------------- lowdim unpack
+# ------------------------------------------------------- lowdim decode
 
-# Blocks a CTA of the lowdim unpack owns: LD_TILES tiles of K2
-# (csrc/decode.cu's LD_BLOCKS), so that it has 256 to 1024 items.
-LOWDIM_SPAN_BLOCKS = 8 * TILE_BLOCKS
+LOWDIM_THREADS = 256  # csrc/decode.cu's LD_THREADS
 LOWDIM_SECTION_BYTES = 32  # ndims * elem_bits at most: D <= 4 u8, D <= 2 u16
+
+
+def lowdim_span_blocks(elem_bits: int, ndims: int) -> int:
+    """Blocks a CTA of the lowdim kernels owns (``LowdimShape::SPAN`` in
+    csrc/decode.cu and csrc/pack.cu): LOWDIM_THREADS threads of K whole
+    blocks, K = 4 / (ndims * elem_bits / 8), 1 at u8 D 3."""
+    rb = ndims * elem_bits // 8
+    return LOWDIM_THREADS * (1 if rb == 3 else 4 // rb)
 
 
 def check_lowdim_payload(name: str, dense: torch.Tensor,
                          widths: torch.Tensor) -> int:
-    """Checks of a lowdim unpack's inputs: dense (nb, D, EB) uint8 with EB
+    """Checks of a lowdim decode's inputs: dense (nb, D, EB) uint8 with EB
     8 or 16 (elem_bits) and D * EB <= 32, widths (nb, D) uint8, on one
     device. Returns EB."""
     check_args(name, dense.device, dense=(dense, torch.uint8),
@@ -261,44 +267,60 @@ def extract_fields_lowdim(dense: torch.Tensor,
     return fields.transpose(1, 2).contiguous()
 
 
-def unpack_zz_lowdim_plain(dense: torch.Tensor, widths: torch.Tensor,
-                           elem_bits: int):
-    """Plain version of ``unpack_zz_lowdim``."""
-    return zz_and_offsets(extract_fields_lowdim(dense, widths), elem_bits)
+def decode_delta_lowdim_plain(dense: torch.Tensor, widths: torch.Tensor,
+                              elem_bits: int) -> torch.Tensor:
+    """Plain version of ``decode_delta_lowdim``: K1's contract on the
+    lowdim fields (biased deltas, tile offsets), then K2's plain version."""
+    nb, ndims, _ = dense.shape
+    bz, toff = zz_and_offsets(extract_fields_lowdim(dense, widths), elem_bits)
+    return prefix_finish_plain(bz.reshape(nb * BLOCK_SZ, ndims), toff,
+                               elem_bits)
 
 
-def unpack_zz_lowdim(dense: torch.Tensor, widths: torch.Tensor,
-                     elem_bits: int):
-    """dense (nb, D, EB = elem_bits) uint8 lowdim sections, widths (nb, D)
-    uint8 -> K1's output: (biased deltas (nb, 8, D) u8/u16, tile offsets
-    (ceil(nb / TILE_BLOCKS), 1, D) i32), which K2 takes unchanged."""
+# The lowdim decode's status words, one zeroed buffer a (device, stream):
+# each launch leaves them zeroed (its last CTA clears them), so only a new
+# or grown buffer costs a memset.
+_lowdim_status: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def lowdim_status(device: torch.device, nwords: int) -> torch.Tensor:
+    """At least ``nwords`` zeroed status words for a lowdim decode on
+    ``device``'s current stream."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _lowdim_status.get(key)
+    if buf is None or buf.numel() < nwords:
+        buf = _lowdim_status[key] = torch.zeros(nwords, dtype=torch.int64,
+                                                device=device)
+    return buf
+
+
+def decode_delta_lowdim(dense: torch.Tensor, widths: torch.Tensor,
+                        elem_bits: int) -> torch.Tensor:
+    """Run-free lowdim delta decode: dense (nb, D, EB = elem_bits) uint8
+    sections, widths (nb, D) uint8 -> values (nb*8, D) u8/u16, the running
+    sum of the zigzag-decoded fields down each dim modulo 2^elem_bits, in
+    one kernel."""
     odt = narrow_dtype(elem_bits)
-    if check_lowdim_payload("unpack_zz_lowdim", dense, widths) != elem_bits:
-        raise ValueError(f"unpack_zz_lowdim: sections of {dense.shape[2]} "
+    if check_lowdim_payload("decode_delta_lowdim", dense, widths) != elem_bits:
+        raise ValueError(f"decode_delta_lowdim: sections of {dense.shape[2]} "
                          f"bytes are not those of elem_bits {elem_bits}")
     if dense.device.type == "cpu":
-        return unpack_zz_lowdim_plain(dense, widths, elem_bits)
+        return decode_delta_lowdim_plain(dense, widths, elem_bits)
     nb, ndims, _ = dense.shape
-    ntiles = -(-nb // TILE_BLOCKS)
-    bz = torch.empty((nb, BLOCK_SZ, ndims), dtype=odt, device=dense.device)
-    toff = torch.empty((ntiles, 1, ndims), dtype=torch.int32,
-                       device=dense.device)
+    out = torch.empty((nb * BLOCK_SZ, ndims), dtype=odt, device=dense.device)
     if nb == 0:
-        return bz, toff
-    dense = aligned16(dense)
-    # the look-back's status words (a span of LOWDIM_SPAN_BLOCKS blocks
-    # each) and its ticket, zeroed by the launch
-    nspans = -(-nb // LOWDIM_SPAN_BLOCKS)
-    status = torch.empty(nspans * ndims + 1, dtype=torch.int64,
-                         device=dense.device)
-    _build.launch("sprintz_unpack_lowdim", dense, dense.data_ptr(),
-                  widths.data_ptr(), bz.data_ptr(), toff.data_ptr(),
-                  status.data_ptr(), nb, ndims, elem_bits, 0)
-    unpack_zz_lowdim.launches += 1
-    return bz, toff
+        return out
+    dense, widths = aligned16(dense), aligned16(widths)
+    nspans = -(-nb // lowdim_span_blocks(elem_bits, ndims))
+    status = lowdim_status(dense.device, nspans + 1)
+    _build.launch("sprintz_decode_lowdim", dense, dense.data_ptr(),
+                  widths.data_ptr(), out.data_ptr(), status.data_ptr(), nb,
+                  ndims, elem_bits, 0)
+    decode_delta_lowdim.launches += 1
+    return out
 
 
-unpack_zz_lowdim.launches = 0
+decode_delta_lowdim.launches = 0
 
 
 def unpack_dims_lowdim_plain(dense: torch.Tensor,
@@ -310,7 +332,7 @@ def unpack_dims_lowdim_plain(dense: torch.Tensor,
 
 def unpack_dims_lowdim(dense: torch.Tensor,
                        widths: torch.Tensor) -> torch.Tensor:
-    """Raw mode of the lowdim unpack: dense (nb, D, EB) uint8, widths
+    """Raw mode of the lowdim decode: dense (nb, D, EB) uint8, widths
     (nb, D) uint8 -> zigzag fields (nb, 8, D) in the FIRE decode's types:
     uint8 at EB 8 (fields of u8 streams are at most 8 bits wide) and int32
     at EB 16. The section size tells the element size, so there is no
@@ -324,10 +346,9 @@ def unpack_dims_lowdim(dense: torch.Tensor,
                       device=dense.device)
     if nb == 0:
         return out
-    dense = aligned16(dense)
-    _build.launch("sprintz_unpack_lowdim", dense, dense.data_ptr(),
-                  widths.data_ptr(), out.data_ptr(), None, None, nb, ndims,
-                  eb, 1)
+    dense, widths = aligned16(dense), aligned16(widths)
+    _build.launch("sprintz_decode_lowdim", dense, dense.data_ptr(),
+                  widths.data_ptr(), out.data_ptr(), None, nb, ndims, eb, 1)
     unpack_dims_lowdim.launches += 1
     return out
 
@@ -353,13 +374,4 @@ def decode_delta_contiguous(dense: torch.Tensor, widths: torch.Tensor,
     nb = dense.shape[0]
     ndims = widths.shape[1]
     bz, toff = unpack_zz(dense, widths, elem_bits)
-    return prefix_finish(bz.reshape(nb * BLOCK_SZ, ndims), toff, elem_bits)
-
-
-def decode_delta_lowdim(dense: torch.Tensor, widths: torch.Tensor,
-                        elem_bits: int) -> torch.Tensor:
-    """Run-free lowdim delta decode: dense (nb, D, EB) uint8 sections,
-    widths (nb, D) uint8 -> values (nb*8, D) u8/u16."""
-    nb, ndims, _ = dense.shape
-    bz, toff = unpack_zz_lowdim(dense, widths, elem_bits)
     return prefix_finish(bz.reshape(nb * BLOCK_SZ, ndims), toff, elem_bits)

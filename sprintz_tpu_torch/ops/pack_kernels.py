@@ -4,10 +4,13 @@ Counterpart of ``sprintz_tpu/ops/pallas_pack.py``:
 
 - K3 ``pack_rows`` (``csrc/pack.cu``): zigzag errors + widths -> the dense
   per-block payload rows.
-- ``pack_dims_lowdim`` (``csrc/pack.cu``'s ``pack_lowdim_kernel``): the
-  lowdim layout's pack, zigzag errors + widths -> one section of EB bytes
-  a (block, dim), the counterpart of ``sprintz_tpu/ops/pack.py``'s
-  ``pack_dims_lowdim`` (an XLA pass there).
+- ``encode_lowdim`` (``csrc/pack.cu``'s ``encode_lowdim_kernel``): the
+  lowdim layout's whole encode pass in one kernel, narrow rows (delta) or
+  FIRE's zigzag errors -> widths, header fields, one section of EB bytes a
+  (block, dim) and the blocks' width sums: the counterpart of the JAX
+  package's fused lowdim passes (``sprintz_tpu/encoder.py``'s
+  ``_encode_lowdim_grouped``) and of its ``pack_dims_lowdim`` (an XLA pass
+  there), which ``pack_dims_lowdim_plain`` mirrors.
 - K4 ``unpack_rows`` (``csrc/decode.cu``, the raw mode of K1's kernel):
   dense payload rows + widths -> the raw zigzag fields, int32. Its
   ``narrow=True`` mode is K5, the counterpart of ``unpack_rows_pallas_mxu``
@@ -17,7 +20,8 @@ Counterpart of ``sprintz_tpu/ops/pallas_pack.py``:
 As in ``decode_kernels``, each wrapper launches its kernel for a CUDA
 tensor and runs its plain PyTorch version for a CPU tensor, and counts its
 launches in its ``launches`` attribute (``unpack_rows`` counts its narrow
-mode, K5, apart, in ``narrow_launches``).
+mode, K5, apart, in ``narrow_launches``, and ``encode_lowdim`` its mode
+from FIRE's errors in ``errs_launches``).
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ from __future__ import annotations
 import torch
 
 from ..constants import BLOCK_SZ
+from ..models.forecasters import delta_encode
 from . import _build
+from .bitmath import block_widths_lowdim, header_value
 from .decode_kernels import aligned16, check_args, check_payload, extract_fields
 
 # ------------------------------------------------------------------ K3
@@ -114,15 +120,17 @@ def pack_rows(errs_zz: torch.Tensor, widths: torch.Tensor,
 pack_rows.launches = 0
 
 
-# --------------------------------------------------------- lowdim pack
+# ------------------------------------------------------- lowdim encode
 
 
 def pack_dims_lowdim_plain(errs_zz: torch.Tensor, widths: torch.Tensor,
                            elem_sz: int) -> torch.Tensor:
-    """Plain version of ``pack_dims_lowdim``: field r of a (block, dim),
-    masked to its width w and shifted by (r * w) & 7 (<= 23 bits), adds
-    its 3 bytes at byte (r * w) >> 3 of the section. Fields are
-    bit-disjoint, so the sum is an OR."""
+    """The lowdim layout's pack: errs_zz (nb, 8, D) int32 zigzag errors,
+    widths (nb, D) int32 legal lowdim widths -> dense (nb, D, EB = 8 *
+    elem_sz) uint8. Field r of a (block, dim), masked to its width w and
+    shifted by (r * w) & 7 (<= 23 bits), adds its 3 bytes at byte
+    (r * w) >> 3 of the section. Fields are bit-disjoint, so the sum is an
+    OR."""
     nb, _, ndims = errs_zz.shape
     eb = 8 * elem_sz
     w = widths.unsqueeze(2)  # (nb, D, 1)
@@ -136,36 +144,71 @@ def pack_dims_lowdim_plain(errs_zz: torch.Tensor, widths: torch.Tensor,
     return out[:, :, :eb].to(torch.uint8)
 
 
-def pack_dims_lowdim(errs_zz: torch.Tensor, widths: torch.Tensor,
-                     elem_sz: int) -> torch.Tensor:
-    """errs_zz (nb, 8, D) int32 zigzag errors, widths (nb, D) int32 legal
-    lowdim widths -> dense (nb, D, EB = 8 * elem_sz) uint8: dim d's 8
+def rows_dtype(elem_sz: int) -> torch.dtype:
+    """The narrow rows' dtype: uint8, or int16 for u16 rows (torch's
+    uint16 is a storage type; the bits are the same)."""
+    return torch.uint8 if elem_sz == 1 else torch.int16
+
+
+def widen_rows(rows: torch.Tensor) -> torch.Tensor:
+    """Narrow rows (uint8, or u16 as int16) -> int32 values."""
+    if rows.dtype == torch.int16:
+        return rows.to(torch.int32) & 0xFFFF
+    return rows.to(torch.int32)
+
+
+def encode_lowdim_plain(x: torch.Tensor, elem_sz: int,
+                        errors: bool = False):
+    """Plain version of ``encode_lowdim``: the delta encode (or the given
+    errors), the widths, header fields, width sums and pack."""
+    eb = 8 * elem_sz
+    errs = x if errors else delta_encode(widen_rows(x), eb)
+    blocks = errs.reshape(-1, BLOCK_SZ, x.shape[1])
+    widths = block_widths_lowdim(blocks.amax(dim=1), elem_sz)
+    return (widths.to(torch.uint8), header_value(widths, eb).to(torch.uint8),
+            pack_dims_lowdim_plain(blocks, widths, elem_sz),
+            widths.sum(dim=1, dtype=torch.int32))
+
+
+def encode_lowdim(x: torch.Tensor, elem_sz: int, errors: bool = False):
+    """The lowdim layout's encode pass (D * elem_sz <= 4). x: the rows
+    (N, D) as uploaded, uint8 or (u16) int16, for delta; with ``errors``,
+    FIRE's (N, D) int32 zigzag errors. N is a multiple of 8. ->
+    (widths (nb, D) uint8, header fields (nb, D) uint8, dense
+    (nb, D, EB = 8 * elem_sz) uint8, width sums (nb,) int32): dim d's 8
     fields of block b back to back at bits r * w, exactly w bytes, zeros
-    after. D * elem_sz is at most 4 (the lowdim layout)."""
+    after."""
     if elem_sz not in (1, 2):
         raise ValueError(f"elem_sz must be 1 or 2, got {elem_sz}")
-    check_args("pack_dims_lowdim", errs_zz.device,
-               errs_zz=(errs_zz, torch.int32), widths=(widths, torch.int32))
-    if (errs_zz.dim() != 3 or errs_zz.shape[1] != BLOCK_SZ
-            or tuple(widths.shape) != (errs_zz.shape[0], errs_zz.shape[2])
-            or not 1 <= errs_zz.shape[2] * elem_sz <= 4):
-        raise ValueError(f"pack_dims_lowdim: errs {tuple(errs_zz.shape)} and "
-                         f"widths {tuple(widths.shape)} are not (nb, 8, D), "
-                         f"(nb, D) with D * elem_sz in 1..4")
-    if errs_zz.device.type == "cpu":
-        return pack_dims_lowdim_plain(errs_zz, widths, elem_sz)
-    nb, _, ndims = errs_zz.shape
-    out = torch.empty((nb, ndims, 8 * elem_sz), dtype=torch.uint8,
-                      device=errs_zz.device)
+    dtype = torch.int32 if errors else rows_dtype(elem_sz)
+    check_args("encode_lowdim", x.device, x=(x, dtype))
+    if (x.dim() != 2 or x.shape[0] % BLOCK_SZ
+            or not 1 <= x.shape[1] * elem_sz <= 4):
+        raise ValueError(f"encode_lowdim: x {tuple(x.shape)} is not (N, D) "
+                         f"with N a multiple of 8 and D * elem_sz in 1..4")
+    if x.device.type == "cpu":
+        return encode_lowdim_plain(x, elem_sz, errors)
+    nb, ndims = x.shape[0] // BLOCK_SZ, x.shape[1]
+    widths = torch.empty((nb, ndims), dtype=torch.uint8, device=x.device)
+    hdr = torch.empty_like(widths)
+    dense = torch.empty((nb, ndims, 8 * elem_sz), dtype=torch.uint8,
+                        device=x.device)
+    wsums = torch.empty(nb, dtype=torch.int32, device=x.device)
     if nb == 0:
-        return out
-    _build.launch("sprintz_pack_dims_lowdim", errs_zz, errs_zz.data_ptr(),
-                  widths.data_ptr(), out.data_ptr(), nb, ndims, elem_sz)
-    pack_dims_lowdim.launches += 1
-    return out
+        return widths, hdr, dense, wsums
+    x = aligned16(x)
+    _build.launch("sprintz_encode_lowdim", x, x.data_ptr(), widths.data_ptr(),
+                  hdr.data_ptr(), dense.data_ptr(), wsums.data_ptr(), nb,
+                  ndims, elem_sz, 0 if errors else 1)
+    if errors:
+        encode_lowdim.errs_launches += 1
+    else:
+        encode_lowdim.launches += 1
+    return widths, hdr, dense, wsums
 
 
-pack_dims_lowdim.launches = 0
+encode_lowdim.launches = 0  # from the rows (delta)
+encode_lowdim.errs_launches = 0  # from FIRE's errors
 
 
 # ------------------------------------------------------------------ K4

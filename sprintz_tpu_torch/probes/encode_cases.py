@@ -1,5 +1,5 @@
 """The encode side's edge shapes: inputs of K3 ``pack_rows``, of the
-lowdim pack ``pack_dims_lowdim`` and of the Huffman encoder
+lowdim encode ``encode_lowdim`` and of the Huffman encoder
 ``encode_chunks`` where their tiles end raggedly and their widths and
 codes are extreme.
 
@@ -20,11 +20,13 @@ from ..ops.pack_kernels import pack_tile_rows
 
 PACK_DIMS = (5, 31, 33, 64, 129, 1024)
 PACK_CASES = [(nd, es) for nd in PACK_DIMS for es in (1, 2)]
-# (D, elem_sz, nb) of the lowdim pack: every lowdim width, one block, and
-# nb * D items that end the kernel's CTAs (256 items) raggedly
+# (D, elem_sz, nb) of the lowdim encode: every lowdim width, one block, a
+# span of 256 blocks and part of one (spans are 256, 512 or 1024 blocks by
+# width: csrc/pack.cu's LowdimShape), one block short of 1024, and spans
+# with a ragged last one
 LOWDIM_PACK_CASES = [(nd, es, nb) for es, dims in ((1, (1, 2, 3, 4)),
                                                     (2, (1, 2)))
-                     for nd in dims for nb in (1, 301)]
+                     for nd in dims for nb in (1, 301, 1023, 4101)]
 HUFF_CHUNKS = (1, 31, 128, 4096)
 HUFF_KINDS = ("ragged", "short", "12-bit codes", "one symbol")
 HUFF_CASES = [(cs, kind) for cs in HUFF_CHUNKS for kind in HUFF_KINDS]
@@ -55,6 +57,29 @@ def pack_lowdim_case(rng, ndims: int, elem_sz: int, nb: int):
     errs = rng.integers(0, 1 << eb, (nb, 8, ndims)) & (
         (1 << widths) - 1)[:, None, :]
     return errs.astype(np.int32), widths.astype(np.int32)
+
+
+def lowdim_rows_case(rng, ndims: int, elem_sz: int, nb: int):
+    """The lowdim encode's inputs: rows (nb * 8, D) uint8/uint16 whose delta
+    encode is ``pack_lowdim_case``'s errors, and those errors (nb * 8, D)
+    int32 (FIRE's input form): every legal width, all-zero and all-maximum
+    blocks, deltas that wrap."""
+    eb = 8 * elem_sz
+    errs, _ = pack_lowdim_case(rng, ndims, elem_sz, nb)
+    errs = errs.reshape(-1, ndims)
+    e = errs.astype(np.int64)
+    rows = np.cumsum((e >> 1) ^ -(e & 1), axis=0) % (1 << eb)
+    return rows.astype(np.uint8 if elem_sz == 1 else np.uint16), errs
+
+
+def rows_tensor(rows: np.ndarray):
+    """Narrow numpy rows as the lowdim encode takes them: uint8, or u16 as
+    int16."""
+    import torch
+
+    rows = rows if rows.flags.writeable else rows.copy()
+    return torch.from_numpy(rows.view(np.int16) if rows.dtype == np.uint16
+                            else rows)
 
 
 def pack_case(rng, ndims: int, elem_sz: int):

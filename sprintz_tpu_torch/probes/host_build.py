@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Build the delta decode's kernels (``csrc/decode.cu``: K1/K4/K5
-``unpack_zz_kernel``, K2 ``prefix_finish_kernel`` and the lowdim unpack
-``unpack_lowdim_kernel``) and the pack kernels (``csrc/pack.cu``: K3
-``pack_rows_kernel`` and the lowdim ``pack_lowdim_kernel``) on the host
+``unpack_zz_kernel``, K2 ``prefix_finish_kernel`` and the lowdim decode
+``decode_lowdim_kernel``) and the encode kernels (``csrc/pack.cu``: K3
+``pack_rows_kernel`` and the lowdim ``encode_lowdim_kernel``) on the host
 with g++, and hold them to their plain versions at the cases of
 ``probes/unpack_cases.py`` (``UNPACK_CASES``, ``LOWDIM_CASES``) and
 ``probes/encode_cases.py`` (``PACK_CASES``, ``LOWDIM_PACK_CASES``), with
@@ -10,16 +10,18 @@ no card and no nvcc.
 
     python3 sprintz_tpu_torch/probes/host_build.py [--resident 1 3] [--src FILE]
 
-The source is compiled as C++ against ``host_shim.h``: its launches
+A source is compiled as C++ against ``host_shim.h``: its launches
 become calls that run each CUDA thread as a std::thread, ``resident``
-CTAs at a time (more than one, so that K1's look-back waits on tiles that
-run beside it); its device helpers (``cp.async``, the status words) are
-replaced between their marker lines by copies that land when a wait
-covers their group, and C++ atomics. Shared memory and every output start
-as garbage, so a byte the kernel fails to write, or reads before its copy
-lands, shows. The C entry points are called through ctypes
-as the wrappers call them. It prints one line a case and exits 1 on the
-first difference. Not imported by the port.
+CTAs at a time (more than one, so that a look-back waits on tiles or
+spans that run beside it); its device helpers (``cp.async``, the status
+words) are replaced between their marker lines by copies that land when a
+wait covers their group, and C++ atomics. Shared memory and every output
+start as garbage, so a byte the kernel fails to write, or reads before
+its copy lands, shows; the lowdim decode's status words start zeroed, as
+the wrapper keeps them, and must be zeroed again after each launch. The C
+entry points are called through ctypes as the wrappers call them. It
+prints one line a case and exits 1 on the first difference. Not imported
+by the port.
 """
 
 from __future__ import annotations
@@ -76,11 +78,22 @@ extern "C" int sprintz_shim_fault() { return g_fault.exchange(0); }
 """
 
 
-def host_source(src: str, helpers: bool = True, kernels: int = 3) -> str:
-    """A kernel source as C++ for the shim: its device helpers (decode.cu
-    has them), its shared memory, its ``kernels`` launches."""
+# the C entry points' argtypes, as ops/_build.py binds them
+P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+ENTRIES = {
+    "sprintz_unpack_zz": [P, P, P, P, P, L, I, I, I, I, P],
+    "sprintz_prefix_finish": [P, P, P, L, I, I, P],
+    "sprintz_decode_lowdim": [P, P, P, P, L, I, I, I, P],
+    "sprintz_pack_rows": [P, P, P, L, I, I, I, P],
+    "sprintz_encode_lowdim": [P, P, P, P, P, L, I, I, I, P],
+}
+
+
+def host_source(src: str, kernels: int) -> str:
+    """A kernel source as C++ for the shim: its device helpers, its shared
+    memory, its ``kernels`` launches."""
     out, n = HELPERS.subn(HOST_HELPERS, src)
-    assert n == helpers, "the device helpers' marker lines"
+    assert n == 1, "the device helpers' marker lines"
     out = out.replace("#include <cuda_runtime.h>\n", "")
     out, n = re.subn(r"extern __shared__ __align__\(16\) uint8_t smem\[\];",
                      "uint8_t* smem = shim_smem();", out)
@@ -94,10 +107,10 @@ def host_source(src: str, helpers: bool = True, kernels: int = 3) -> str:
 
 
 def build(src: pathlib.Path = SRC, out: pathlib.Path = OUT,
-          helpers: bool = True, kernels: int = 3) -> ctypes.CDLL:
+          kernels: int = 3) -> ctypes.CDLL:
     """Compile ``src`` for the shim into ``out`` (reused while the source
     and the shim are unchanged) and load it."""
-    text = host_source(src.read_text(), helpers, kernels)
+    text = host_source(src.read_text(), kernels)
     key = hashlib.sha256(text.encode() + (HERE / "host_shim.h").read_bytes()).hexdigest()[:16]
     out.mkdir(parents=True, exist_ok=True)
     lib = out / f"lib{src.stem}_host_{key}.so"
@@ -108,21 +121,16 @@ def build(src: pathlib.Path = SRC, out: pathlib.Path = OUT,
                         "-include", str(HERE / "host_shim.h"), "-o", str(lib), str(cpp)],
                        check=True)
     so = ctypes.CDLL(str(lib))
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if helpers:
-        so.sprintz_unpack_zz.argtypes = [P, P, P, P, P, L, I, I, I, I, P]
-        so.sprintz_prefix_finish.argtypes = [P, P, P, L, I, I, P]
-        so.sprintz_unpack_lowdim.argtypes = [P, P, P, P, P, L, I, I, I, P]
-    else:
-        so.sprintz_pack_rows.argtypes = [P, P, P, L, I, I, I, P]
-        so.sprintz_pack_dims_lowdim.argtypes = [P, P, P, L, I, I, P]
+    for name, argtypes in ENTRIES.items():
+        if hasattr(so, name):
+            getattr(so, name).argtypes = argtypes
     so.sprintz_shim_set_resident.argtypes = [I]
     return so
 
 
 def build_pack(src: pathlib.Path = PACK_SRC, out: pathlib.Path = OUT) -> ctypes.CDLL:
-    """``build`` for pack.cu: no device helpers, two kernels."""
-    return build(src, out, helpers=False, kernels=2)
+    """``build`` for pack.cu: two kernels."""
+    return build(src, out, kernels=2)
 
 
 class HostKernels:
@@ -166,26 +174,26 @@ class HostKernels:
             nb, nd, maxb, elem_bits, raw, None))
         return out if raw else (out, toff)
 
-    def unpack_lowdim(self, dense, widths, elem_bits: int, raw: int):
+    def decode_lowdim(self, dense, widths, elem_bits: int, raw: int):
+        """The lowdim decode's values (raw: its fields), from a zeroed
+        status buffer that the launch must leave zeroed."""
         from sprintz_tpu_torch.ops import decode_kernels as dk
 
         t = self.torch
         nb, nd, _ = dense.shape
-        ntiles = -(-nb // dk.TILE_BLOCKS)
-        nspans = -(-nb // dk.LOWDIM_SPAN_BLOCKS)
         if raw:
-            odt = t.uint8 if elem_bits == 8 else t.int32
+            out = self.garbage((nb, 8, nd), t.uint8 if elem_bits == 8 else t.int32)
         else:
-            odt = dk.narrow_dtype(elem_bits)
-        out = self.garbage((nb, 8, nd), odt)
-        toff = self.garbage((ntiles, 1, nd), t.int32)
-        status = self.garbage((nspans * nd + 1,), t.int64)
-        dense = dk.aligned16(dense)
-        self.check(self.so.sprintz_unpack_lowdim(
+            out = self.garbage((nb * 8, nd), dk.narrow_dtype(elem_bits))
+        status = t.zeros(-(-nb // dk.lowdim_span_blocks(elem_bits, nd)) + 1,
+                         dtype=t.int64)
+        dense, widths = dk.aligned16(dense), dk.aligned16(widths)
+        self.check(self.so.sprintz_decode_lowdim(
             dense.data_ptr(), widths.data_ptr(), out.data_ptr(),
-            None if raw else toff.data_ptr(), None if raw else status.data_ptr(),
-            nb, nd, elem_bits, raw, None))
-        return out if raw else (out, toff)
+            None if raw else status.data_ptr(), nb, nd, elem_bits, raw, None))
+        if status.any():
+            raise RuntimeError("host kernel: the lowdim decode left its status words set")
+        return out
 
     def pack_rows(self, errs, widths, elem_sz: int):
         from sprintz_tpu_torch.ops import pack_kernels as pk
@@ -197,13 +205,20 @@ class HostKernels:
             pk.pack_tile_rows(nd, elem_sz), None))
         return out
 
-    def pack_lowdim(self, errs, widths, elem_sz: int):
-        nb, _, nd = errs.shape
-        out = self.garbage((nb, nd, 8 * elem_sz), self.torch.uint8)
-        self.check(self.so.sprintz_pack_dims_lowdim(
-            errs.data_ptr(), widths.data_ptr(), out.data_ptr(), nb, nd, elem_sz,
-            None))
-        return out
+    def encode_lowdim(self, x, elem_sz: int, errors: bool):
+        from sprintz_tpu_torch.ops import decode_kernels as dk
+
+        t = self.torch
+        nb, nd = x.shape[0] // 8, x.shape[1]
+        widths = self.garbage((nb, nd), t.uint8)
+        hdr = self.garbage((nb, nd), t.uint8)
+        dense = self.garbage((nb, nd, 8 * elem_sz), t.uint8)
+        wsums = self.garbage((nb,), t.int32)
+        x = dk.aligned16(x)
+        self.check(self.so.sprintz_encode_lowdim(
+            x.data_ptr(), widths.data_ptr(), hdr.data_ptr(), dense.data_ptr(),
+            wsums.data_ptr(), nb, nd, elem_sz, 0 if errors else 1, None))
+        return widths, hdr, dense, wsums
 
     def prefix_finish(self, bz, toff, elem_bits: int):
         from sprintz_tpu_torch.ops import decode_kernels as dk
@@ -245,9 +260,9 @@ def check_case(hk: HostKernels, eb: int, nd: int, nb: int, kind: str) -> str | N
 
 def check_lowdim_case(hk: HostKernels, eb: int, nd: int, nb: int,
                       kind: str) -> str | None:
-    """The host-built lowdim unpack (deltas and tile offsets; raw fields)
-    and K2 on its output against their plain versions at a
-    ``LOWDIM_CASES`` case: the name of the first that differs, or None."""
+    """The host-built lowdim decode (values; raw fields) against its plain
+    versions at a ``LOWDIM_CASES`` case: the name of the first that
+    differs, or None."""
     import torch
 
     from sprintz_tpu_torch.ops import decode_kernels as dk
@@ -256,14 +271,10 @@ def check_lowdim_case(hk: HostKernels, eb: int, nd: int, nb: int,
     rng = np.random.default_rng(eb * 7919 + nd * 31 + nb + 1)
     dense, widths, _ = uc.lowdim_case(rng, eb, nd, nb, kind)
     d, w = uc.to_device(dense, widths, kind, "cpu")
-    bz, toff = dk.unpack_zz_lowdim_plain(d, w, eb)
-    got_bz, got_toff = hk.unpack_lowdim(d, w, eb, 0)
-    bz2 = bz.reshape(-1, nd)
-    pairs = [("lowdim deltas", got_bz, bz), ("lowdim tile offsets", got_toff, toff),
-             ("lowdim raw fields", hk.unpack_lowdim(d, w, eb, 1),
-              dk.unpack_dims_lowdim_plain(d, w)),
-             ("K2", hk.prefix_finish(got_bz.reshape(-1, nd), got_toff, eb),
-              dk.prefix_finish_plain(bz2, toff, eb))]
+    pairs = [("lowdim decode", hk.decode_lowdim(d, w, eb, 0),
+              dk.decode_delta_lowdim_plain(d, w, eb)),
+             ("lowdim raw fields", hk.decode_lowdim(d, w, eb, 1),
+              dk.unpack_dims_lowdim_plain(d, w))]
     for name, got, want in pairs:
         if got.dtype != want.dtype or not torch.equal(got, want):
             return name
@@ -271,9 +282,10 @@ def check_lowdim_case(hk: HostKernels, eb: int, nd: int, nb: int,
 
 
 def check_pack_case(hk: HostKernels, nd: int, es: int, nb: int | None = None) -> str | None:
-    """The host-built lowdim pack (``nb`` given: a ``LOWDIM_PACK_CASES``
-    case) or K3 (a ``PACK_CASES`` case) against its plain version: the
-    name of the kernel if it differs, or None."""
+    """The host-built lowdim encode from the rows and from the errors
+    (``nb`` given: a ``LOWDIM_PACK_CASES`` case) or K3 (a ``PACK_CASES``
+    case) against its plain version: the name of the first that differs,
+    or None."""
     import torch
 
     from sprintz_tpu_torch.ops import pack_kernels as pk
@@ -282,13 +294,19 @@ def check_pack_case(hk: HostKernels, nd: int, es: int, nb: int | None = None) ->
     rng = np.random.default_rng(nd * 31 + es * 7 + (nb or 0))
     if nb is None:
         errs, widths = (torch.from_numpy(a) for a in ec.pack_case(rng, nd, es))
-        name, got, want = ("K3", hk.pack_rows(errs, widths, es),
-                           pk.pack_rows_plain(errs, widths, es))
+        pairs = [("K3", (hk.pack_rows(errs, widths, es),),
+                  (pk.pack_rows_plain(errs, widths, es),))]
     else:
-        errs, widths = (torch.from_numpy(a) for a in ec.pack_lowdim_case(rng, nd, es, nb))
-        name, got, want = ("lowdim pack", hk.pack_lowdim(errs, widths, es),
-                           pk.pack_dims_lowdim_plain(errs, widths, es))
-    return None if torch.equal(got, want) else name
+        rows, errs = ec.lowdim_rows_case(rng, nd, es, nb)
+        rows, errs = ec.rows_tensor(rows), torch.from_numpy(errs)
+        pairs = [("lowdim encode from rows", hk.encode_lowdim(rows, es, False),
+                  pk.encode_lowdim_plain(rows, es)),
+                 ("lowdim encode from errors", hk.encode_lowdim(errs, es, True),
+                  pk.encode_lowdim_plain(errs, es, True))]
+    for name, got, want in pairs:
+        if not all(g.dtype == v.dtype and torch.equal(g, v) for g, v in zip(got, want)):
+            return name
+    return None
 
 
 def main() -> int:
@@ -320,7 +338,7 @@ def main() -> int:
         for case in uc.LOWDIM_CASES:
             what = "lowdim u{} D {} nb {} {}, {} resident".format(*case, resident)
             if report(what, check_lowdim_case(hk, *case),
-                      "the lowdim unpack and K2 equal their plain versions"):
+                      "the lowdim decode (both modes) equals its plain versions"):
                 return 1
         hp = HostKernels(so_pack, resident)
         for nd, es in ec.PACK_CASES:
@@ -328,8 +346,9 @@ def main() -> int:
                       check_pack_case(hp, nd, es), "equals its plain version"):
                 return 1
         for nd, es, nb in ec.LOWDIM_PACK_CASES:
-            if report(f"lowdim pack D {nd} u{8 * es} nb {nb}, {resident} resident",
-                      check_pack_case(hp, nd, es, nb), "equals its plain version"):
+            if report(f"lowdim encode D {nd} u{8 * es} nb {nb}, {resident} resident",
+                      check_pack_case(hp, nd, es, nb),
+                      "equals its plain version from rows and from errors"):
                 return 1
     return 0
 

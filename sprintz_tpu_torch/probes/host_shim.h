@@ -37,6 +37,7 @@ struct alignas(16) int4 {
   int x, y, z, w;
 };
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 using cudaError_t = int;
 using cudaStream_t = void*;
 constexpr int cudaSuccess = 0;
@@ -107,6 +108,28 @@ inline T __shfl_sync(unsigned mask, T v, int src, int width = 32) {
   return shim_exchange(mask, v, l - l % width + src % width, true);
 }
 
+template <class T>
+inline T __shfl_xor_sync(unsigned mask, T v, int m, int width = 32) {
+  const int l = threadIdx.x % 32;
+  return shim_exchange(mask, v, l ^ (m % width), true);
+}
+
+// The lanes of `mask` whose `pred` holds, to each of them.
+inline unsigned __ballot_sync(unsigned mask, int pred) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  long long* x = g_cta->xch.data() + 32 * w;
+  std::barrier<>& b = g_cta->lanes(w, mask);
+  x[l] = pred ? 1 : 0;
+  b.arrive_and_wait();
+  unsigned bits = 0;
+  for (int i = 0; i < 32; ++i) {
+    if ((mask >> i & 1u) && x[i]) bits |= 1u << i;
+  }
+  b.arrive_and_wait();
+  return bits;
+}
+inline int __any_sync(unsigned mask, int pred) { return __ballot_sync(mask, pred) != 0; }
+
 // The sum of what the lanes of `mask` post, to each of them.
 inline unsigned __reduce_add_sync(unsigned mask, unsigned v) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
@@ -132,6 +155,9 @@ inline unsigned atomicAdd(unsigned* p, unsigned v) {
 inline unsigned atomicOr(unsigned* p, unsigned v) {
   return std::atomic_ref<unsigned>(*p).fetch_or(v);
 }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned s) {
   return (unsigned)((((uint64_t)hi << 32) | lo) >> (s & 31));
 }

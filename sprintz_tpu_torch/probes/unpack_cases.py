@@ -1,8 +1,8 @@
 """The delta decode's edge cases: inputs of the unpack kernel (K1
-``unpack_zz``, K4 ``unpack_rows``, K5 its narrow mode), of its lowdim twin
-(``unpack_zz_lowdim``, raw mode ``unpack_dims_lowdim``) and of K2
-``prefix_finish`` where their tiles end raggedly, their rows are odd or
-wide, and their payloads are short, empty or misaligned.
+``unpack_zz``, K4 ``unpack_rows``, K5 its narrow mode), of the lowdim
+decode (``decode_delta_lowdim``, raw mode ``unpack_dims_lowdim``) and of
+K2 ``prefix_finish`` where their tiles end raggedly, their rows are odd
+or wide, and their payloads are short, empty or misaligned.
 
 One list for two users: ``tests/test_torch_unpack_shapes.py`` holds the
 plain versions to the JAX package at these cases on the CPU, and
@@ -25,14 +25,15 @@ A case is (elem_bits, D, nb, kind):
   kernels take in chunks of dims (at u16 D 400, an odd number of them,
   over three tiles).
 
-``LOWDIM_CASES`` are the lowdim layout's (u8 D 1-4, u16 D 1-2, so K2 runs
-at these widths too, on the lowdim unpack's output): "random" (legal
-lowdim widths, with a block of all-zero widths, one of all-maximum
-widths, and one block for each legal width in turn, which at u16 widths
-9-14 puts a field across the section's two 64-bit words), "zero widths"
-and "misaligned" as above. nb 1, 31, 33 and 4101 end tiles (32 blocks)
-and the kernel's spans (256 blocks) raggedly, and 257 starts a second
-span with one block.
+``LOWDIM_CASES`` are the lowdim layout's (u8 D 1-4, u16 D 1-2):
+"random" (legal lowdim widths, with a block of all-zero widths, one of
+all-maximum widths, and one block for each legal width in turn, which at
+u16 widths 9-14 puts a field across the section's two 64-bit words),
+"zero widths" and "misaligned" as above. The lowdim decode's spans are
+256, 512 or 1024 blocks by width (1024 at u8 D 1, 512 at u8 D 2 and u16
+D 1): nb 1, 31, 33 and 100 lie in one span, 257 and 1025 start a span
+with one block, 1023 ends one block short of a second span, and 4101
+ends several spans raggedly.
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ LOWDIM_CASES = [
     (8, 1, 31, "zero widths"),
     (8, 2, 33, "random"),
     (8, 2, 100, "misaligned"),
+    (8, 2, 1025, "random"),
     (8, 3, 257, "random"),
     (8, 3, 100, "zero widths"),
     (8, 4, 1, "random"),
@@ -74,6 +76,7 @@ LOWDIM_CASES = [
     (8, 4, 4101, "zero widths"),
     (16, 1, 33, "random"),
     (16, 1, 31, "misaligned"),
+    (16, 1, 1023, "zero widths"),
     (16, 2, 4101, "random"),
     (16, 2, 1, "random"),
     (16, 2, 100, "zero widths"),

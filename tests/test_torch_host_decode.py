@@ -1,14 +1,15 @@
 """The delta decode's CUDA kernels (``csrc/decode.cu``: K1/K4/K5, K2 and
-the lowdim unpack) built on the host with g++ against a shim of CUDA's
+the lowdim decode) built on the host with g++ against a shim of CUDA's
 names (``sprintz_tpu_torch/probes/host_build.py``: one std::thread a CUDA
-thread, three CTAs at a time so that K1's look-back waits on tiles beside
-it, shared memory and outputs filled with garbage first) and held to their
-plain versions at ``probes/unpack_cases.py``'s cases (``UNPACK_CASES``,
-and ``LOWDIM_CASES`` for the lowdim unpack and K2 on its output),
-bit-exact. The plain versions are held to the JAX package at the same
-cases by ``test_torch_unpack_shapes.py`` and ``test_torch_lowdim_pack.py``;
-on the card, ``chip_smoke.py`` holds the kernels built with nvcc to
-them."""
+thread, three CTAs at a time so that a look-back waits on tiles or spans
+beside it, shared memory and outputs filled with garbage first) and held
+to their plain versions at ``probes/unpack_cases.py``'s cases
+(``UNPACK_CASES``, and ``LOWDIM_CASES`` for both modes of the lowdim
+decode, whose status words must come back zeroed), bit-exact. The plain
+versions are held to the JAX package at the same cases by
+``test_torch_unpack_shapes.py``, ``test_torch_lowdim_pack.py`` and
+``test_torch_lowdim_pass.py``; on the card, ``chip_smoke.py`` holds the
+kernels built with nvcc to them."""
 
 import shutil
 

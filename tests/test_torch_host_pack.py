@@ -1,12 +1,13 @@
-"""The pack kernels (``csrc/pack.cu``: K3 ``pack_rows_kernel`` and the
-lowdim ``pack_lowdim_kernel``) built on the host with g++ against the shim
-of CUDA's names that ``test_torch_host_decode.py`` uses
-(``sprintz_tpu_torch/probes/host_build.py``, ``host_shim.h``: one
-std::thread a CUDA thread, three CTAs at a time, shared memory and outputs
-filled with garbage first) and held to their plain versions at
-``probes/encode_cases.py``'s ``PACK_CASES`` and ``LOWDIM_PACK_CASES``,
-bit-exact. ``test_torch_encode_shapes.py`` and ``test_torch_lowdim_pack.py``
-hold the plain versions to the JAX package at the same cases."""
+"""The encode kernels (``csrc/pack.cu``: K3 ``pack_rows_kernel`` and the
+lowdim ``encode_lowdim_kernel``, from the rows and from FIRE's errors)
+built on the host with g++ against the shim of CUDA's names that
+``test_torch_host_decode.py`` uses (``sprintz_tpu_torch/probes/host_build.py``,
+``host_shim.h``: one std::thread a CUDA thread, three CTAs at a time,
+shared memory and outputs filled with garbage first) and held to their
+plain versions at ``probes/encode_cases.py``'s ``PACK_CASES`` and
+``LOWDIM_PACK_CASES``, bit-exact. ``test_torch_encode_shapes.py``,
+``test_torch_lowdim_pack.py`` and ``test_torch_lowdim_pass.py`` hold the
+plain versions to the JAX package."""
 
 import shutil
 

@@ -1,7 +1,8 @@
 """The lowdim layout's pack and unpack in the PyTorch port against the JAX
-package: the plain versions of ``pack_dims_lowdim`` (what
-``csrc/pack.cu``'s ``pack_lowdim_kernel`` is held to on the card) and of
-the lowdim unpack's two modes (``unpack_lowdim_kernel`` in
+package: the port's lowdim pack (``pack_dims_lowdim_plain``, which the
+plain ``encode_lowdim`` ends in and ``csrc/pack.cu``'s
+``encode_lowdim_kernel`` is held to on the card) and the plain versions of
+the lowdim decode's two modes (``decode_lowdim_kernel`` in
 ``csrc/decode.cu``) at the cases of ``probes/encode_cases.py`` and
 ``probes/unpack_cases.py``, and ``block_widths_lowdim``. Every comparison
 is exact (integers)."""
@@ -36,8 +37,8 @@ def test_block_widths_lowdim_exhaustive(eb):
 def test_pack_lowdim_matches_jax(ndims, elem_sz, nb):
     rng = np.random.default_rng(ndims * 31 + elem_sz * 7 + nb)
     errs, widths = ec.pack_lowdim_case(rng, ndims, elem_sz, nb)
-    got = pk.pack_dims_lowdim(torch.from_numpy(errs), torch.from_numpy(widths),
-                              elem_sz)
+    got = pk.pack_dims_lowdim_plain(torch.from_numpy(errs),
+                                    torch.from_numpy(widths), elem_sz)
     want = jpack.pack_dims_lowdim(jnp.asarray(errs), jnp.asarray(widths),
                                   elem_sz)
     assert got.dtype == torch.uint8 and got.shape == (nb, ndims, 8 * elem_sz)
@@ -63,10 +64,12 @@ def zz_and_offsets_reference(fields: np.ndarray, eb: int):
 
 @pytest.mark.parametrize("eb,ndims,nb,kind", uc.LOWDIM_CASES)
 def test_unpack_lowdim_matches_jax(eb, ndims, nb, kind):
-    """Both modes of the lowdim unpack against JAX's ``unpack_dims_lowdim``
-    (int32 dense and widths, as its docstring asks); the non-raw mode's
-    deltas and tile offsets against K1's contract on JAX's fields; and JAX's
-    pack of the case's fields gives the case's dense buffer."""
+    """Both modes of the lowdim decode against JAX: the raw fields against
+    its ``unpack_dims_lowdim`` (int32 dense and widths, as its docstring
+    asks), the values against the running sum of JAX's fields' zigzag
+    deltas, and K1's contract on JAX's fields (biased deltas and tile
+    offsets, the plain decode's first step); and JAX's pack of the case's
+    fields gives the case's dense buffer."""
     rng = np.random.default_rng(eb * 7919 + ndims * 31 + nb)
     dense, widths, fields = uc.lowdim_case(rng, eb, ndims, nb, kind)
     np.testing.assert_array_equal(
@@ -80,25 +83,29 @@ def test_unpack_lowdim_matches_jax(eb, ndims, nb, kind):
     raw = dk.unpack_dims_lowdim(d, w)
     assert raw.dtype == (torch.uint8 if eb == 8 else torch.int32)
     np.testing.assert_array_equal(raw.numpy().astype(np.int64), jfields)
-    bz, toff = dk.unpack_zz_lowdim(d, w, eb)
+    bz, toff = dk.zz_and_offsets(dk.extract_fields_lowdim(d, w), eb)
     want_bz, want_toff = zz_and_offsets_reference(jfields, eb)
     np.testing.assert_array_equal(dk.widen(bz).numpy(), want_bz)
     np.testing.assert_array_equal(toff.numpy(), want_toff)
-    # K2 on the lowdim unpack's output is the running sum of the deltas
-    vals = dk.widen(dk.prefix_finish(bz.reshape(-1, ndims), toff, eb)).numpy()
+    # the decode's values are the running sum of the deltas
+    vals = dk.decode_delta_lowdim(d, w, eb)
+    assert vals.dtype == dk.narrow_dtype(eb) and vals.shape == (nb * 8, ndims)
     f = jfields.astype(np.int64).reshape(-1, ndims)
     np.testing.assert_array_equal(
-        vals, np.cumsum((f >> 1) ^ -(f & 1), axis=0) % (1 << eb))
+        dk.widen(vals).numpy(), np.cumsum((f >> 1) ^ -(f & 1), axis=0) % (1 << eb))
 
 
 def test_lowdim_payload_checks():
     d = torch.zeros((3, 4, 8), dtype=torch.uint8)
     w = torch.zeros((3, 4), dtype=torch.uint8)
     with pytest.raises(ValueError, match="elem_bits"):
-        dk.unpack_zz_lowdim(d, w, 16)
+        dk.decode_delta_lowdim(d, w, 16)
     with pytest.raises(ValueError, match="lowdim payload"):
         dk.unpack_dims_lowdim(torch.zeros((3, 3, 16), dtype=torch.uint8),
                               torch.zeros((3, 3), dtype=torch.uint8))
     with pytest.raises(ValueError, match="D \\* elem_sz"):
-        pk.pack_dims_lowdim(torch.zeros((3, 8, 5), dtype=torch.int32),
-                            torch.zeros((3, 5), dtype=torch.int32), 1)
+        pk.encode_lowdim(torch.zeros((24, 5), dtype=torch.uint8), 1)
+    with pytest.raises(TypeError, match="int16"):
+        pk.encode_lowdim(torch.zeros((24, 2), dtype=torch.uint8), 2)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pk.encode_lowdim(torch.zeros((20, 2), dtype=torch.int32), 1, errors=True)
