@@ -47,6 +47,15 @@ Phases, each of which raises (exit code != 0) when it fails:
    width (its plain version, a Python loop over blocks, runs once there);
    the encode pass (from the rows, and from FIRE's errors), the decode
    and its raw mode at the 4 MiB u8 d4 and u16 d2 streams;
+2c. seekable kernels, bit-exact against their plain versions: FIRE's
+   encode with its per-block states over the 8 MiB walks and the 32k-row
+   lowdim streams; the chunked FIRE decode (both coefficients) over the
+   8 MiB and 4 MiB walks at the chunks and states of each stream's own
+   sidecar (where it must give the stream) and from a sidecar with one
+   state changed; the delta chunk seed at the same chunks, from the
+   stream's states and a changed one; the chunked decode and the states'
+   encode at the ring shapes with 1, 2, 7 and 33 chunks of unequal
+   lengths from random states;
 3. main path: compress then decompress with device="cuda", every kernel's
    launch counter and every host entry point's call counter set to 0
    before that run and read after it (every kernel must have launched, and
@@ -79,6 +88,14 @@ Phases, each of which raises (exit code != 0) when it fails:
    path's stream) and its histogram equals ``np.bincount``; each timed on
    the host's clock, the library's a median of 5 calls and the Python
    version's one call;
+3d. seekable path, its counts set to 0 before it and read after it:
+   ``compress_seekable``, ``decompress(sidecar=)`` and ``decode_range`` at
+   three ranges on the 8 MiB u8 and u16 walks, the runs stream and the
+   4 MiB u8 d4 and u16 d2 walks (delta and xff), the smooth stream
+   (delta+Huf and xff+Huf) and the 64 MiB u8 walk (xff); every sidecar
+   kernel must have launched and FIRE's serial kernels never, the host
+   library's parallel walk must have run, and every stream's bytes must
+   be ``compress``'s; the sidecar's size is printed beside the stream's;
 4. timings: each kernel's wrapper, the time inside its kernel launches
    alone, its plain version and, where one exists, one PyTorch call of the
    same function, by CUDA events (median of 25 after warm-up, L2 flushed
@@ -94,11 +111,15 @@ Phases, each of which raises (exit code != 0) when it fails:
    and from FIRE's errors), the decode and its raw mode at the 4 MiB u8
    d4 and u16 d2 streams, FIRE's full-coefficient kernels there (no plain
    time) and at the 32k-row streams (beside the plain version's one run).
-   Then compress and
-   decompress end to end, split into host, H2D, device pass, kernels (the
-   part of the device pass inside the kernel launches) and D2H, for delta,
-   xff and +Huf, and for delta and xff on the 4 MiB lowdim streams
-   (medians of 3 runs).
+   The sidecar rows: the chunked FIRE decode beside the serial one, the
+   states' encode beside the plain encode, the chunk seed (nothing moves,
+   and every chunk moved), at the 8 MiB and 4 MiB walks. Then compress
+   and decompress end to end, split into host, H2D, device pass, kernels
+   (the part of the device pass inside the kernel launches) and D2H, for
+   delta, xff and +Huf, and for delta and xff on the 4 MiB lowdim streams
+   (medians of 3 runs); then ``decompress(sidecar=)`` beside
+   ``decompress`` and ``compress_seekable`` beside ``compress`` in turns,
+   with both decodes' splits, on the xff walks and the 8 MiB u8 delta.
 
 The last two lines of standard output are the card's name and power limit
 followed by ``{"ok": true, "device": {...}}``; the line before them is
@@ -180,6 +201,19 @@ KERNELS = {  # name -> (source, the TPU pass it replaces: file:line)
                          "sprintz_tpu/models/forecasters.py:303"),
     "fire_decode_full": ("sprintz_tpu_torch/csrc/fire.cu",
                          "sprintz_tpu/models/forecasters.py:303"),
+    # the sidecar path: FIRE's decode vmapped over chunks from their states
+    # (decoder._decode_pass_chunks), the encode's second scan for its
+    # states (fire_encode_with_states), and delta's per-chunk seed there
+    "fire_decode_chunks": ("sprintz_tpu_torch/csrc/fire.cu",
+                           "sprintz_tpu/decoder.py:949"),
+    "fire_decode_chunks_full": ("sprintz_tpu_torch/csrc/fire.cu",
+                                "sprintz_tpu/decoder.py:949"),
+    "fire_encode_states": ("sprintz_tpu_torch/csrc/fire.cu",
+                           "sprintz_tpu/models/forecasters.py:351"),
+    "fire_encode_states_full": ("sprintz_tpu_torch/csrc/fire.cu",
+                                "sprintz_tpu/models/forecasters.py:351"),
+    "delta_chunk_seed": ("sprintz_tpu_torch/csrc/decode.cu",
+                         "sprintz_tpu/decoder.py:945"),
 }
 # the kernels each main path must launch: the row-major one and the lowdim
 # one (u8 ndims <= 4, u16 ndims <= 2)
@@ -194,6 +228,18 @@ HOST_LOWDIM_PATH = {"walk_headers", "gather_dims", "build_plan",
 ROWMAJOR_PATH = {"unpack_zz", "prefix_finish", "pack_rows", "unpack_rows",
                  "unpack_rows_narrow", "huff_decode", "huff_encode",
                  "fire_encode", "fire_decode"}
+# the sidecar path (compress_seekable, decompress(sidecar=), decode_range)
+# over both layouts: FIRE's encode writes its states, its decode runs in
+# chunks, and delta's decode takes the chunk seed
+SEEKABLE_PATH = {"unpack_zz", "prefix_finish", "pack_rows", "unpack_rows",
+                 "unpack_rows_narrow", "huff_decode", "huff_encode",
+                 "encode_lowdim", "encode_lowdim_errs", "decode_lowdim",
+                 "unpack_lowdim_raw", "fire_encode_states",
+                 "fire_encode_states_full", "fire_decode_chunks",
+                 "fire_decode_chunks_full", "delta_chunk_seed"}
+HOST_SEEKABLE_PATH = HOST_ROWMAJOR_PATH | HOST_LOWDIM_PATH | {
+    "walk_headers_parallel"}
+EVERY_GROUPS = 16  # the sidecar's default: a checkpoint every 16 groups
 LOWDIM_ROWS = 1 << 20  # bench.py's extra_lowdim: 1M rows (bench.py:451-479)
 LOWDIM_SMALL_ROWS = 1 << 18
 FIRE_PLAIN_ROWS = 1 << 15  # where the plain FIRE (a Python loop) is affordable
@@ -242,8 +288,8 @@ def main() -> int:
         return 2
     try:
         import sprintz_tpu_torch
-        from sprintz_tpu_torch import (SprintzCodec, decoder, encoder,
-                                       native_host, planner)
+        from sprintz_tpu_torch import (SprintzCodec, checkpoint, decoder,
+                                       encoder, native_host, planner)
         from sprintz_tpu_torch.entropy import huffman as hf
         from sprintz_tpu_torch.models import forecasters as fc
         from sprintz_tpu_torch.ops import _build
@@ -257,6 +303,7 @@ def main() -> int:
         from sprintz_tpu_torch.probes import decode_cases as dc
         from sprintz_tpu_torch.probes import encode_cases as ec
         from sprintz_tpu_torch.probes import unpack_cases as uc
+        from sprintz_tpu_torch.probes.host_build import chunk_cuts
         from sprintz_tpu_torch.stream_format import read_metadata_rle
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
@@ -293,8 +340,14 @@ def main() -> int:
         "unpack_lowdim_raw": (dk.unpack_dims_lowdim, "launches"),
         "fire_encode_full": (fc.fire_encode, "full_launches"),
         "fire_decode_full": (fc.fire_decode, "full_launches"),
+        "fire_decode_chunks": (fc.fire_decode_chunks, "launches"),
+        "fire_decode_chunks_full": (fc.fire_decode_chunks, "full_launches"),
+        "fire_encode_states": (fc.fire_encode, "states_launches"),
+        "fire_encode_states_full": (fc.fire_encode, "states_full_launches"),
+        "delta_chunk_seed": (dk.delta_chunk_seed, "launches"),
     }
-    assert set(counters) == set(KERNELS) == LOWDIM_PATH | ROWMAJOR_PATH
+    assert set(counters) == set(KERNELS) == (LOWDIM_PATH | ROWMAJOR_PATH
+                                             | SEEKABLE_PATH)
 
     # ---------------------------------------------------------- 1. build
     t0 = time.perf_counter()
@@ -742,6 +795,115 @@ def main() -> int:
         log(f"[kernels] FIRE full {what}: kernels equal their plain versions "
             f"(plain encode {ms_e:.1f} ms, decode {ms_d:.1f} ms)")
 
+    # ---------------------------------------------- 2c. seekable kernels
+    # The sidecar path's kernels against their plain versions: FIRE's encode
+    # with its states over the 8 MiB walks and the 32k-row lowdim streams;
+    # the chunked FIRE decode (both coefficients) over the 8 MiB and 4 MiB
+    # walks at the chunks and states of each stream's own sidecar, where it
+    # must give the stream, and from a sidecar with one state changed; the
+    # delta chunk seed at the same chunks (its plain versions are torch
+    # ops, cheap at any size); then the chunked decode and the states'
+    # encode at the ring shapes with 1, 2, 7 and 33 chunks of unequal
+    # lengths, from random states. A generator of its own.
+    krng = np.random.default_rng(SEED + 7)
+
+    def sidecar_cuts(x: np.ndarray, codec: str, nblocks: int):
+        """The chunks of x's own sidecar as C + 1 first blocks, the last
+        nblocks, and its states."""
+        _, sc = checkpoint.compress_with_sidecar(
+            x.reshape(-1), x.shape[1], codec=codec, device=dev)
+        return (np.append(sc.row_offsets // 8, nblocks).astype(np.int64),
+                torch.from_numpy(sc.states))
+
+    def moved(states: torch.Tensor) -> torch.Tensor:
+        """states with the middle chunk's replaced by random values."""
+        out = states.clone()
+        k = out.shape[0] // 2
+        out[k] = torch.from_numpy(krng.integers(
+            -(1 << 15), 1 << 15, tuple(out[k].shape)).astype(np.int32))
+        return out
+
+    seek = {}
+    for what, a, x in (
+            [(w, inputs[w], shapes[w]) for w in list(shapes)[:2]]
+            + [(w, ld_inputs[w], ld_shapes[w]) for w in ld_shapes]):
+        eb, nd = a["eb"], x.shape[1]
+        trunc = nd > LOWDIM_MAX_NDIMS[eb // 8]
+        sfx = "" if trunc else "_full"
+        r, nblocks = a["rows"], a["rows"].shape[0] // 8
+        fe = a["ferrs"] if trunc else (a["ferrs"].to(torch.uint8) if eb == 8
+                                       else a["ferrs"])
+        if trunc:  # the plain encode is a loop over blocks: 8 MiB at most
+            got = fc.fire_encode(r, eb, states=True)
+            (want_e, want_c), ms_s = once_ms(
+                lambda: fc.fire_encode_plain(r, eb, states=True))
+            check("fire_encode_states", got, (want_e, want_c), what)
+            a["fire_plain_ms"]["fire_encode_states"] = ms_s
+        first, states = sidecar_cuts(x, "xff", nblocks)
+        got = fc.fire_decode_chunks(fe, eb, first, states, trunc)
+        check("fire_decode_chunks" + sfx, got,
+              fc.fire_decode_chunks_plain(fe, eb, first, states, trunc), what)
+        if not torch.equal(dk.widen(got), r):
+            raise AssertionError(f"fire_decode_chunks {what}: values from the "
+                                 f"stream's own sidecar differ from it")
+        bad = moved(states)
+        check("fire_decode_chunks" + sfx,
+              fc.fire_decode_chunks(fe, eb, first, bad, trunc),
+              fc.fire_decode_chunks_plain(fe, eb, first, bad, trunc),
+              what + ", a changed state")
+        vals = (dk.decode_delta_contiguous(a["dense"], a["dwidths"], eb) if trunc
+                else dk.decode_delta_lowdim(a["dense"], a["dwidths"], eb))
+        dfirst, dstates = sidecar_cuts(x, "delta", vals.shape[0] // 8)
+        drows, dst = dfirst * 8, dstates[:, 0]
+        for st, how in ((dst, ""), (moved(dst[:, None])[:, 0], ", a changed state")):
+            check("delta_chunk_seed",
+                  dk.delta_chunk_seed(vals.clone(), drows, st, eb),
+                  dk.delta_chunk_seed_plain(vals, drows, st, eb), what + how)
+        seek[what] = dict(a=a, fe=fe, first=first, states=states, trunc=trunc,
+                          vals=vals, drows=drows, dst=dst, eb=eb)
+        log(f"[kernels] {what}: fire_decode_chunks{sfx} at its sidecar's "
+            f"{first.size - 1} chunks (and a changed state) and "
+            f"delta_chunk_seed at {drows.size - 1} equal their plain versions"
+            + ("; fire_encode_states too" if trunc else ""))
+    for what, f in ld_fire.items():  # the full coefficient's states, 32k rows
+        eb, r = f["eb"], f["rows"]
+        got = fc.fire_encode(r, eb, truncate_coeffs=False, states=True)
+        want, ms_s = once_ms(lambda: fc.fire_encode_plain(
+            r, eb, truncate_coeffs=False, states=True))
+        check("fire_encode_states_full", got, want, what)
+        f["plain_ms"]["fire_encode_states_full"] = ms_s
+    nchecked = 0
+    for eb in (8, 16):
+        for nb in (1, FIRE_TILE_BLOCKS - 1, FIRE_TILE_BLOCKS + 1,
+                   ring_blocks // 3, ring_blocks + 1):
+            for nd in (1, 31, 33, 129) + tuple(
+                    range(2, LOWDIM_MAX_NDIMS[eb // 8] + 1)):
+                trunc = nd > LOWDIM_MAX_NDIMS[eb // 8]
+                sfx = "" if trunc else "_full"
+                vals = torch.from_numpy(walk_stream(
+                    krng, nb * 8, nd, eb // 8).astype(np.int32)).to(dev)
+                got = fc.fire_encode(vals, eb, trunc, states=True)
+                check("fire_encode_states" + sfx, got,
+                      fc.fire_encode_plain(vals, eb, trunc, states=True),
+                      f"ring shape u{eb} nb {nb} D {nd}")
+                zz = got[0].to(torch.uint8) if eb == 8 else got[0]
+                nchunks = (1, 2, 7, 33)[nchecked % 4]
+                first = chunk_cuts(krng, nb, nchunks)
+                half = 1 << (eb - 1)
+                states = torch.from_numpy(np.stack([
+                    krng.integers(0, 2 * half, (nchunks, nd)),
+                    krng.integers(-half, half, (nchunks, nd)),
+                    krng.integers(-(1 << 15), 1 << 15, (nchunks, nd))],
+                    axis=1).astype(np.int32))
+                check("fire_decode_chunks" + sfx,
+                      fc.fire_decode_chunks(zz, eb, first, states, trunc),
+                      fc.fire_decode_chunks_plain(zz, eb, first, states, trunc),
+                      f"ring shape u{eb} nb {nb} D {nd}, {nchunks} chunks")
+                nchecked += 1
+    log(f"[kernels] fire_encode_states and fire_decode_chunks (both "
+        f"coefficients) equal their plain versions at {nchecked} ring shapes "
+        f"(1, 2, 7 and 33 chunks of unequal lengths, random states)")
+
     # ------------------------------------------------------ 3. main path
     streams = {
         "u8 walk 8 MiB": walk_stream(rng, 1 << 17, 64, 1),
@@ -1055,6 +1217,66 @@ def main() -> int:
                 ("walk", "gather", "plan", "assemble", "histogram")))
     log("[host] " + json.dumps({"card": smi, "streams": host}))
 
+    # ------------------------------------------------------ 3d. seekable
+    # The sidecar path: compress_seekable, then decompress(sidecar=) and
+    # decode_range at three ranges, on the 8 MiB u8 and u16 walks, the u8
+    # runs stream and the 4 MiB u8 d4 and u16 d2 walks with delta and xff,
+    # on the u8 smooth stream with delta+Huf and xff+Huf, and on the 64
+    # MiB u8 walk with xff (whose walk runs on threads); every count
+    # set to 0 just before and read just after. Every sidecar kernel must
+    # launch, FIRE's serial kernels never, and the host library's parallel
+    # walk must run. The stream bytes must be compress's.
+    sk_cases = [(w, c, "none") for c in ("delta", "xff") for w in (
+        "u8 walk 8 MiB", "u16 walk 8 MiB", "u8 runs 8 MiB",
+        "u8 d4 walk 4 MiB", "u16 d2 walk 4 MiB")]
+    sk_cases += [("u8 smooth 8 MiB", c, "huffman") for c in ("delta", "xff")]
+    sk_cases += [("u8 walk 64 MiB", "xff", "none")]  # a walk on threads
+    sidecars, sk_bufs = {}, {}
+    zero_counts()
+    for case in sk_cases:
+        x = streams[case[0]]
+        cd = codec_of(case)
+        buf, sc = cd.compress_seekable(x)
+        if not np.array_equal(cd.decompress(buf, sidecar=sc), x.reshape(-1)):
+            raise AssertionError(f"seekable {case}: round trip differs")
+        plain = (hf.huff_decompress(buf, device=dev).tobytes()
+                 if hf.is_container(buf) else buf)
+        n = x.shape[0]
+        for start, nrows in ((0, 64), (n // 3 + 5, 1000), (n - 700, 700)):
+            got = checkpoint.decode_range(plain, sc, start, nrows, device=dev)
+            if not np.array_equal(got, x[start: start + nrows]):
+                raise AssertionError(f"seekable {case}: decode_range({start}, "
+                                     f"{nrows}) differs")
+        sidecars[case], sk_bufs[case] = sc, buf
+    sk_launches = {k: getattr(obj, attr) for k, (obj, attr) in
+                   counters.items()}
+    host_calls("seekable", HOST_SEEKABLE_PATH)
+    log(f"[seekable] launches: {json.dumps(sk_launches)}")
+    missing = [k for k in SEEKABLE_PATH if sk_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"seekable path never launched: {missing}")
+    serial = [k for k in ("fire_encode", "fire_decode", "fire_encode_full",
+                          "fire_decode_full") if sk_launches[k]]
+    if serial:
+        raise AssertionError(f"seekable path ran FIRE's serial kernels: "
+                             f"{serial}")
+    for case in sk_cases:
+        x, buf, sc = streams[case[0]], sk_bufs[case], sidecars[case]
+        want = bufs.get(case) or codec_of(case).compress(x)
+        if buf != want:
+            raise AssertionError(f"seekable {case}: stream bytes differ from "
+                                 f"compress's")
+        side = len(sc.to_bytes())
+        log(f"[seekable] {' '.join(case)}: {len(buf)} B stream, sidecar "
+            f"{len(sc.byte_offsets)} checkpoints, {side} B ({side / len(buf):.4%}"
+            f" of the stream); bytes == compress's, decompress(sidecar=) and "
+            f"decode_range exact")
+    if not all(hf.is_container(sk_bufs[c]) for c in sk_cases
+               if c[2] == "huffman"):
+        raise AssertionError("seekable +Huf on the smooth stream: Huffman did "
+                             "not win, so K6 never ran on it")
+    launches = {k: launches[k] + sk_launches[k] for k in KERNELS}
+
     # -------------------------------------------------------- 4. timings
     flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
 
@@ -1367,6 +1589,77 @@ def main() -> int:
     for what, f in ld_fire.items():
         table[what] = fire_full_rows(f)
         log_rows(what, table[what])
+    def seek_rows(what, k):
+        """The sidecar's kernels at a stream: the chunked FIRE decode at its
+        sidecar's chunks (beside the serial decode, in the same call), the
+        encode with its states (beside the encode without), and the delta
+        chunk seed with the stream's own states (nothing moves) and with
+        every chunk moved."""
+        a, eb, fe, trunc = k["a"], k["eb"], k["fe"], k["trunc"]
+        first, states = k["first"], k["states"].to(dev)
+        sfx = "" if trunc else "_full"
+        nvals = a["rows"].numel()
+        longest = int(np.diff(first).max())
+        out_fd = fc.fire_decode_chunks(fe, eb, first, states, trunc)
+        dec = "fire_decode" + sfx
+        out = [row(
+            "fire_decode_chunks" + sfx,
+            lambda: fc.fire_decode_chunks(fe, eb, first, states, trunc),
+            lambda: fc.fire_decode_chunks_plain(fe, eb, first, states, trunc),
+            None, nbytes(fe, out_fd) + nbytes(states) + first.nbytes,
+            OPS_PER_ELEM[dec] * nvals,
+            chain_steps=longest * CHAIN_OPS[dec][eb], chunks=first.size - 1,
+            serial_ms=time_ms(lambda: fc.fire_decode(fe, eb, None, trunc)))]
+        r = a["rows"]
+        enc = "fire_encode" + sfx
+        out_c = fc.fire_encode(r, eb, trunc, states=True)
+        out.append(row(
+            "fire_encode_states" + sfx,
+            lambda: fc.fire_encode(r, eb, trunc, states=True),
+            a["fire_plain_ms"].get("fire_encode_states") if trunc else None,
+            None, nbytes(r, *out_c), OPS_PER_ELEM[enc] * nvals,
+            chain_steps=(r.shape[0] // 8) * CHAIN_OPS[enc][eb],
+            no_states_ms=time_ms(lambda: fc.fire_encode(r, eb, trunc))))
+        vals, drows, dst = k["vals"], k["drows"], k["dst"].to(dev)
+        nchunks, nd = dst.shape
+        es = eb // 8
+        every = moved(dst[:, None])[:, 0] + 1  # every chunk moves
+        scratch = vals.clone()
+        out.append(row(
+            "delta_chunk_seed",
+            lambda: dk.delta_chunk_seed(vals, drows, dst, eb),
+            lambda: dk.delta_chunk_seed_plain(vals, drows, dst, eb), None,
+            nchunks * nd * (es + 4) + drows.nbytes, 4 * nchunks * nd,
+            chunks=nchunks,
+            moved_ms=time_ms(
+                lambda: dk.delta_chunk_seed(scratch, drows, every, eb)),
+            moved_bytes_bound_ms=(2 * nbytes(vals) + nchunks * nd * 4)
+            / mem_rate * 1e3))
+        return out
+
+    def fire_states_full_rows(f):
+        eb, r = f["eb"], f["rows"]
+        out_c = fc.fire_encode(r, eb, truncate_coeffs=False, states=True)
+        return [row(
+            "fire_encode_states_full",
+            lambda: fc.fire_encode(r, eb, truncate_coeffs=False, states=True),
+            f["plain_ms"]["fire_encode_states_full"], None, nbytes(r, *out_c),
+            OPS_PER_ELEM["fire_encode_full"] * r.numel(),
+            chain_steps=(r.shape[0] // 8) * CHAIN_OPS["fire_encode_full"][eb],
+            no_states_ms=time_ms(
+                lambda: fc.fire_encode(r, eb, truncate_coeffs=False)))]
+
+    for what, k in seek.items():
+        table[what + " sidecar"] = seek_rows(what, k)
+        log_rows(what + " sidecar", table[what + " sidecar"])
+        for r_ in table[what + " sidecar"]:
+            extra = {k_: r_[k_] for k_ in ("chunks", "serial_ms",
+                                           "no_states_ms", "moved_ms",
+                                           "moved_bytes_bound_ms") if k_ in r_}
+            log(f"[timing] {what} sidecar {r_['name']}: {json.dumps(extra)}")
+    for what, f in ld_fire.items():
+        table[what + " sidecar"] = fire_states_full_rows(f)
+        log_rows(what + " sidecar", table[what + " sidecar"])
     log("[timing] kernels " + json.dumps(table))
 
     class Split:
@@ -1496,6 +1789,85 @@ def main() -> int:
                 if v else f"{k} 0 ms" for k, v in r[side].items()))
     log("[e2e] " + json.dumps({"card": smi, "streams": e2e}))
 
+    def split_decode_sidecar(sp: Split, buf: bytes, sc, elem_sz: int,
+                             codec: str):
+        """decompress_parallel's steps: the parallel walk, the gather, H2D,
+        the chunked device pass, D2H."""
+        ng, _, nd = read_metadata_rle(buf)
+        lowdim = nd <= LOWDIM_MAX_NDIMS[elem_sz]
+        ro = np.asarray(sc.row_offsets)
+        idx = sp.host("walk", lambda: decoder.walk_headers_parallel(
+            buf, ng, nd, elem_sz, sc.byte_offsets, ro, sc.every_groups,
+            lowdim))
+        dense = sp.host("gather", lambda: decoder.gather_payloads(buf, idx))
+        up = sp.sync("h2d", lambda: decoder.upload_payload(dense, idx, dev))
+        states = np.zeros((ro.size, 3, nd), np.int32)
+        states[:, : sc.states.shape[1]] = sc.states
+        vals = sp.device("device", lambda: decoder.decode_device(
+            *up, idx.total_rows, elem_sz, codec, lowdim,
+            chunks=(ro // 8, states)))
+        sp.host("d2h", lambda: decoder.download_values(vals))
+
+    def seek_e2e(case, reps=E2E_REPS) -> dict:
+        """decompress with and without the sidecar, and compress_seekable
+        beside compress, in turns (serial, sidecar, sidecar, serial) each
+        round; then both decodes' splits."""
+        x, buf, sc = streams[case[0]], sk_bufs[case], sidecars[case]
+        cd, es, codec = codec_of(case), x.dtype.itemsize, case[1]
+        t = {k: [] for k in ("decode", "decode_sidecar", "encode",
+                             "encode_seekable")}
+
+        def timed(key, fn):
+            c = time.perf_counter()
+            fn()
+            t[key].append(time.perf_counter() - c)
+
+        for _ in range(reps):
+            for key in ("decode", "decode_sidecar", "decode_sidecar",
+                        "decode"):
+                timed(key, (lambda: cd.decompress(buf)) if key == "decode"
+                      else (lambda: cd.decompress(buf, sidecar=sc)))
+            for key in ("encode", "encode_seekable", "encode_seekable",
+                        "encode"):
+                timed(key, (lambda: cd.compress(x)) if key == "encode"
+                      else (lambda: cd.compress_seekable(x)))
+
+        def serial_split():
+            sp = Split()
+            split_decode(sp, buf, es, codec)
+            return sp.t
+
+        def sidecar_split():
+            sp = Split()
+            split_decode_sidecar(sp, buf, sc, es, codec)
+            return sp.t
+
+        return {"bytes": x.nbytes, "compressed": len(buf),
+                "sidecar_bytes": len(sc.to_bytes()),
+                "checkpoints": len(sc.byte_offsets),
+                **{k + "_s": statistics.median(v) for k, v in t.items()},
+                "decode_split_s": med(serial_split, reps),
+                "decode_sidecar_split_s": med(sidecar_split, reps)}
+
+    sk_e2e = {}
+    for case in [(w, "xff", "none") for w in (
+            "u8 walk 8 MiB", "u16 walk 8 MiB", "u8 walk 64 MiB",
+            "u8 d4 walk 4 MiB", "u16 d2 walk 4 MiB")] + [
+                ("u8 walk 8 MiB", "delta", "none")]:
+        key = " ".join(case)
+        r = sk_e2e[key] = seek_e2e(case)
+        log(f"[e2e seekable] {key}: decode {r['decode_s'] * 1e3:.3f} ms, "
+            f"with the sidecar {r['decode_sidecar_s'] * 1e3:.3f} ms; encode "
+            f"{r['encode_s'] * 1e3:.3f} ms, compress_seekable "
+            f"{r['encode_seekable_s'] * 1e3:.3f} ms; sidecar "
+            f"{r['sidecar_bytes']} B ({r['checkpoints']} checkpoints) beside "
+            f"{r['compressed']} B; splits ms: serial " + ", ".join(
+                f"{k} {v * 1e3:.3f}" for k, v in r["decode_split_s"].items())
+            + "; sidecar " + ", ".join(
+                f"{k} {v * 1e3:.3f}" for k, v in
+                r["decode_sidecar_split_s"].items()))
+    log("[e2e seekable] " + json.dumps({"card": smi, "streams": sk_e2e}))
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "chain_bound_ms")
@@ -1503,7 +1875,11 @@ def main() -> int:
             + [r for r in table["u8 d4 walk 4 MiB (nb 131072, D 4)"]
                if r["name"] in ("encode_lowdim", "encode_lowdim_errs",
                                 "decode_lowdim", "unpack_lowdim_raw")]
-            + table["u8 d4 walk 32k rows (nb 4096, D 4)"])
+            + table["u8 d4 walk 32k rows (nb 4096, D 4)"]
+            + table["u8 main (nb 16384, D 64) sidecar"]
+            + [r for r in table["u8 d4 walk 4 MiB (nb 131072, D 4) sidecar"]
+               if r["name"] == "fire_decode_chunks_full"]
+            + table["u8 d4 walk 32k rows (nb 4096, D 4) sidecar"])
     assert sorted(r["name"] for r in line) == sorted(KERNELS)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in line]}),
           flush=True)

@@ -6,9 +6,10 @@ layout the JAX package picks (``constants.LOWDIM_MAX_NDIMS``): row-major
 for u8 ndims > 4 and u16 ndims > 2, lowdim (column-major blocks, FIRE's
 full-precision coefficient) below; with RLE of zero blocks, streams short
 enough to be stored verbatim, and the +Huf entropy stage on either codec
-and layout. Sidecars and batches raise ``NotImplementedError`` naming the
-slice of the port that brings them; nothing falls back to another codec
-path.
+and layout; checkpoint sidecars (``compress_seekable``,
+``decompress(sidecar=)``, and ``checkpoint.decode_range``). Batches raise
+``NotImplementedError`` naming the slice of the port that brings them;
+nothing falls back to another codec path.
 
 Entry points run on CUDA unless ``device`` says otherwise; ``"cpu"`` runs
 the kernels' plain PyTorch versions and is meant for tests.
@@ -23,10 +24,12 @@ import torch
 
 from . import decoder as _decoder
 from . import encoder as _encoder
+from .checkpoint import Sidecar, compress_with_sidecar, decompress_parallel
 from .entropy.huffman import huff_compress, huff_decompress, is_container
 from .errors import CorruptStreamError
 
-__all__ = ["CorruptStreamError", "SprintzCodec", "compress", "decompress"]
+__all__ = ["CorruptStreamError", "Sidecar", "SprintzCodec", "compress",
+           "decompress"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,23 +95,38 @@ class SprintzCodec:
             return stream
         return coded
 
-    def decompress(self, buf: bytes, sidecar=None) -> np.ndarray:
+    def decompress(self, buf: bytes,
+                   sidecar: Sidecar | None = None) -> np.ndarray:
         """Decompress a stream; returns the flat row-major element array.
 
-        Raises ``CorruptStreamError`` when the buffer is truncated or its
-        metadata is inconsistent."""
-        if sidecar is not None:
-            raise NotImplementedError(
-                "checkpoint sidecars arrive with a later slice of the port")
+        ``sidecar``: the checkpoint sidecar ``compress_seekable`` returned
+        with the stream; the decode then runs chunk-parallel, each chunk
+        from its recorded state (``checkpoint.decompress_parallel``), with
+        the sidecar's codec and element size.
+
+        Raises ``CorruptStreamError`` when the buffer is truncated, its
+        metadata is inconsistent, or the sidecar does not fit the stream."""
         if self.entropy == "huffman" and is_container(buf):
             buf = huff_decompress(buf, device=self.device).tobytes()
+        if sidecar is not None:
+            return decompress_parallel(buf, sidecar, device=self.device)
         return _decoder.decompress(buf, codec=self.codec,
                                    elem_sz=self.elem_sz, device=self.device)
 
-    def compress_seekable(self, data, ndims=None, every_groups=16):
-        raise NotImplementedError(
-            "checkpoint sidecars (compress_seekable) arrive with a later "
-            "slice of the port")
+    def compress_seekable(self, data: np.ndarray, ndims: int | None = None,
+                          every_groups: int = 16) -> tuple[bytes, Sidecar]:
+        """Compress and build a checkpoint sidecar -> (stream, sidecar). The
+        stream is ``compress``'s bytes (+Huf wrapped on top as there); the
+        sidecar lets ``decompress(stream, sidecar=...)`` decode
+        chunk-parallel and ``checkpoint.decode_range`` seek."""
+        flat, inferred = self._as_flat(data)
+        ndims = inferred if ndims is None else ndims
+        stream, sc = compress_with_sidecar(flat, ndims, codec=self.codec,
+                                           every_groups=every_groups,
+                                           device=self.device)
+        if self.entropy == "huffman":
+            stream = self._entropy_wrap(stream)
+        return stream, sc
 
     def compress_batch(self, arrays, ndims=None):
         raise NotImplementedError(

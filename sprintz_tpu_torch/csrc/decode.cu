@@ -108,6 +108,26 @@
 //   launch leaves them as it found them, and the wrapper keeps one zeroed
 //   buffer a device and stream. RAW mode takes steps 1, 2 and 4, its span
 //   from blockIdx.
+//
+// seed_corr_kernel<EB> + seed_apply_kernel<EB>  (the delta chunk seed)
+//   The delta half of the JAX package's chunk-parallel decode
+//   (sprintz_tpu/decoder.py:945-947, vmapped over a sidecar's chunks): chunk
+//   c's values are state_c + its own prefix, mod 2^EB. The port decodes the
+//   stream's whole timeline at once (K1 + K2, or the lowdim decode), which
+//   gives v[r], the prefix from the stream's start; so chunk c needs
+//   corr_c = state_c - v[first_c - 1] (v[-1] = 0) added to its rows. With a
+//   sidecar of the stream every corr_c is 0; with any other, each chunk
+//   follows its own state, as in JAX. decode_range is the case of one chunk,
+//   corr = the checkpoint's state.
+//   Bound on this card: launch. With every corr_c 0 (the normal case) it
+//   reads C x D values and writes nothing else; otherwise one narrow read
+//   and write a value of the chunks that move.
+//   Design: two launches, as a chunk's correction reads the last row of the
+//   chunk before it, which that chunk's own correction rewrites: every
+//   corr_c must be taken before any row is written. seed_corr_kernel, a CTA
+//   a chunk, computes corr_c and whether any dim of it is non-zero;
+//   seed_apply_kernel, CTAs (chunk, slice of its values), adds it in place,
+//   and a CTA whose chunk's corr_c is 0 leaves at once.
 
 #include <cstdint>
 
@@ -982,6 +1002,68 @@ int launch_lowdim(const uint8_t* dense, const uint8_t* widths, void* out,
   }
 }
 
+// ------------------------------------------------------- the chunk seed
+
+constexpr int SEED_THREADS = 256;
+constexpr int SEED_VALUES = 16;  // values a thread of seed_apply_kernel, about
+
+// corr[c][d] = (state[c][d] - vals[first[c] - 1][d]) mod 2^EB, vals[-1] = 0;
+// moves[c]: whether any of chunk c's is non-zero. One CTA a chunk.
+template <int EB>
+__global__ void __launch_bounds__(SEED_THREADS)
+    seed_corr_kernel(const typename Narrow<EB>::type* __restrict__ vals,
+                     const long long* __restrict__ first, const int32_t* __restrict__ state,
+                     uint32_t* __restrict__ corr, int32_t* __restrict__ moves, int ndims) {
+  const long long c = blockIdx.x;
+  const long long above = first[c] - 1;
+  int any = 0;
+  for (int d = threadIdx.x; d < ndims; d += SEED_THREADS) {
+    const uint32_t v = above >= 0 ? (uint32_t)vals[above * ndims + d] : 0u;
+    const uint32_t k = ((uint32_t)state[c * ndims + d] - v) & ((1u << EB) - 1u);
+    corr[c * ndims + d] = k;
+    any |= k != 0;
+  }
+  any = __syncthreads_or(any);
+  if (threadIdx.x == 0) moves[c] = any;
+}
+
+// vals[r][d] += corr[c][d] mod 2^EB for the rows of chunk c = blockIdx.x,
+// slice blockIdx.y of gridDim.y of them.
+template <int EB>
+__global__ void __launch_bounds__(SEED_THREADS)
+    seed_apply_kernel(typename Narrow<EB>::type* __restrict__ vals,
+                      const long long* __restrict__ first, const uint32_t* __restrict__ corr,
+                      const int32_t* __restrict__ moves, int ndims) {
+  using T = typename Narrow<EB>::type;
+  const long long c = blockIdx.x;
+  if (!moves[c]) return;
+  const long long e0 = first[c] * ndims, n = (first[c + 1] - first[c]) * ndims;
+  const uint32_t* k = corr + c * ndims;
+  for (long long i = (long long)blockIdx.y * SEED_THREADS + threadIdx.x; i < n;
+       i += (long long)gridDim.y * SEED_THREADS) {
+    T* v = vals + e0 + i;
+    *v = (T)(((uint32_t)*v + k[i % ndims]) & ((1u << EB) - 1u));
+  }
+}
+
+template <int EB>
+int launch_seed(void* vals, const long long* first, const int32_t* state, void* scratch,
+                int nchunks, long long most_rows, int ndims, cudaStream_t s) {
+  using T = typename Narrow<EB>::type;
+  uint32_t* corr = static_cast<uint32_t*>(scratch);
+  int32_t* moves = reinterpret_cast<int32_t*>(corr + (long long)nchunks * ndims);
+  seed_corr_kernel<EB><<<(unsigned)nchunks, SEED_THREADS, 0, s>>>(
+      static_cast<const T*>(vals), first, state, corr, moves, ndims);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long per = (long long)SEED_THREADS * SEED_VALUES;
+  long long slices = (most_rows * ndims + per - 1) / per;
+  slices = slices < 1 ? 1 : (slices > 65535 ? 65535 : slices);
+  seed_apply_kernel<EB><<<dim3((unsigned)nchunks, (unsigned)slices), SEED_THREADS, 0, s>>>(
+      static_cast<T*>(vals), first, corr, moves, ndims);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1047,6 +1129,22 @@ int sprintz_decode_lowdim(const void* dense, const void* widths, void* out, void
   unsigned long long* st = static_cast<unsigned long long*>(status);
   return raw ? launch_lowdim<true>(dn, wd, out, st, nb, ndims, elem_bits, s)
              : launch_lowdim<false>(dn, wd, out, st, nb, ndims, elem_bits, s);
+}
+
+// The delta chunk seed, in place: vals (rows, ndims) u8/u16; first
+// (nchunks + 1) i64 rows on the device, first[0] = 0, rising, last = rows;
+// state (nchunks, ndims) i32; scratch nchunks * (ndims + 1) words of 4
+// bytes; most_rows: the rows of the longest chunk.
+int sprintz_delta_chunk_seed(void* vals, const void* first, const void* state, void* scratch,
+                             int nchunks, long long most_rows, int ndims, int elem_bits,
+                             void* stream) {
+  if (nchunks < 1 || ndims < 1 || most_rows < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long* f = static_cast<const long long*>(first);
+  const int32_t* st = static_cast<const int32_t*>(state);
+  if (elem_bits == 8) return launch_seed<8>(vals, f, st, scratch, nchunks, most_rows, ndims, s);
+  if (elem_bits == 16) return launch_seed<16>(vals, f, st, scratch, nchunks, most_rows, ndims, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The message of a CUDA error code, for the errors of every library here.

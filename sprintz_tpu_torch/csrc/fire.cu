@@ -7,10 +7,17 @@
 //   (the counter's bits above eb - 4, forecasters.py:234-238), false for
 //   the lowdim layout's full-precision one (counter >> 1, :239-240). JAX
 //   runs this pass outside Pallas; there is no TPU kernel behind it.
-//   Encode: rows (N, D) i32 unsigned values -> zigzag errors (N, D) i32.
+//   Encode: rows (N, D) i32 unsigned values -> zigzag errors (N, D) i32,
+//   and with STATES the i32 carry before each block (prev value, prev
+//   delta, learning counter), _fire_scan(return_states=True)'s output
+//   (as (nb, D, 4) words), which a checkpoint sidecar takes its states
+//   from.
 //   Decode: zigzag errors (N, D), u8 at EB 8 (K4's narrow mode) or i32 at
-//   EB 16 -> values (N, D) u8/u16, from an optional (3, D) i32 init state
-//   (prev value, prev delta, learning counter).
+//   EB 16 -> values (N, D) u8/u16, split into C chunks of whole blocks
+//   (chunk c is blocks [first[c], first[c + 1])), chunk c from its own
+//   (3, D) i32 state: the vmapped fire_decode(init_state=) of
+//   sprintz_tpu/decoder.py:949-951, over a sidecar's checkpoints. The
+//   serial decode is the case C = 1, from one optional state.
 //
 //   What bounds it. Each dim's state passes through every block in order,
 //   so a dim is one lane's work and the card runs D lanes. The first
@@ -39,7 +46,8 @@
 //   and comes back). The byte and operation bounds are microseconds.
 //
 //   Design. One CTA owns 32 neighbouring dims and is warp-specialised
-//   around a ring of STAGES row tiles (TILE_BLOCKS blocks x 32 dims) in
+//   around a ring of STAGES row tiles (TILE_BLOCKS blocks x 32 dims; the
+//   decode takes SHORT_STAGES where its longest chunk fits in them) in
 //   shared memory, handed on through mbarriers (loaded -> chained -> free):
 //   - loader warps keep the ring full, LOAD_TEAMS tiles at a time. A lane
 //     starts LOAD_DEPTH independent loads of its dim (neighbouring lanes,
@@ -62,6 +70,16 @@
 //     store coalesced. Encode: all eight predictions and errors from the
 //     deltas and the block's coefficient, zigzag, mask. Decode: values are
 //     the running sum of the block's deltas, mod 2^EB.
+//   Chunks. A lane of the decode is a (chunk, dim) pair: a CTA's 32 lanes
+//   are 32 / L chunks of L = min(D, 32) neighbouring dims each, so that at
+//   D <= 4 one warp carries 8 to 32 chunks where the serial decode ran 1 to
+//   4 live lanes; at D > 32 a chunk spans ceil(D / 32) CTAs. Each lane
+//   loads, chains and stores its own chunk's rows; chunks differ in length
+//   (runs), so a CTA runs as many tiles as its longest chunk needs, and a
+//   lane stores only the blocks of its own. Lanes past the last chunk or
+//   dim shadow a live lane's rows and store nothing. One kernel serves the
+//   serial decode (C = 1) and the chunked one: the lane mapping is the
+//   only difference, and at C = 1 it is the serial kernel's.
 //   All arithmetic wraps as JAX's int32 does: products and sums are taken
 //   in uint32_t and read back as int32_t. That holds for the full-precision
 //   coefficient too, which at EB 16 reaches 2^30 (a 32-bit counter >> 1),
@@ -87,6 +105,11 @@ constexpr int GROUP = 32;        // dims per CTA: one lane of each warp a dim
 constexpr int TILE_BLOCKS = 16;  // blocks per tile
 constexpr int TILE_ROWS = TILE_BLOCKS * BLOCK_SZ;
 constexpr int STAGES = 8;        // tiles in the ring, a power of two
+// The chunked decode's ring where every chunk fits in it: a chunk of a
+// sidecar's 16 groups is 32 blocks, 2 tiles, and a ring of half the shared
+// memory lets two CTAs share an SM (20% faster at the 8 MiB u8 walk's 512
+// chunks than STAGES, probes/sidecar_probe.py).
+constexpr int SHORT_STAGES = 4;
 constexpr int LOAD_BLOCKS = 4;   // blocks a loader warp loads at once
 constexpr int LOAD_DEPTH = LOAD_BLOCKS * BLOCK_SZ;  // independent loads a lane
 constexpr int TEAM_WARPS = TILE_BLOCKS / LOAD_BLOCKS;  // loader warps on a tile
@@ -122,7 +145,11 @@ constexpr int DATA_BYTES = TILE_BLOCKS * 2 * GROUP * 16;
 constexpr int AUX_BYTES = TILE_BLOCKS * GROUP * 16;
 constexpr int STAGE_BYTES = DATA_BYTES + AUX_BYTES;
 constexpr int BARRIER_BYTES = 256;  // 3 * STAGES mbarriers, padded
-constexpr int SMEM_BYTES = BARRIER_BYTES + STAGES * STAGE_BYTES;
+template <int S>
+constexpr int smem_bytes() {
+  return BARRIER_BYTES + S * STAGE_BYTES;
+}
+constexpr int SMEM_BYTES = smem_bytes<STAGES>();
 // row offsets inside a tile are 32-bit (TILE_ROWS * ndims must fit) and so
 // is the count of tiles
 constexpr int MAX_NDIMS = 1 << 24;
@@ -130,10 +157,13 @@ constexpr long long MAX_BLOCKS = 1LL << 34;
 
 static_assert((STAGES & (STAGES - 1)) == 0, "slot and parity by mask and shift");
 static_assert(STAGES >= LOAD_TEAMS + 2, "a tile each for chain and finishers");
+static_assert((SHORT_STAGES & (SHORT_STAGES - 1)) == 0 && SHORT_STAGES >= LOAD_TEAMS + 2 &&
+                  SHORT_STAGES <= STAGES,
+              "the short ring");
 static_assert(3 * STAGES * 8 <= BARRIER_BYTES, "barriers");
 static_assert(SMEM_BYTES <= 232448, "shared memory of one SM");
 
-// ---- mbarriers (PTX)
+// ---- mbarriers and timers (PTX)
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -171,6 +201,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// the card's global timer, nanoseconds
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  return ns;
 }
 
 // ---- end of PTX
@@ -263,8 +300,9 @@ struct Fire {
 };
 
 // The ring's barriers and tiles in dynamic shared memory. Tile t lives in
-// slot t % STAGES; each role passes a slot once a round, so the parity to
+// slot t % S (S tiles in the ring); each role passes a slot once a round, so the parity to
 // wait for is the round's.
+template <int S = STAGES>
 struct Ring {
   uint64_t* loaded;   // loaders -> chain
   uint64_t* chained;  // chain -> finishers
@@ -273,21 +311,21 @@ struct Ring {
 
   __device__ explicit Ring(unsigned char* smem)
       : loaded(reinterpret_cast<uint64_t*>(smem)),
-        chained(loaded + STAGES),
-        free_(chained + STAGES),
+        chained(loaded + S),
+        free_(chained + S),
         stages(smem + BARRIER_BYTES) {}
 
   __device__ void init() {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < S; ++s) {
       mbar_init(loaded + s, TEAM_WARPS * 32);
       mbar_init(chained + s, 32);
       mbar_init(free_ + s, FINISHERS * 32);
     }
     mbar_init_fence();
   }
-  __device__ static __forceinline__ int slot(int t) { return t & (STAGES - 1); }
+  __device__ static __forceinline__ int slot(int t) { return t & (S - 1); }
   __device__ static __forceinline__ uint32_t round_parity(int t) {
-    return (uint32_t)(t / STAGES) & 1u;
+    return (uint32_t)(t / S) & 1u;
   }
   // this lane's first cell of slot s: cell (block b, half h) is at
   // [(2 * b + h) * GROUP], the block's aux cell at [b * GROUP]
@@ -301,7 +339,7 @@ struct Ring {
 
 __device__ __forceinline__ int blocks_in_tile(long long nb, int t) {
   const long long left = nb - (long long)t * TILE_BLOCKS;
-  return left < TILE_BLOCKS ? (int)left : TILE_BLOCKS;
+  return left < TILE_BLOCKS ? (left > 0 ? (int)left : 0) : TILE_BLOCKS;
 }
 
 // a block's eight words of one lane, from and to its two cells
@@ -322,10 +360,12 @@ __device__ __forceinline__ void write_block(uint4* cells, int b,
 // LOAD_DEPTH rows at p (row stride ndims) and the row above them -> their
 // deltas, in LOAD_BLOCKS blocks from block b0 of `cells`. FULL: all of
 // them exist; else `left` of them do (none above when has_above is false).
-template <int EB, bool FULL>
+// STATES: also the value above each block, in word 1 of its aux cell.
+template <int EB, bool FULL, bool STATES>
 __device__ __forceinline__ void load_deltas(const int32_t* __restrict__ p,
                                             uint32_t ndims, bool has_above,
-                                            long long left, uint4* cells, int b0) {
+                                            long long left, uint4* cells, uint4* aux,
+                                            int b0) {
   int32_t v[LOAD_DEPTH + 1];
   v[0] = has_above && (FULL || left >= 0) ? *(p - ndims) : 0;
 #pragma unroll
@@ -336,16 +376,28 @@ __device__ __forceinline__ void load_deltas(const int32_t* __restrict__ p,
   for (int j = 0; j < LOAD_DEPTH; ++j)
     dl[j] = (uint32_t)sext<EB>((uint32_t)v[j + 1] - (uint32_t)v[j]);
 #pragma unroll
-  for (int q = 0; q < LOAD_BLOCKS; ++q) write_block(cells, b0 + q, dl + q * BLOCK_SZ);
+  for (int q = 0; q < LOAD_BLOCKS; ++q) {
+    write_block(cells, b0 + q, dl + q * BLOCK_SZ);
+    if constexpr (STATES)
+      reinterpret_cast<int32_t*>(aux + (b0 + q) * GROUP)[1] = v[q * BLOCK_SZ];
+  }
 }
 
-template <int EB, bool TRUNC>
+// STATES: states (nb, ndims, 4) receives the carry before each block, its
+// words 0-2 (word 3 is 0). The chain leaves the counter in word 0 of the
+// block's aux cell where it leaves the coefficient otherwise, the loaders
+// the value above the block in word 1, and the finishers, which hold the
+// delta above each block and take the coefficient from the counter, write
+// all three in one 16-byte store: three 4-byte stores a (block, dim) made
+// the finishers the pipeline's slowest role (10% on the whole encode, in
+// probes/sidecar_probe.py's ablations).
+template <int EB, bool TRUNC, bool STATES>
 __global__ void __launch_bounds__(32 * WARPS)
     fire_encode_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
-                       long long nb, int ndims) {
+                       int32_t* __restrict__ states, long long nb, int ndims) {
   using F = Fire<EB>;
   extern __shared__ __align__(16) unsigned char fire_smem[];
-  Ring ring(fire_smem);
+  Ring<> ring(fire_smem);
   if (threadIdx.x == 0) ring.init();
   __syncthreads();
 
@@ -361,8 +413,8 @@ __global__ void __launch_bounds__(32 * WARPS)
     // counter -> coef -> the odd rows' gradient terms -> counter
     int32_t counter = 0;
     for (int t = 0; t < ntiles; ++t) {
-      const int s = Ring::slot(t);
-      mbar_wait(ring.loaded + s, Ring::round_parity(t));
+      const int s = Ring<>::slot(t);
+      mbar_wait(ring.loaded + s, Ring<>::round_parity(t));
       const uint4* cells = ring.data(s, lane);
       int32_t* coefs = reinterpret_cast<int32_t*>(ring.aux(s, lane));
       const int nblk = blocks_in_tile(nb, t);
@@ -371,7 +423,9 @@ __global__ void __launch_bounds__(32 * WARPS)
         uint32_t x[BLOCK_SZ];
         read_block(cells, b, x);
         const int32_t c = F::template coef<TRUNC>(counter);
-        coefs[b * GROUP * 4] = c;
+        // with STATES the counter, of which the finishers take the
+        // coefficient themselves: one store a block on the chain either way
+        coefs[b * GROUP * 4] = STATES ? counter : c;
         uint32_t grad[BLOCK_SZ / 2];
 #pragma unroll
         for (int r = 1; r < BLOCK_SZ; r += 2) {
@@ -393,15 +447,16 @@ __global__ void __launch_bounds__(32 * WARPS)
     const int b0 = (lw % TEAM_WARPS) * LOAD_BLOCKS;
     const int dsafe = active ? d : ndims - 1;  // loads stay in bounds
     for (int t = lw / TEAM_WARPS; t < ntiles; t += LOAD_TEAMS) {
-      const int s = Ring::slot(t);
-      mbar_wait(ring.free_ + s, Ring::round_parity(t) ^ 1u);
+      const int s = Ring<>::slot(t);
+      mbar_wait(ring.free_ + s, Ring<>::round_parity(t) ^ 1u);
       const long long row0 = (long long)t * TILE_ROWS + b0 * BLOCK_SZ;
       const int32_t* p = in + (row0 * ndims + dsafe);
       if ((long long)(t + 1) * TILE_ROWS <= nrows)
-        load_deltas<EB, true>(p, (uint32_t)ndims, row0 > 0, 0, ring.data(s, lane), b0);
+        load_deltas<EB, true, STATES>(p, (uint32_t)ndims, row0 > 0, 0, ring.data(s, lane),
+                                      ring.aux(s, lane), b0);
       else
-        load_deltas<EB, false>(p, (uint32_t)ndims, row0 > 0, nrows - row0,
-                               ring.data(s, lane), b0);
+        load_deltas<EB, false, STATES>(p, (uint32_t)ndims, row0 > 0, nrows - row0,
+                                       ring.data(s, lane), ring.aux(s, lane), b0);
       mbar_arrive(ring.loaded + s);
     }
   } else {
@@ -410,17 +465,23 @@ __global__ void __launch_bounds__(32 * WARPS)
     const int f = helper;
     uint32_t halo = 0;  // the delta of the row above the tile
     for (int t = 0; t < ntiles; ++t) {
-      const int s = Ring::slot(t);
-      mbar_wait(ring.chained + s, Ring::round_parity(t));
+      const int s = Ring<>::slot(t);
+      mbar_wait(ring.chained + s, Ring<>::round_parity(t));
       const uint4* cells = ring.data(s, lane);
       const int32_t* coefs = reinterpret_cast<const int32_t*>(ring.aux(s, lane));
       const int nblk = blocks_in_tile(nb, t);
       int32_t* tile_out = out + ((long long)t * TILE_ROWS * ndims + d);
       for (int b = f; b < nblk; b += FINISHERS) {
-        const int32_t c = coefs[b * GROUP * 4];
+        const int32_t cell = coefs[b * GROUP * 4];
+        const int32_t c = STATES ? F::template coef<TRUNC>(cell) : cell;
         uint32_t x[BLOCK_SZ];
         read_block(cells, b, x);
         uint32_t prev = b ? cells[(2 * b - 1) * GROUP].w : halo;
+        if constexpr (STATES) {
+          if (active)
+            reinterpret_cast<int4*>(states)[((long long)t * TILE_BLOCKS + b) * ndims + d] =
+                make_int4(coefs[b * GROUP * 4 + 1], (int32_t)prev, cell, 0);
+        }
         uint32_t zz[BLOCK_SZ];
 #pragma unroll
         for (int r = 0; r < BLOCK_SZ; ++r) {
@@ -472,25 +533,67 @@ __device__ __forceinline__ void load_errors(
   }
 }
 
-template <int EB, bool TRUNC>
+// A decode lane's (chunk, dim) pair and its chunk's blocks (see Chunks in
+// the header). `first` holds nchunks + 1 block indices, or is null for one
+// chunk of all nb blocks.
+struct ChunkLane {
+  int chunk, d;
+  bool active;          // a live (chunk, dim): it stores
+  long long b0, nblk;   // the blocks its loads read: its own chunk's, or a
+                        // live lane's where it is not live
+  long long cta_nblk;   // the most blocks of any chunk of the CTA
+
+  __device__ ChunkLane(const long long* __restrict__ first, int nchunks, long long nb,
+                       int ndims, int lane) {
+    const int per = ndims < GROUP ? ndims : GROUP;  // lanes a chunk
+    const int chunks_per_cta = GROUP / per;
+    const int dgroups = (ndims + per - 1) / per;
+    const int cg = (int)(blockIdx.x / dgroups), dg = (int)(blockIdx.x % dgroups);
+    const int cl = lane / per;
+    chunk = cg * chunks_per_cta + cl;
+    d = dg * per + lane % per;
+    active = cl < chunks_per_cta && chunk < nchunks && d < ndims;
+    // the rows a lane that is not live loads: the last live chunk's of the
+    // CTA, at the last dim
+    int ca = chunk < nchunks ? chunk : nchunks - 1;
+    if (cl >= chunks_per_cta) ca = cg * chunks_per_cta + chunks_per_cta - 1;
+    if (ca >= nchunks) ca = nchunks - 1;
+    b0 = first ? first[ca] : 0;
+    nblk = first ? first[ca + 1] - b0 : nb;
+    if (d >= ndims) d = ndims - 1;
+    long long most = nblk;
+#pragma unroll
+    for (int m = 16; m >= 1; m >>= 1) {
+      const long long o = __shfl_xor_sync(0xffffffffu, most, m);
+      most = o > most ? o : most;
+    }
+    cta_nblk = most;
+  }
+};
+
+// S: the tiles in the ring, STAGES or SHORT_STAGES
+template <int EB, bool TRUNC, int S>
 __global__ void __launch_bounds__(32 * WARPS)
     fire_decode_kernel(const typename Fire<EB>::errs_t* __restrict__ in,
                        const int32_t* __restrict__ state,
-                       typename Fire<EB>::narrow_t* __restrict__ out, long long nb,
+                       typename Fire<EB>::narrow_t* __restrict__ out,
+                       const long long* __restrict__ first, int nchunks, long long nb,
                        int ndims) {
   using F = Fire<EB>;
   extern __shared__ __align__(16) unsigned char fire_smem[];
-  Ring ring(fire_smem);
+  Ring<S> ring(fire_smem);
   if (threadIdx.x == 0) ring.init();
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp != 0 && warp % SCHEDULERS == 0) return;  // spare
   const int helper = helpers_below(warp);
-  const int d = blockIdx.x * GROUP + lane;
-  const bool active = d < ndims;
-  const long long nrows = nb * BLOCK_SZ;
-  const int ntiles = (int)((nb + TILE_BLOCKS - 1) / TILE_BLOCKS);
+  const ChunkLane cl(first, nchunks, nb, ndims, lane);
+  const int d = cl.d;  // in bounds, live or not
+  const bool active = cl.active;
+  const long long nrows = cl.nblk * BLOCK_SZ;  // of the lane's chunk
+  const int ntiles = (int)((cl.cta_nblk + TILE_BLOCKS - 1) / TILE_BLOCKS);
+  const long long row_base = cl.b0 * BLOCK_SZ;
 
   if (warp == 0) {
     // the delta, a multiply-add a row (Fire::advance), written in place of
@@ -500,9 +603,10 @@ __global__ void __launch_bounds__(32 * WARPS)
     uint32_t word = 0, beyond = 0, val = 0;
     int32_t counter = 0;
     if (state != nullptr && active) {
-      const int32_t prev_delta = state[ndims + d];
-      val = (uint32_t)state[d];
-      counter = state[2 * ndims + d];
+      const int32_t* st = state + (long long)cl.chunk * 3 * ndims + d;
+      const int32_t prev_delta = st[ndims];
+      val = (uint32_t)st[0];
+      counter = st[2 * ndims];
       word = (uint32_t)prev_delta << EB;
       // a carried delta wider than EB bits (no encoder leaves one): what
       // the word cannot hold, times the first coefficient, joins the
@@ -511,12 +615,12 @@ __global__ void __launch_bounds__(32 * WARPS)
                (uint32_t)F::template coef<TRUNC>(counter);
     }
     for (int t = 0; t < ntiles; ++t) {
-      const int s = Ring::slot(t);
-      mbar_wait(ring.loaded + s, Ring::round_parity(t));
+      const int s = Ring<S>::slot(t);
+      mbar_wait(ring.loaded + s, Ring<S>::round_parity(t));
       uint4* cells = ring.data(s, lane);
       if (t == 0) cells[0].x += beyond;
       uint4* signs = ring.aux(s, lane);
-      const int nblk = blocks_in_tile(nb, t);
+      const int nblk = blocks_in_tile(cl.cta_nblk, t);
       for (int b = 0; b < nblk; ++b) {
         uint32_t e[BLOCK_SZ];
         read_block(cells, b, e);
@@ -543,12 +647,12 @@ __global__ void __launch_bounds__(32 * WARPS)
     // LOAD_BLOCKS of its blocks
     const int lw = helper - FINISHERS;
     const int b0 = (lw % TEAM_WARPS) * LOAD_BLOCKS;
-    const int dsafe = active ? d : ndims - 1;  // loads stay in bounds
     for (int t = lw / TEAM_WARPS; t < ntiles; t += LOAD_TEAMS) {
-      const int s = Ring::slot(t);
-      mbar_wait(ring.free_ + s, Ring::round_parity(t) ^ 1u);
+      const int s = Ring<S>::slot(t);
+      mbar_wait(ring.free_ + s, Ring<S>::round_parity(t) ^ 1u);
+      // rows from the chunk's start; past its end the loads read zeros
       const long long row0 = (long long)t * TILE_ROWS + b0 * BLOCK_SZ;
-      const typename F::errs_t* p = in + (row0 * ndims + dsafe);
+      const typename F::errs_t* p = in + ((row_base + row0) * ndims + d);
       if ((long long)(t + 1) * TILE_ROWS <= nrows)
         load_errors<EB, true>(p, (uint32_t)ndims, 0, ring.data(s, lane),
                               ring.aux(s, lane), b0);
@@ -562,12 +666,14 @@ __global__ void __launch_bounds__(32 * WARPS)
     // mod 2^EB, every FINISHERS-th block
     const int f = helper;
     for (int t = 0; t < ntiles; ++t) {
-      const int s = Ring::slot(t);
-      mbar_wait(ring.chained + s, Ring::round_parity(t));
+      const int s = Ring<S>::slot(t);
+      mbar_wait(ring.chained + s, Ring<S>::round_parity(t));
       const uint4* cells = ring.data(s, lane);
       const uint4* above = ring.aux(s, lane);
-      const int nblk = blocks_in_tile(nb, t);
-      typename F::narrow_t* tile_out = out + ((long long)t * TILE_ROWS * ndims + d);
+      // this lane's blocks in the tile: those of its own chunk
+      const int nblk = blocks_in_tile(cl.nblk, t);
+      typename F::narrow_t* tile_out =
+          out + ((row_base + (long long)t * TILE_ROWS) * ndims + d);
       for (int b = f; b < nblk; b += FINISHERS) {
         uint32_t x[BLOCK_SZ];
         read_block(cells, b, x);
@@ -598,8 +704,7 @@ __global__ void __launch_bounds__(32 * WARPS)
 __global__ void chain_probe_kernel(uint32_t a, uint32_t b, long long iters,
                                    int paired, unsigned long long* out) {
   uint32_t x = threadIdx.x;
-  unsigned long long ns0, ns1;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns0));
+  const unsigned long long ns0 = global_ns();
   const long long c0 = clock64();
   if (paired) {
     for (long long i = 0; i < iters; i += 16) {
@@ -613,7 +718,7 @@ __global__ void chain_probe_kernel(uint32_t a, uint32_t b, long long iters,
     }
   }
   const long long c1 = clock64();
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns1));
+  const unsigned long long ns1 = global_ns();
   if (threadIdx.x == 0) {
     out[0] = (unsigned long long)(c1 - c0);
     out[1] = ns1 - ns0;
@@ -622,36 +727,63 @@ __global__ void chain_probe_kernel(uint32_t a, uint32_t b, long long iters,
 }
 
 template <typename Kernel>
-cudaError_t allow_ring(Kernel kernel) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              SMEM_BYTES);
+cudaError_t allow_ring(Kernel kernel, int bytes = SMEM_BYTES) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int EB, bool TRUNC>
-cudaError_t launch_scan(const void* in, const int32_t* state, void* out, long long nb,
-                        int ndims, int decode, cudaStream_t s) {
-  using F = Fire<EB>;
+template <int EB, bool TRUNC, bool STATES>
+cudaError_t launch_encode(const void* in, void* out, int32_t* states, long long nb,
+                          int ndims, cudaStream_t s) {
   const unsigned groups = (unsigned)((ndims + GROUP - 1) / GROUP);
-  if (decode) {
-    const cudaError_t err = allow_ring(fire_decode_kernel<EB, TRUNC>);
-    if (err != cudaSuccess) return err;
-    fire_decode_kernel<EB, TRUNC><<<groups, 32 * WARPS, SMEM_BYTES, s>>>(
-        static_cast<const typename F::errs_t*>(in), state,
-        static_cast<typename F::narrow_t*>(out), nb, ndims);
-  } else {
-    const cudaError_t err = allow_ring(fire_encode_kernel<EB, TRUNC>);
-    if (err != cudaSuccess) return err;
-    fire_encode_kernel<EB, TRUNC><<<groups, 32 * WARPS, SMEM_BYTES, s>>>(
-        static_cast<const int32_t*>(in), static_cast<int32_t*>(out), nb, ndims);
-  }
+  const cudaError_t err = allow_ring(fire_encode_kernel<EB, TRUNC, STATES>);
+  if (err != cudaSuccess) return err;
+  fire_encode_kernel<EB, TRUNC, STATES><<<groups, 32 * WARPS, SMEM_BYTES, s>>>(
+      static_cast<const int32_t*>(in), static_cast<int32_t*>(out), states, nb, ndims);
   return cudaGetLastError();
 }
 
+template <int EB, bool TRUNC, int S>
+cudaError_t launch_decode(const void* in, const int32_t* state, void* out,
+                          const long long* first, int nchunks, long long nb, int ndims,
+                          cudaStream_t s) {
+  using F = Fire<EB>;
+  const int per = ndims < GROUP ? ndims : GROUP;
+  const long long ctas =
+      (long long)((nchunks + GROUP / per - 1) / (GROUP / per)) * ((ndims + per - 1) / per);
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_ring(fire_decode_kernel<EB, TRUNC, S>, smem_bytes<S>());
+  if (err != cudaSuccess) return err;
+  fire_decode_kernel<EB, TRUNC, S><<<(unsigned)ctas, 32 * WARPS, smem_bytes<S>(), s>>>(
+      static_cast<const typename F::errs_t*>(in), state,
+      static_cast<typename F::narrow_t*>(out), first, nchunks, nb, ndims);
+  return cudaGetLastError();
+}
+
+// the ring's depth: the short one where the longest chunk fits in it
+template <int EB, bool TRUNC>
+cudaError_t launch_decode(const void* in, const int32_t* state, void* out,
+                          const long long* first, int nchunks, long long most, long long nb,
+                          int ndims, cudaStream_t s) {
+  return most <= (long long)SHORT_STAGES * TILE_BLOCKS
+             ? launch_decode<EB, TRUNC, SHORT_STAGES>(in, state, out, first, nchunks, nb,
+                                                      ndims, s)
+             : launch_decode<EB, TRUNC, STAGES>(in, state, out, first, nchunks, nb, ndims, s);
+}
+
+// most: the blocks of the longest chunk
 template <int EB>
-cudaError_t launch(const void* in, const int32_t* state, void* out, long long nb,
+cudaError_t launch(const void* in, const int32_t* state, void* out, int32_t* states,
+                   const long long* first, int nchunks, long long most, long long nb,
                    int ndims, int decode, int trunc, cudaStream_t s) {
-  return trunc ? launch_scan<EB, true>(in, state, out, nb, ndims, decode, s)
-               : launch_scan<EB, false>(in, state, out, nb, ndims, decode, s);
+  if (decode)
+    return trunc ? launch_decode<EB, true>(in, state, out, first, nchunks, most, nb, ndims, s)
+                 : launch_decode<EB, false>(in, state, out, first, nchunks, most, nb, ndims,
+                                            s);
+  if (states)
+    return trunc ? launch_encode<EB, true, true>(in, out, states, nb, ndims, s)
+                 : launch_encode<EB, false, true>(in, out, states, nb, ndims, s);
+  return trunc ? launch_encode<EB, true, false>(in, out, nullptr, nb, ndims, s)
+               : launch_encode<EB, false, false>(in, out, nullptr, nb, ndims, s);
 }
 
 }  // namespace
@@ -659,18 +791,43 @@ cudaError_t launch(const void* in, const int32_t* state, void* out, long long nb
 extern "C" {
 
 // encode (decode == 0): in (nb * 8, ndims) i32 values, out i32 zigzag errors,
-// from the zero state. decode (decode != 0): in (nb * 8, ndims) zigzag
+// from the zero state; state null, or (nb, ndims, 4) i32, 16-byte aligned,
+// whose words 0-2 receive the carry before each block. decode (decode != 0): in (nb * 8, ndims) zigzag
 // errors, u8 at elem_bits 8 and i32 at 16, out u8/u16 values; state
 // (3, ndims) i32 or null (zeros). trunc != 0: the row-major layout's
 // truncated int16 coefficient; trunc == 0: the lowdim layout's full one.
-int sprintz_fire_scan(const void* in, const void* state, void* out, long long nb,
-                      int ndims, int elem_bits, int decode, int trunc, void* stream) {
+int sprintz_fire_scan(void* in, void* state, void* out, long long nb, int ndims,
+                      int elem_bits, int decode, int trunc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int32_t* st = static_cast<const int32_t*>(state);
+  int32_t* st = static_cast<int32_t*>(state);
   if (nb < 1 || nb > MAX_BLOCKS || ndims < 1 || ndims > MAX_NDIMS)
     return (int)cudaErrorInvalidValue;
-  if (elem_bits == 8) return (int)launch<8>(in, st, out, nb, ndims, decode, trunc, s);
-  if (elem_bits == 16) return (int)launch<16>(in, st, out, nb, ndims, decode, trunc, s);
+  int32_t* enc_states = decode ? nullptr : st;
+  if (elem_bits == 8)
+    return (int)launch<8>(in, st, out, enc_states, nullptr, 1, nb, nb, ndims, decode, trunc, s);
+  if (elem_bits == 16)
+    return (int)launch<16>(in, st, out, enc_states, nullptr, 1, nb, nb, ndims, decode, trunc,
+                           s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The chunked decode: in and out as sprintz_fire_scan's decode; first
+// (nchunks + 1) i64 block indices on the device, first[0] = 0, rising, and
+// first[nchunks] = nb; most: the blocks of the longest chunk; states
+// (nchunks, 3, ndims) i32, chunk c's state before its first block.
+int sprintz_fire_decode_chunks(void* in, void* states, void* first, int nchunks,
+                               long long most, void* out, long long nb, int ndims,
+                               int elem_bits, int trunc, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* st = static_cast<const int32_t*>(states);
+  const long long* f = static_cast<const long long*>(first);
+  if (nb < 1 || nb > MAX_BLOCKS || ndims < 1 || ndims > MAX_NDIMS || nchunks < 1 ||
+      most < 0 || most > nb || st == nullptr || f == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (elem_bits == 8)
+    return (int)launch<8>(in, st, out, nullptr, f, nchunks, most, nb, ndims, 1, trunc, s);
+  if (elem_bits == 16)
+    return (int)launch<16>(in, st, out, nullptr, f, nchunks, most, nb, ndims, 1, trunc, s);
   return (int)cudaErrorInvalidValue;
 }
 

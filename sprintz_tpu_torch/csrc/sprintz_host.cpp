@@ -7,17 +7,23 @@
 //
 //   sprintz_walk_headers     the decode's header walk: per data block its
 //                            widths, payload offset, first row, row bytes
+//   sprintz_walk_headers_parallel
+//                            the same walk split at a sidecar's checkpoints,
+//                            its segments on threads
 //   sprintz_gather_blocks    the decode's payload gather, row-major layout:
 //                            8 rows of rb bytes a block -> (ndata, 8, maxb)
 //   sprintz_gather_dims      the same, lowdim layout: D sections of w bytes
 //                            a block -> (ndata, D, eb)
 //   sprintz_build_plan       the encode's emission plan from zero flags
-//   sprintz_assemble_stream  the encode's final byte stream
+//   sprintz_assemble_stream  the encode's final byte stream, and on request
+//                            each group's byte offset and first row (the
+//                            group index a sidecar is built from)
 //   sprintz_histogram        the +Huf table's byte counts
 //
 // Semantics are those of the Python versions beside their callers
-// (decoder._walk_headers_py, decoder._gather_payloads_py,
-// planner._build_plan_py, encoder._assemble_stream_py, np.bincount), which
+// (decoder._walk_headers_py, decoder._walk_headers_parallel_py,
+// decoder._gather_payloads_py, planner._build_plan_py,
+// encoder._assemble_stream_py, checkpoint._group_index_py, np.bincount), which
 // the tests hold this library to; they replicate the reference encoder's
 // consumption order (sprintz_delta_rle.cpp:214-312). Every entry point
 // returns int64_t: a count, 0, or -1 where the input would be read or
@@ -176,6 +182,11 @@ void gather_dims_range(const uint8_t* buf, const uint8_t* end,
 // thread's, and of a 37 MB stream 3.8x faster).
 constexpr int64_t kThreadBytes = 2 << 20;
 constexpr int64_t kHistogramBytes = 8 << 20;
+// The same for the walk split at a sidecar's checkpoints, whose work a
+// byte is less: on the host of an H100 machine 8 threads walked an 8 MiB
+// u8 stream's 4.7 MB in 1.6 ms where one thread took 0.56 (chip_smoke.py's
+// split), and the threads' first touches of fresh output pages contend.
+constexpr int64_t kWalkBytes = 8 << 20;
 
 // Run work(lo, hi) over [0, n) on up to the host's cores, one thread for
 // every `grain` items at least.
@@ -516,6 +527,82 @@ int64_t sprintz_walk_headers(
   return ndata;
 }
 
+// Segment-parallel header walk: segment s covers groups [s * every_groups,
+// min((s + 1) * every_groups, ngroups)) and starts at byte byte_offsets[s]
+// with first row row_offsets[s] (a checkpoint sidecar's). A group holds
+// two data blocks at most, so segment s writes its blocks into the outputs
+// from index 2 * (its first group) on, walked by the thread that owns it
+// and its first rows shifted there; segments that hold runs leave gaps,
+// which a serial pass then closes (a move to the left, in stream order).
+// No scratch: a copy of every block through scratch, and its pages,
+// took longer than the walk it split (on the host of an H100 machine).
+// Outputs as sprintz_walk_headers (cap >= 2 * ngroups data blocks);
+// out_meta [ndata, total_rows, tail_offset], the last two from the last
+// segment. Returns ndata, -1 where a segment's walk would overrun the
+// buffer or the outputs (or a byte offset lies outside the buffer), -2
+// where a segment's rows do not end at the next segment's first row (the
+// sidecar does not belong to the stream).
+int64_t sprintz_walk_headers_parallel(
+    const uint8_t* buf, int64_t buf_len, const int64_t* byte_offsets,
+    const int64_t* row_offsets, int64_t nseg, int64_t every_groups,
+    int64_t ngroups, int32_t ndims, int32_t elem_sz, int32_t lowdim,
+    int64_t cap, uint8_t* widths_out, int64_t* offsets_out,
+    int64_t* out_rows_out, int32_t* row_bytes_out, int64_t* out_meta) {
+  if (nseg < 1 || every_groups < 1 || ngroups < 0 || 2 * ngroups > cap) return -1;
+  for (int64_t s = 0; s < nseg; ++s)
+    if (byte_offsets[s] < 0 || byte_offsets[s] >= buf_len) return -1;
+  // segment s's first group and its groups; a segment past the last group
+  // walks none (every is every_groups, which a segment cannot outgrow the
+  // stream by, clamped so that no product overflows)
+  const int64_t every = std::min(every_groups, std::max<int64_t>(ngroups, 1));
+  auto first_group = [&](int64_t s) {
+    return std::min(std::min(s, ngroups / every + 1) * every, ngroups);
+  };
+  std::vector<int64_t> nd(nseg), rows(nseg), tails(nseg);
+  std::vector<char> bad((size_t)nseg, 0);
+  // a thread takes runs of segments of kWalkBytes of stream at least
+  const int64_t span = std::max<int64_t>(buf_len - byte_offsets[0], 1);
+  parallel_for(nseg, std::max<int64_t>(kWalkBytes * nseg / span, 1), 64,
+               [&](int64_t lo, int64_t hi) {
+    for (int64_t s = lo; s < hi; ++s) {
+      const int64_t g0 = first_group(s), g1 = first_group(s + 1);
+      const int64_t at = 2 * g0;  // this segment's first output index
+      int64_t meta[3];
+      const int64_t n = sprintz_walk_headers(
+          buf, buf_len, byte_offsets[s], std::max<int64_t>(g1 - g0, 0), ndims, elem_sz,
+          lowdim, 2 * (g1 - g0), widths_out + at * ndims, offsets_out + at,
+          out_rows_out + at, row_bytes_out + at, meta);
+      if (n < 0) {
+        bad[(size_t)s] = 1;
+        continue;
+      }
+      for (int64_t i = 0; i < n; ++i) out_rows_out[at + i] += row_offsets[s];
+      nd[s] = n;
+      rows[s] = meta[1];
+      tails[s] = meta[2];
+    }
+  });
+  for (char b : bad)
+    if (b) return -1;
+  for (int64_t s = 0; s + 1 < nseg; ++s)
+    if (row_offsets[s] + rows[s] != row_offsets[s + 1]) return -2;
+  int64_t ndata = 0;
+  for (int64_t s = 0; s < nseg; ++s) {
+    const int64_t at = 2 * first_group(s), n = nd[s];
+    if (ndata != at) {  // close the gap runs left before this segment
+      memmove(widths_out + ndata * ndims, widths_out + at * ndims, (size_t)(n * ndims));
+      memmove(offsets_out + ndata, offsets_out + at, (size_t)n * 8);
+      memmove(out_rows_out + ndata, out_rows_out + at, (size_t)n * 8);
+      memmove(row_bytes_out + ndata, row_bytes_out + at, (size_t)n * 4);
+    }
+    ndata += n;
+  }
+  out_meta[0] = ndata;
+  out_meta[1] = row_offsets[nseg - 1] + rows[nseg - 1];
+  out_meta[2] = tails[nseg - 1];
+  return ndata;
+}
+
 // Row-major payload gather: block i = kBlockSz rows of rb[i] bytes at
 // offsets[i], landing at out[i * kBlockSz * maxb + r * maxb], zero past
 // rb[i]; every byte of out[0, ndata * kBlockSz * maxb) is written, so out
@@ -597,7 +684,9 @@ int64_t sprintz_histogram(const uint8_t* data, int64_t n, int64_t* counts) {
 // Final stream assembly: the 8-byte metadata, then for each group its
 // header and its two slots (a data block's payload, a run varint, or a
 // padding zero), then the verbatim tail. Returns the stream's length, or
-// -1 if out_cap is too small.
+// -1 if out_cap is too small. With group_index, pass 1 also writes each
+// group's byte offset and first row, which it knows anyway: a sidecar's
+// checkpoints are taken from them without a walk over the stream.
 //
 // Two passes so that emission parallelizes: pass 1 computes every group's
 // byte offset, pass 2 emits groups into their disjoint output ranges,
@@ -613,9 +702,11 @@ int64_t sprintz_assemble_stream(
     int64_t maxb, int32_t ndims, int32_t elem_sz, int32_t lowdim,
     const uint8_t* tail, int64_t tail_nbytes,
     uint8_t* out, int64_t out_cap,
-    const int32_t* wsums) {  // optional (nb,) per-block width sums (the
-                             // device pass computes them): skips the
-                             // O(nslots * ndims) resum
+    const int32_t* wsums,  // optional (nb,) per-block width sums (the
+                           // device pass computes them): skips the
+                           // O(nslots * ndims) resum
+    int64_t* group_index) {  // optional (2, ng): each group's byte offset,
+                             // then its first row
   const int hdr_bits = elem_sz == 1 ? 3 : 4;
   const int64_t total_header_bytes =
       ((int64_t)ndims * hdr_bits * kGroupSzBlocks + 7) / 8;
@@ -661,6 +752,21 @@ int64_t sprintz_assemble_stream(
     for (int64_t s = g * kGroupSzBlocks; s < s1; s++) pos += slot_size[s];
   }
   group_off[ng] = pos;
+  if (group_index) {
+    // a data slot is one block, a run slot `value` blocks, padding none
+    int64_t row = 0;
+    for (int64_t g = 0; g < ng; g++) {
+      group_index[g] = group_off[g];
+      group_index[ng + g] = row;
+      const int64_t s1 = std::min(nslots, (g + 1) * kGroupSzBlocks);
+      for (int64_t s = g * kGroupSzBlocks; s < s1; s++) {
+        if (kinds[s] == kKindData)
+          row += kBlockSz;
+        else if (kinds[s] == kKindRun)
+          row += (int64_t)values[s] * kBlockSz;
+      }
+    }
+  }
   if (pos + tail_nbytes > out_cap) return -1;
 
   // ---- pass 2: emit groups into their disjoint ranges

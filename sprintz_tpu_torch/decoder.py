@@ -22,6 +22,14 @@ same kernels: a run block decodes as zero errors, which FIRE runs through
 as the encoder did.
 
 The values come back narrow and the verbatim tail is appended on the host.
+
+A checkpoint sidecar (``checkpoint.py``) splits the same pass into chunks:
+``walk_headers_parallel`` walks the sidecar's segments on threads, and
+``decode_device(chunks=...)`` decodes the whole timeline at once with each
+chunk from its recorded state (``fire_decode_chunks``; delta's
+``delta_chunk_seed`` after its decode), so the values come out in order.
+``decode_indexed`` is the serial decode of a walk that starts mid-stream,
+from a checkpoint's state (``checkpoint.decode_range``).
 """
 
 from __future__ import annotations
@@ -42,11 +50,12 @@ from .constants import (
 from . import native_host
 from .device import resolve_device
 from .errors import CorruptStreamError
-from .models.forecasters import fire_decode
+from .models.forecasters import fire_decode, fire_decode_chunks
 from .ops.bitmath import header_to_width
 from .ops.decode_kernels import (
     decode_delta_contiguous,
     decode_delta_lowdim,
+    delta_chunk_seed,
     unpack_dims_lowdim,
 )
 from .ops.pack_kernels import unpack_rows
@@ -67,24 +76,82 @@ class StreamIndex:
     section_bytes: int = 0  # lowdim: EB bytes a (block, dim); 0: row-major
 
 
-def walk_headers(buf: bytes, ngroups: int, ndims: int, elem_sz: int,
-                 lowdim: bool = False) -> StreamIndex:
-    """Sequential walk over the group headers, which start right after
-    the stream's metadata, to index payloads and runs, in the port's host
-    library (``native_host.walk_headers``). A data block's payload is 8
-    rows of ceil(sum(w) / 8) bytes, or sum(w) bytes in the lowdim layout
-    (each dim's 8 fields of w bits are w bytes). ``_walk_headers_py`` is
-    its plain version."""
-    widths, offsets, out_rows, row_bytes, total_rows, tail_offset = (
-        native_host.walk_headers(buf, ngroups, ndims, elem_sz, lowdim))
+def _index(walk, elem_sz: int, lowdim: bool) -> StreamIndex:
+    widths, offsets, out_rows, row_bytes, total_rows, tail_offset = walk
     return StreamIndex(
         widths=widths, payload_offsets=offsets, out_rows=out_rows,
         row_bytes=row_bytes, total_rows=total_rows, tail_offset=tail_offset,
         section_bytes=8 * elem_sz if lowdim else 0)
 
 
+def walk_headers(buf: bytes, ngroups: int, ndims: int, elem_sz: int,
+                 lowdim: bool = False,
+                 start: int = METADATA_LEN_RLE) -> StreamIndex:
+    """Sequential walk over ``ngroups`` group headers from byte ``start``
+    (right after the stream's metadata, or a sidecar's checkpoint; rows
+    count from there) to index payloads and runs, in the port's host
+    library (``native_host.walk_headers``). A data block's payload is 8
+    rows of ceil(sum(w) / 8) bytes, or sum(w) bytes in the lowdim layout
+    (each dim's 8 fields of w bits are w bytes). ``_walk_headers_py`` is
+    its plain version."""
+    return _index(native_host.walk_headers(buf, ngroups, ndims, elem_sz,
+                                           lowdim, start), elem_sz, lowdim)
+
+
+def walk_headers_parallel(buf: bytes, ngroups: int, ndims: int,
+                          elem_sz: int, byte_offsets: np.ndarray,
+                          row_offsets: np.ndarray, every_groups: int,
+                          lowdim: bool = False) -> StreamIndex:
+    """``walk_headers`` of the whole stream, split at a sidecar's
+    checkpoints: segment s walks ``every_groups`` groups from
+    ``byte_offsets[s]`` with rows from ``row_offsets[s]``, the segments on
+    threads of the host library (``native_host.walk_headers_parallel``).
+    A sidecar of one checkpoint, or a stream of at most ``every_groups``
+    groups, takes the serial walk, as the JAX package's
+    ``decoder.walk_headers_parallel`` does. Raises ``CorruptStreamError``
+    where a segment's rows do not end at the next segment's first row.
+    ``_walk_headers_parallel_py`` is its plain version."""
+    if len(byte_offsets) <= 1 or ngroups <= every_groups:
+        return walk_headers(buf, ngroups, ndims, elem_sz, lowdim)
+    return _index(native_host.walk_headers_parallel(
+        buf, byte_offsets, row_offsets, every_groups, ngroups, ndims,
+        elem_sz, lowdim), elem_sz, lowdim)
+
+
+def _walk_headers_parallel_py(buf: bytes, ngroups: int, ndims: int,
+                              elem_sz: int, byte_offsets: np.ndarray,
+                              row_offsets: np.ndarray, every_groups: int,
+                              lowdim: bool = False) -> StreamIndex:
+    """``walk_headers_parallel``'s plain version: the plain serial walk of
+    each segment, one after another, then the segments' rows checked
+    against the sidecar's and the indexes joined."""
+    if len(byte_offsets) <= 1 or ngroups <= every_groups:
+        return _walk_headers_py(buf, ngroups, ndims, elem_sz, lowdim)
+    parts = []
+    for s, start in enumerate(byte_offsets):
+        g0 = min(s * every_groups, ngroups)
+        parts.append(_walk_headers_py(
+            buf, min(g0 + every_groups, ngroups) - g0, ndims, elem_sz, lowdim,
+            int(start)))
+    for s, part in enumerate(parts[:-1]):
+        if row_offsets[s] + part.total_rows != row_offsets[s + 1]:
+            raise CorruptStreamError(
+                f"sidecar inconsistent with stream at checkpoint {s}: "
+                f"segment rows {part.total_rows} != recorded row span")
+    return StreamIndex(
+        widths=np.concatenate([p.widths for p in parts]),
+        payload_offsets=np.concatenate([p.payload_offsets for p in parts]),
+        out_rows=np.concatenate([p.out_rows + int(row_offsets[s])
+                                 for s, p in enumerate(parts)]),
+        row_bytes=np.concatenate([p.row_bytes for p in parts]),
+        total_rows=int(row_offsets[-1]) + parts[-1].total_rows,
+        tail_offset=parts[-1].tail_offset,
+        section_bytes=parts[0].section_bytes)
+
+
 def _walk_headers_py(buf: bytes, ngroups: int, ndims: int, elem_sz: int,
-                     lowdim: bool = False) -> StreamIndex:
+                     lowdim: bool = False,
+                     start: int = METADATA_LEN_RLE) -> StreamIndex:
     """``walk_headers``' plain version: a Python loop over the groups."""
     hdr_bits = nbits_sz_bits(elem_sz)
     elem_bits = 8 * elem_sz
@@ -93,7 +160,7 @@ def _walk_headers_py(buf: bytes, ngroups: int, ndims: int, elem_sz: int,
     widths_list = []
     offsets = []
     out_rows = []
-    pos = METADATA_LEN_RLE
+    pos = start
     row = 0
     buf_len = len(buf)
     buf_np = np.frombuffer(buf, dtype=np.uint8)
@@ -190,13 +257,20 @@ def _gather_payloads_py(buf: bytes, idx: StreamIndex) -> np.ndarray:
 def decode_device(dense: torch.Tensor, widths: torch.Tensor,
                   out_rows: torch.Tensor, total_rows: int,
                   elem_sz: int, codec: str = "delta",
-                  lowdim: bool = False) -> torch.Tensor:
+                  lowdim: bool = False, chunks=None) -> torch.Tensor:
     """Device pass: the gathered payload of the data blocks -> the stream's
     rows (total_rows, D), u8/u16, on the payload's device.
 
     dense (ndata, 8, MAXB) uint8, or (ndata, D, EB) with ``lowdim``;
     widths (ndata, D) uint8; out_rows (ndata,) int64 first row of each
     data block on the timeline.
+
+    ``chunks``: None, or (first_block, states) to decode the timeline as
+    chunks that each start from a state of their own: first_block the
+    chunks' first blocks (C,), rising from 0, on the host; states
+    (C, S, D) int32, S 3 for FIRE and 1 (or more; row 0 is used) for
+    delta. Chunk c runs to the next chunk's first block, the last to the
+    end of the timeline.
 
     With runs, the payload blocks are first placed on the block timeline
     (runs are whole blocks, so every block start is 8-aligned): a run
@@ -212,16 +286,28 @@ def decode_device(dense: torch.Tensor, widths: torch.Tensor,
         src[out_rows // BLOCK_SZ] = torch.arange(ndata, device=dense.device)
         dense = torch.cat([dense, dense.new_zeros((1,) + dense.shape[1:])])[src]
         widths = torch.cat([widths, widths.new_zeros((1, ndims))])[src]
+    if chunks is not None:
+        first = np.append(np.asarray(chunks[0], dtype=np.int64),
+                          total_rows // BLOCK_SZ)
+        states = np.asarray(chunks[1], dtype=np.int32)
     if codec == "xff":
         if lowdim:
             errs = unpack_dims_lowdim(dense, widths)
         else:
             errs = unpack_rows(dense, widths, narrow=elem_sz == 1)
-        return fire_decode(errs.reshape(-1, ndims), 8 * elem_sz,
-                           truncate_coeffs=not lowdim)
+        errs = errs.reshape(-1, ndims)
+        if chunks is not None:
+            return fire_decode_chunks(errs, 8 * elem_sz, first, states,
+                                      truncate_coeffs=not lowdim)
+        return fire_decode(errs, 8 * elem_sz, truncate_coeffs=not lowdim)
     if lowdim:
-        return decode_delta_lowdim(dense, widths, 8 * elem_sz)
-    return decode_delta_contiguous(dense, widths, 8 * elem_sz)
+        vals = decode_delta_lowdim(dense, widths, 8 * elem_sz)
+    else:
+        vals = decode_delta_contiguous(dense, widths, 8 * elem_sz)
+    if chunks is not None:
+        vals = delta_chunk_seed(vals, first * BLOCK_SZ, states[:, 0],
+                                8 * elem_sz)
+    return vals
 
 
 def decompress(buf: bytes, codec: str = "delta", elem_sz: int = 1,
@@ -268,6 +354,30 @@ def decompress(buf: bytes, codec: str = "delta", elem_sz: int = 1,
     vals = decode_device(*upload_payload(dense, idx, dev), idx.total_rows,
                          elem_sz, codec, lowdim)
     return np.concatenate([download_values(vals), tail])
+
+
+def decode_indexed(buf: bytes, idx: StreamIndex, ndims: int, elem_sz: int,
+                   codec: str, init_state: np.ndarray | None = None,
+                   device: str | torch.device | None = None) -> np.ndarray:
+    """Decode the rows a walk indexed (a walk that may start mid-stream, at
+    a sidecar's checkpoint) from ``init_state``, the (S, D) state entering
+    its first block (FIRE's (3, D) carry, delta's (1, D) previous row;
+    zeros when None) -> (rows, D) u8/u16, without the verbatim tail. The
+    counterpart of the JAX package's ``decoder.decode_indexed`` (the walk
+    tells the layout); the device pass is ``decode_device``'s, as one
+    chunk."""
+    dev = resolve_device(device)
+    udt = np.uint8 if elem_sz == 1 else np.uint16
+    if idx.total_rows == 0:
+        return np.zeros((0, ndims), udt)
+    state = np.zeros((3, ndims), np.int32)
+    if init_state is not None:
+        init_state = np.asarray(init_state, dtype=np.int32)
+        state[: init_state.shape[0]] = init_state
+    vals = decode_device(*upload_payload(gather_payloads(buf, idx), idx, dev),
+                         idx.total_rows, elem_sz, codec, idx.section_bytes > 0,
+                         chunks=(np.zeros(1, np.int64), state[None]))
+    return download_values(vals).reshape(-1, ndims)
 
 
 def upload_payload(dense: np.ndarray, idx: StreamIndex, device: torch.device):

@@ -21,9 +21,16 @@ Counterpart of ``sprintz_tpu/encoder.py`` for its two layouts: row-major
 Both host steps run in the port's host library (``native_host``, C++).
 
 Output is byte-identical to the reference and to the JAX package.
+``compress_with_layout`` also returns what a checkpoint sidecar is built
+from (``checkpoint.compress_with_sidecar``): the blocks the device pass
+coded, each group's byte offset and first row (from the assembler, so no
+walk over the stream), and on request FIRE's carry before every block
+(from the same FIRE launch), with the same bytes.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -59,31 +66,47 @@ def upload_rows(rows: np.ndarray, device: torch.device,
 
 
 def encode_device(rows: torch.Tensor, elem_sz: int, codec: str = "delta",
-                  lowdim: bool = False):
+                  lowdim: bool = False, fire_states: bool = False):
     """Device pass: rows (N, D), N divisible by 8 ->
     (widths (nb, D), hdr (nb, D), dense u8, width_sums (nb,) int32), all on
     the rows' device. Row-major: rows int32, widths and hdr int32, dense
     (nb, 8, D*elem_sz). ``lowdim``: widths and hdr uint8, dense
     (nb, D, 8*elem_sz); delta takes the rows narrow, as
     ``upload_rows(..., narrow=True)`` gives them (int32 rows are narrowed
-    first)."""
+    first). With ``fire_states`` (xff), a fifth output: FIRE's (nb, 3, D)
+    int32 carry before each block."""
     eb = 8 * elem_sz
     if lowdim and codec == "delta":
         if rows.dtype == torch.int32:
             rows = (rows - ((rows & 0x8000) << 1) if elem_sz == 2
                     else rows).to(rows_dtype(elem_sz))
         return encode_lowdim(rows, elem_sz)
-    if codec == "xff":
+    carries = ()
+    if codec == "xff" and fire_states:
+        errs, carry = fire_encode(rows, eb, truncate_coeffs=not lowdim,
+                                  states=True)
+        carries = (carry,)
+    elif codec == "xff":
         errs = fire_encode(rows, eb, truncate_coeffs=not lowdim)
     else:
         errs = delta_encode(rows, eb)
     if lowdim:
-        return encode_lowdim(errs, elem_sz, errors=True)
+        return encode_lowdim(errs, elem_sz, errors=True) + carries
     blocks = errs.reshape(-1, BLOCK_SZ, rows.shape[1])
     widths = block_widths_rowmajor(blocks.amax(dim=1), elem_sz)
     return (widths, header_value(widths, eb), pack_rows(blocks, widths,
                                                         elem_sz),
-            widths.sum(dim=1, dtype=torch.int32))
+            widths.sum(dim=1, dtype=torch.int32)) + carries
+
+
+@dataclasses.dataclass
+class StreamLayout:
+    """What ``compress_with_layout`` knows of the stream it made."""
+
+    nb: int  # blocks the device pass coded (whole rows of 8)
+    group_offsets: np.ndarray  # (ngroups,) int64 byte offset of each group
+    group_first_rows: np.ndarray  # (ngroups,) int64 its first row
+    fire_states: torch.Tensor | None  # (nb, 3, D) int32 on the device
 
 
 def compress(flat: np.ndarray, ndims: int, codec: str = "delta",
@@ -95,6 +118,17 @@ def compress(flat: np.ndarray, ndims: int, codec: str = "delta",
     ``device``: where the device pass runs, CUDA by default (raises when
     CUDA is absent); ``"cpu"`` runs the kernels' plain versions (tests).
     """
+    return compress_with_layout(flat, ndims, codec, elem_sz, device)[0]
+
+
+def compress_with_layout(flat: np.ndarray, ndims: int, codec: str = "delta",
+                         elem_sz: int | None = None,
+                         device: str | torch.device | None = None,
+                         fire_states: bool = False
+                         ) -> tuple[bytes, StreamLayout]:
+    """``compress``, also returning the stream's ``StreamLayout``; with
+    ``fire_states`` (xff) the FIRE launch also writes its carry before each
+    block, which stays on the device."""
     if codec not in ("delta", "xff"):
         raise ValueError(f"codec must be 'delta' or 'xff', got {codec!r}")
     flat = np.ascontiguousarray(flat).reshape(-1)
@@ -107,15 +141,22 @@ def compress(flat: np.ndarray, ndims: int, codec: str = "delta",
         raise ValueError(f"ndims must be >= 1, got {ndims}")
     dev = resolve_device(device)
     n = flat.size
+    none = np.zeros(0, np.int64)
     if n < MIN_DATA_SIZE:
-        return write_metadata_rle(0, n, ndims) + flat.tobytes()
+        return (write_metadata_rle(0, n, ndims) + flat.tobytes(),
+                StreamLayout(0, none, none, None))
     lowdim = ndims <= LOWDIM_MAX_NDIMS[elem_sz]
 
     nb = n // (BLOCK_SZ * ndims)
     rows = upload_rows(flat[: nb * BLOCK_SZ * ndims].reshape(-1, ndims), dev,
                        narrow=lowdim and codec == "delta")
-    widths, hdr, dense, width_sums = encode_device(rows, elem_sz, codec,
-                                                   lowdim)
+    carries = None
+    if fire_states and codec == "xff":
+        widths, hdr, dense, width_sums, carries = encode_device(
+            rows, elem_sz, codec, lowdim, fire_states=True)
+    else:
+        widths, hdr, dense, width_sums = encode_device(rows, elem_sz, codec,
+                                                       lowdim)
     widths_np = widths.to(torch.uint8).cpu().numpy()
     hdr_np = hdr.to(torch.uint8).cpu().numpy()
     dense_np = dense.cpu().numpy()
@@ -123,25 +164,31 @@ def compress(flat: np.ndarray, ndims: int, codec: str = "delta",
 
     # lowdim FIRE takes delta's strict run comparator (encoder.py:346)
     plan = build_plan(wsums_np == 0, n, ndims, codec == "xff" and not lowdim)
-    return assemble_stream(plan, widths_np, hdr_np, dense_np, ndims, elem_sz,
-                           flat[n - plan.remaining_elems:], lowdim, wsums_np)
+    stream, offsets, first_rows = assemble_stream(
+        plan, widths_np, hdr_np, dense_np, ndims, elem_sz,
+        flat[n - plan.remaining_elems:], lowdim, wsums_np, group_index=True)
+    return stream, StreamLayout(nb, offsets, first_rows, carries)
 
 
 def assemble_stream(plan: EmissionPlan, widths_np: np.ndarray,
                     hdr_np: np.ndarray, dense_np: np.ndarray, ndims: int,
                     elem_sz: int, tail: np.ndarray, lowdim: bool = False,
-                    wsums: np.ndarray | None = None) -> bytes:
+                    wsums: np.ndarray | None = None,
+                    group_index: bool = False):
     """Final stream assembly in the port's host library
     (``native_host.assemble_stream``): group g's header precedes slots 2g
     and 2g+1; a data slot's payload is 8 rows of ceil(sum(widths) / 8)
     bytes (row-major) or its D sections of widths[d] bytes, sum(widths) in
     all (lowdim); a run slot is a 1- or 2-byte varint. ``wsums``: the
     blocks' width sums, which the device pass computes; the library sums
-    the widths itself without them. ``_assemble_stream_py`` is its plain
-    version."""
+    the widths itself without them. With ``group_index``, returns (stream,
+    each group's byte offset, each group's first row).
+    ``_assemble_stream_py`` is its plain version (``checkpoint``'s
+    ``_group_index_py`` that of the group index)."""
     return native_host.assemble_stream(
         plan.kinds, plan.values, plan.ngroups, plan.remaining_elems,
-        widths_np, hdr_np, dense_np, ndims, elem_sz, lowdim, tail, wsums)
+        widths_np, hdr_np, dense_np, ndims, elem_sz, lowdim, tail, wsums,
+        group_index)
 
 
 def _assemble_stream_py(plan: EmissionPlan, widths_np: np.ndarray,

@@ -34,6 +34,15 @@ coefficient (up to 2^30) makes that product wrap.
 FIRE's state is the (3, D) int32 carry (prev value, prev delta, learning
 counter); ``fire_decode`` takes it as ``init_state`` to enter a stream
 mid-way, as the JAX package's ``fire_decode(init_state=...)`` does.
+``fire_encode(states=True)`` also returns the carry before every block, in
+the same pass (the JAX package's ``fire_encode_with_states`` runs a second
+scan for it), and ``fire_decode_chunks`` decodes a stream cut into chunks
+of whole blocks, each from its own carry (a checkpoint sidecar's): the
+vmapped decode of the JAX package's ``decoder._decode_pass_chunks``, with
+C·D lanes where the serial decode has D. Both launch the same two kernels;
+the chunked decode counts its launches in ``fire_decode_chunks.launches``
+(``full_launches``), the states' encode in ``fire_encode.states_launches``
+(``states_full_launches``).
 """
 
 from __future__ import annotations
@@ -50,7 +59,7 @@ from ..constants import (
 )
 from ..ops import _build
 from ..ops.bitmath import sign_extend, zigzag_decode, zigzag_encode
-from ..ops.decode_kernels import check_args, narrow, narrow_dtype
+from ..ops.decode_kernels import check_args, narrow, narrow_dtype, to_device
 
 
 def delta_encode(rows: torch.Tensor, elem_bits: int) -> torch.Tensor:
@@ -156,9 +165,10 @@ def _fire_coef(counter: torch.Tensor, elem_bits: int,
 
 
 def _fire_encode_blocks(blocks: torch.Tensor, elem_bits: int,
-                        truncate_coeffs: bool) -> torch.Tensor:
+                        truncate_coeffs: bool, states: bool = False):
     """(nb, 8, D) int64 values -> (nb, 8, D) int64 zigzag errors, from the
-    zero state. The loop over blocks carries only the counter, through the
+    zero state, and with ``states`` the (nb, 3, D) int64 carry before each
+    block. The loop over blocks carries only the counter, through the
     odd rows' errors; everything else is one pass over the stream."""
     nb, _, ndims = blocks.shape
     rows = blocks.reshape(-1, ndims)
@@ -171,14 +181,23 @@ def _fire_encode_blocks(blocks: torch.Tensor, elem_bits: int,
     coefs = torch.empty((nb, 1, ndims), dtype=torch.int64,
                         device=blocks.device)
     counter = zero[0]
+    counters = torch.empty((nb, ndims), dtype=torch.int64,
+                           device=blocks.device)
     for b in range(nb):
+        counters[b] = counter
         coef = coefs[b, 0] = _fire_coef(counter, elem_bits, truncate_coeffs)
         prev_odd = prev[b, odd]
         err_odd = _sext(deltas[b, odd] - ((prev_odd * coef) >> elem_bits),
                         elem_bits)
         counter = _fire_counter_step(counter, err_odd, prev_odd, elem_bits)
     errs = _sext(deltas - ((prev * coefs) >> elem_bits), elem_bits)
-    return ((errs << 1) ^ (errs >> 63)) & ((1 << elem_bits) - 1)
+    zz = ((errs << 1) ^ (errs >> 63)) & ((1 << elem_bits) - 1)
+    if not states:
+        return zz
+    # the carry before block b: the value and the delta of the row above
+    # it (zeros above the first), and the counter
+    above = torch.cat([zero, rows[BLOCK_SZ - 1:-1:BLOCK_SZ]])
+    return zz, torch.stack([above, prev[:, 0], counters], dim=1)
 
 
 def _fire_decode_blocks(blocks: torch.Tensor, elem_bits: int,
@@ -229,39 +248,60 @@ def _count_launch(wrapper, truncate_coeffs: bool) -> None:
 
 
 def fire_encode_plain(rows: torch.Tensor, elem_bits: int,
-                      truncate_coeffs: bool = True) -> torch.Tensor:
+                      truncate_coeffs: bool = True, states: bool = False):
     """Plain version of ``fire_encode``."""
     n, ndims = rows.shape
     if rows.numel() == 0:
-        return rows.to(torch.int32)
-    errs = _fire_encode_blocks(
+        errs = rows.to(torch.int32)
+        return (errs, errs.new_zeros((0, 3, ndims))) if states else errs
+    out = _fire_encode_blocks(
         rows.to(torch.int64).reshape(-1, BLOCK_SZ, ndims), elem_bits,
-        truncate_coeffs)
-    return errs.reshape(n, ndims).to(torch.int32)
+        truncate_coeffs, states)
+    if not states:
+        return out.reshape(n, ndims).to(torch.int32)
+    errs, carries = out
+    return errs.reshape(n, ndims).to(torch.int32), carries.to(torch.int32)
 
 
 def fire_encode(rows: torch.Tensor, elem_bits: int,
-                truncate_coeffs: bool = True) -> torch.Tensor:
+                truncate_coeffs: bool = True, states: bool = False):
     """rows (N, D) int32 unsigned values, N a multiple of 8 -> zigzag
     errors (N, D) int32, from the zero state. ``truncate_coeffs``: the
     row-major layout's int16 coefficient (True) or the lowdim layout's
-    full-precision one (False)."""
+    full-precision one (False). With ``states``, returns (errors, carries):
+    carries (N / 8, 3, D) int32 is the state before each block (prev
+    value, prev delta, counter), written by the same launch (on CUDA a
+    view of (N / 8, D, 4) words, one a block and dim)."""
     _check_fire("fire_encode", rows, elem_bits, torch.int32)
     if rows.device.type == "cpu":
-        return fire_encode_plain(rows, elem_bits, truncate_coeffs)
+        return fire_encode_plain(rows, elem_bits, truncate_coeffs, states)
     n, ndims = rows.shape
     errs = torch.empty_like(rows)
+    # the kernel writes a carry as one 16-byte word (its 4th int unused):
+    # the (nb, 3, D) carries are a view of (nb, D, 4)
+    words = (torch.empty((n // BLOCK_SZ, ndims, 4), dtype=torch.int32,
+                         device=rows.device) if states else None)
+    carries = None if words is None else words[..., :3].transpose(1, 2)
     if n == 0 or ndims == 0:
-        return errs
-    _build.launch("sprintz_fire_scan", rows, rows.data_ptr(), None,
+        return (errs, carries) if states else errs
+    _build.launch("sprintz_fire_scan", rows, rows.data_ptr(),
+                  None if words is None else words.data_ptr(),
                   errs.data_ptr(), n // BLOCK_SZ, ndims, elem_bits, 0,
                   int(truncate_coeffs))
+    if states:
+        if truncate_coeffs:
+            fire_encode.states_launches += 1
+        else:
+            fire_encode.states_full_launches += 1
+        return errs, carries
     _count_launch(fire_encode, truncate_coeffs)
     return errs
 
 
 fire_encode.launches = 0
 fire_encode.full_launches = 0
+fire_encode.states_launches = 0
+fire_encode.states_full_launches = 0
 
 
 def fire_decode_plain(errs_zz: torch.Tensor, elem_bits: int,
@@ -311,3 +351,93 @@ def fire_decode(errs_zz: torch.Tensor, elem_bits: int, init_state=None,
 
 fire_decode.launches = 0
 fire_decode.full_launches = 0
+
+
+def _chunk_bounds(first, nb: int) -> np.ndarray:
+    """A chunked decode's chunk starts as an int64 array of C + 1 block
+    indices: 0 first, then rising, ``nb`` last. Raises otherwise."""
+    f = np.asarray(first, dtype=np.int64).reshape(-1)
+    if f.size < 2 or f[0] != 0 or f[-1] != nb or np.any(np.diff(f) < 0):
+        raise ValueError(f"fire_decode_chunks: chunk_first_block must rise "
+                         f"from 0 to {nb} (C + 1 block indices), got "
+                         f"{f[:4].tolist()}...{f[-2:].tolist()}")
+    return f
+
+
+def fire_decode_chunks_plain(errs_zz: torch.Tensor, elem_bits: int,
+                             chunk_first_block, states,
+                             truncate_coeffs: bool = True) -> torch.Tensor:
+    """Plain version of ``fire_decode_chunks``: one loop over the blocks of
+    the longest chunk with all C·D lanes at once, each chunk's blocks
+    padded with zero errors past its end."""
+    n, ndims = errs_zz.shape
+    first = _chunk_bounds(chunk_first_block, n // BLOCK_SZ)
+    nchunks = first.size - 1
+    lens = np.diff(first)
+    longest = int(lens.max())
+    st = _state_tensor(states, errs_zz.device, torch.int64)
+    if tuple(st.shape) != (nchunks, 3, ndims):
+        raise ValueError(f"fire_decode_chunks: states {tuple(st.shape)} is "
+                         f"not {(nchunks, 3, ndims)}")
+    if longest == 0 or ndims == 0:
+        return narrow(errs_zz.to(torch.int32), elem_bits)
+    dev = errs_zz.device
+    blk = (torch.from_numpy(first[:-1]).to(dev)[:, None]
+           + torch.arange(longest, device=dev)[None, :])  # (C, L)
+    live = torch.arange(longest, device=dev)[None, :] < torch.from_numpy(
+        lens).to(dev)[:, None]
+    errs = errs_zz.to(torch.int64).reshape(-1, BLOCK_SZ, ndims)
+    errs = torch.cat([errs, errs.new_zeros((1, BLOCK_SZ, ndims))])
+    lanes = errs[torch.where(live, blk, n // BLOCK_SZ)]  # (C, L, 8, D)
+    lanes = lanes.permute(1, 2, 0, 3).reshape(longest, BLOCK_SZ,
+                                              nchunks * ndims)
+    vals = _fire_decode_blocks(lanes, elem_bits,
+                               st.permute(1, 0, 2).reshape(3, -1),
+                               truncate_coeffs)
+    vals = vals.reshape(longest, BLOCK_SZ, nchunks, ndims).permute(2, 0, 1, 3)
+    out = torch.empty((n // BLOCK_SZ, BLOCK_SZ, ndims), dtype=torch.int64,
+                      device=dev)
+    out[blk[live]] = vals[live]
+    return narrow(out.reshape(n, ndims).to(torch.int32), elem_bits)
+
+
+def fire_decode_chunks(errs_zz: torch.Tensor, elem_bits: int,
+                       chunk_first_block, states,
+                       truncate_coeffs: bool = True) -> torch.Tensor:
+    """Zigzag errors (N, D) as ``fire_decode`` takes them -> values (N, D)
+    u8/u16, the stream cut into C chunks of whole blocks: chunk c is blocks
+    ``chunk_first_block[c]`` to ``chunk_first_block[c + 1]`` (C + 1 block
+    indices from 0 to N / 8, on the host) and decodes from ``states[c]``,
+    its (3, D) carry (``states`` (C, 3, D) int32, numpy or torch), as
+    the JAX package's chunk-parallel decode does from a sidecar. With the
+    sidecar's states equal to the stream's carries the values are
+    ``fire_decode``'s; with other states each chunk follows its own."""
+    _check_fire("fire_decode_chunks", errs_zz, elem_bits,
+                torch.uint8 if elem_bits == 8 else torch.int32)
+    n, ndims = errs_zz.shape
+    if errs_zz.device.type == "cpu":
+        return fire_decode_chunks_plain(errs_zz, elem_bits, chunk_first_block,
+                                        states, truncate_coeffs)
+    first = _chunk_bounds(chunk_first_block, n // BLOCK_SZ)
+    nchunks = first.size - 1
+    st = (_state_tensor(states, errs_zz.device, torch.int32)
+          if torch.is_tensor(states) else to_device(
+              np.ascontiguousarray(states, dtype=np.int32), errs_zz.device))
+    if tuple(st.shape) != (nchunks, 3, ndims):
+        raise ValueError(f"fire_decode_chunks: states {tuple(st.shape)} is "
+                         f"not {(nchunks, 3, ndims)}")
+    vals = torch.empty((n, ndims), dtype=narrow_dtype(elem_bits),
+                       device=errs_zz.device)
+    if n == 0 or ndims == 0:
+        return vals
+    first_d = to_device(first, errs_zz.device)
+    _build.launch("sprintz_fire_decode_chunks", errs_zz, errs_zz.data_ptr(),
+                  st.data_ptr(), first_d.data_ptr(), nchunks,
+                  int(np.diff(first).max()), vals.data_ptr(), n // BLOCK_SZ,
+                  ndims, elem_bits, int(truncate_coeffs))
+    _count_launch(fire_decode_chunks, truncate_coeffs)
+    return vals
+
+
+fire_decode_chunks.launches = 0
+fire_decode_chunks.full_launches = 0

@@ -2,8 +2,10 @@
 bound with ctypes.
 
 The stream format's per-block bookkeeping runs on the host whatever the
-device: the decode's header walk and payload gather, the encode's emission
-plan and stream assembly, and the +Huf table's byte histogram. At first use
+device: the decode's header walk (serial, or split at a sidecar's
+checkpoints over threads) and payload gather, the encode's emission plan
+and stream assembly (which also gives the group index a sidecar is built
+from), and the +Huf table's byte histogram. At first use
 the source is compiled with g++ into ``build/sprintz_tpu_torch/`` at the
 root of the checkout (``ops/_build.BUILD_DIR``), under a name keyed by the
 source, the flags and the compiler's target (``-march=native``), so an
@@ -40,11 +42,13 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 SIGNATURES = {
     "sprintz_walk_headers": (_P, _L, _L, _L, _I, _I, _I, _L, _P, _P, _P, _P,
                              _P),
+    "sprintz_walk_headers_parallel": (_P, _L, _P, _P, _L, _L, _L, _I, _I, _I,
+                                      _L, _P, _P, _P, _P, _P),
     "sprintz_gather_blocks": (_P, _L, _P, _P, _L, _L, _P, _L),
     "sprintz_gather_dims": (_P, _L, _P, _P, _L, _I, _L, _P, _L),
     "sprintz_build_plan": (_P, _L, _I, _I, _P, _P, _P),
     "sprintz_assemble_stream": (_P, _P, _L, _L, _L, _P, _P, _P, _L, _I, _I,
-                                _I, _P, _L, _P, _L, _P),
+                                _I, _P, _L, _P, _L, _P, _P),
     "sprintz_histogram": (_P, _L, _P),
 }
 
@@ -115,10 +119,17 @@ def _u8(buf) -> np.ndarray:
     return np.frombuffer(buf, dtype=np.uint8)
 
 
+def _walk_outputs(cap: int, ndims: int):
+    return (np.empty((cap, ndims), dtype=np.uint8),
+            np.empty(cap, dtype=np.int64), np.empty(cap, dtype=np.int64),
+            np.empty(cap, dtype=np.int32), np.zeros(3, dtype=np.int64))
+
+
 def walk_headers(buf, ngroups: int, ndims: int, elem_sz: int,
-                 lowdim: bool):
-    """The header walk over ``ngroups`` groups, which start right after the
-    stream's metadata ->
+                 lowdim: bool, start: int = METADATA_LEN_RLE):
+    """The header walk over ``ngroups`` groups from byte ``start`` (the
+    first group, right after the stream's metadata, unless a sidecar's
+    checkpoint says otherwise) ->
     (widths (ndata, D) uint8, payload offsets (ndata,) int64, first rows
     (ndata,) int64, row bytes (ndata,) int32, total rows, tail offset).
     Raises ``CorruptStreamError`` when the walk would overrun the buffer.
@@ -129,21 +140,57 @@ def walk_headers(buf, ngroups: int, ndims: int, elem_sz: int,
     to billions."""
     data = _u8(buf)
     cap = max(min(2 * int(ngroups), data.size), 1)
-    widths = np.empty((cap, ndims), dtype=np.uint8)
-    offsets = np.empty(cap, dtype=np.int64)
-    out_rows = np.empty(cap, dtype=np.int64)
-    row_bytes = np.empty(cap, dtype=np.int32)
-    meta = np.zeros(3, dtype=np.int64)
+    widths, offsets, out_rows, row_bytes, meta = _walk_outputs(cap, ndims)
     walk_headers.calls += 1
     ndata = _library().sprintz_walk_headers(
-        _ptr(data), data.size, METADATA_LEN_RLE, ngroups, ndims, elem_sz,
-        int(lowdim),
+        _ptr(data), data.size, start, ngroups, ndims, elem_sz, int(lowdim),
         cap, _ptr(widths), _ptr(offsets), _ptr(out_rows), _ptr(row_bytes),
         _ptr(meta))
     if ndata < 0:
         raise CorruptStreamError(
             f"stream walk overran the buffer (len {data.size}): truncated "
             f"stream or inconsistent metadata")
+    return (widths[:ndata], offsets[:ndata], out_rows[:ndata],
+            row_bytes[:ndata], int(meta[1]), int(meta[2]))
+
+
+def walk_headers_parallel(buf, byte_offsets: np.ndarray,
+                          row_offsets: np.ndarray, every_groups: int,
+                          ngroups: int, ndims: int, elem_sz: int,
+                          lowdim: bool):
+    """``walk_headers`` over all ``ngroups`` groups, split at a sidecar's
+    checkpoints: segment s walks ``every_groups`` groups from byte
+    ``byte_offsets[s]``, its rows counted from ``row_offsets[s]``, the
+    segments on threads. Same outputs as ``walk_headers``. Raises
+    ``CorruptStreamError`` when a segment's walk would overrun the buffer
+    or its rows do not end where the next segment's start."""
+    data = _u8(buf)
+    bo = np.ascontiguousarray(byte_offsets, dtype=np.int64)
+    ro = np.ascontiguousarray(row_offsets, dtype=np.int64)
+    if bo.size < 1 or bo.size != ro.size:
+        raise CorruptStreamError("sidecar has no checkpoints, or unequal "
+                                 "byte and row offsets")
+    # each segment writes from 2 x its first group on: room for 2 blocks a
+    # group, which a stream of that many groups has bytes for (a group
+    # takes 3 at least)
+    if 3 * int(ngroups) > data.size:
+        raise CorruptStreamError(
+            f"stream of {data.size} bytes cannot hold {ngroups} groups")
+    cap = max(2 * int(ngroups), 1)
+    widths, offsets, out_rows, row_bytes, meta = _walk_outputs(cap, ndims)
+    walk_headers_parallel.calls += 1
+    ndata = _library().sprintz_walk_headers_parallel(
+        _ptr(data), data.size, _ptr(bo), _ptr(ro), bo.size, every_groups,
+        ngroups, ndims, elem_sz, int(lowdim), cap, _ptr(widths),
+        _ptr(offsets), _ptr(out_rows), _ptr(row_bytes), _ptr(meta))
+    if ndata == -2:
+        raise CorruptStreamError(
+            "sidecar inconsistent with stream: segment row counts do not "
+            "stitch to the recorded row offsets")
+    if ndata < 0:
+        raise CorruptStreamError(
+            f"stream walk overran the buffer (len {data.size}) from a "
+            f"checkpoint: truncated stream or a sidecar of another stream")
     return (widths[:ndata], offsets[:ndata], out_rows[:ndata],
             row_bytes[:ndata], int(meta[1]), int(meta[2]))
 
@@ -206,12 +253,15 @@ def assemble_stream(kinds: np.ndarray, values: np.ndarray, ngroups: int,
                     remaining_elems: int, widths: np.ndarray,
                     hdrvals: np.ndarray, dense: np.ndarray, ndims: int,
                     elem_sz: int, lowdim: bool, tail: np.ndarray,
-                    wsums: np.ndarray | None = None) -> bytes:
+                    wsums: np.ndarray | None = None,
+                    group_index: bool = False):
     """The final byte stream. ``widths`` and ``hdrvals`` are (nb, D)
     uint8, ``dense`` (nb, 8, maxb) or, ``lowdim``, (nb, D, maxb) uint8;
     ``wsums`` the (nb,) int32 width sums, which spare the library a pass
-    over the widths. Raises ``RuntimeError`` when the library refuses: the
-    buffer is sized for any plan, so that is a bug, not a bad input."""
+    over the widths. With ``group_index``, returns (stream, each group's
+    byte offset, each group's first row), int64 arrays of the plan's
+    groups. Raises ``RuntimeError`` when the library refuses: the buffer
+    is sized for any plan, so that is a bug, not a bad input."""
     kinds = np.ascontiguousarray(kinds, dtype=np.int8)
     values = np.ascontiguousarray(values, dtype=np.int32)
     widths = np.ascontiguousarray(widths, dtype=np.uint8)
@@ -225,15 +275,20 @@ def assemble_stream(kinds: np.ndarray, values: np.ndarray, ngroups: int,
     # block), the tail
     cap = (8 + dense.nbytes + kinds.size * (ndims + 11) + tail.size)
     out = np.empty(cap, dtype=np.uint8)
+    ng = (kinds.size + 1) // 2  # the library's groups: two slots each
+    gidx = np.empty((2, ng), dtype=np.int64) if group_index else None
     assemble_stream.calls += 1
     n = _library().sprintz_assemble_stream(
         _ptr(kinds), _ptr(values), kinds.size, ngroups, remaining_elems,
         _ptr(widths), _ptr(hdrvals), _ptr(dense), dense.shape[-1], ndims,
         elem_sz, int(lowdim), _ptr(tail), tail.size, _ptr(out), cap,
-        None if wsums is None else _ptr(wsums))
+        None if wsums is None else _ptr(wsums),
+        None if gidx is None else _ptr(gidx))
     if n < 0:
         raise RuntimeError(f"sprintz_assemble_stream refused its buffer of "
                            f"{cap} bytes")
+    if group_index:
+        return out[:n].tobytes(), gidx[0], gidx[1]
     return out[:n].tobytes()
 
 
@@ -247,7 +302,7 @@ def histogram(data) -> np.ndarray:
     return counts
 
 
-ENTRY_POINTS = (walk_headers, gather_blocks, gather_dims, build_plan,
-                assemble_stream, histogram)
+ENTRY_POINTS = (walk_headers, walk_headers_parallel, gather_blocks,
+                gather_dims, build_plan, assemble_stream, histogram)
 for _fn in ENTRY_POINTS:
     _fn.calls = 0

@@ -15,6 +15,8 @@ The lowdim layout (u8 ndims <= 4, u16 ndims <= 2) has one kernel for the
 whole delta decode, ``decode_delta_lowdim`` (``decode_lowdim_kernel``:
 sections to values, the unpack, zigzag and prefix of K1 and K2 in one
 pass); its raw mode ``unpack_dims_lowdim`` feeds the FIRE decode.
+A decode from a checkpoint sidecar adds ``delta_chunk_seed`` after either:
+each chunk's values then start from the chunk's recorded state.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 PyTorch version (``*_plain``, computed in int32, narrowed at the end) for a
@@ -26,6 +28,8 @@ counts its kernel launches.
 from __future__ import annotations
 
 import torch
+
+import numpy as np
 
 from ..constants import BLOCK_SZ
 from . import _build
@@ -101,6 +105,17 @@ def extract_fields(dense: torch.Tensor, widths: torch.Tensor) -> torch.Tensor:
         byte = torch.gather(d32, 2, idx.clamp(max=maxb - 1).long())
         word |= torch.where(idx < maxb, byte, 0) << (8 * k)
     return (word >> (off & 7).unsqueeze(1)) & ((1 << w) - 1).unsqueeze(1)
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A small host array -> a tensor on the CUDA ``device``, through a
+    pinned staging buffer (PyTorch caches them), so the copy is queued on
+    the stream and the host does not wait for the work before it, as a
+    copy from pageable memory does."""
+    staged = torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype,
+                         pin_memory=True)
+    staged.numpy()[...] = a
+    return staged.to(device, non_blocking=True)
 
 
 def aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -375,3 +390,76 @@ def decode_delta_contiguous(dense: torch.Tensor, widths: torch.Tensor,
     ndims = widths.shape[1]
     bz, toff = unpack_zz(dense, widths, elem_bits)
     return prefix_finish(bz.reshape(nb * BLOCK_SZ, ndims), toff, elem_bits)
+
+
+# ------------------------------------------------------- the chunk seed
+
+
+def _seed_args(vals: torch.Tensor, chunk_first_row, states):
+    """The chunk seed's bounds (C + 1 rows, numpy int64, checked) and
+    states ((C, D) int32 on the values' device)."""
+    rows, ndims = vals.shape
+    f = np.asarray(chunk_first_row, dtype=np.int64).reshape(-1)
+    if f.size < 2 or f[0] != 0 or f[-1] != rows or np.any(np.diff(f) < 0):
+        raise ValueError(f"delta_chunk_seed: chunk_first_row must rise from 0 "
+                         f"to {rows} (C + 1 rows)")
+    if torch.is_tensor(states):
+        st = states.to(vals.device, torch.int32).contiguous()
+    elif vals.device.type == "cuda":
+        st = to_device(np.ascontiguousarray(states, dtype=np.int32),
+                       vals.device)
+    else:
+        st = torch.from_numpy(np.array(states, dtype=np.int32))
+    if tuple(st.shape) != (f.size - 1, ndims):
+        raise ValueError(f"delta_chunk_seed: states {tuple(st.shape)} is not "
+                         f"{(f.size - 1, ndims)}")
+    return f, st
+
+
+def delta_chunk_seed_plain(vals: torch.Tensor, chunk_first_row, states,
+                           elem_bits: int) -> torch.Tensor:
+    """Plain version of ``delta_chunk_seed`` (a new tensor)."""
+    f, st = _seed_args(vals, chunk_first_row, states)
+    v = widen(vals)
+    mask = (1 << elem_bits) - 1
+    starts = torch.from_numpy(f[:-1]).to(vals.device)
+    above = torch.where((starts > 0)[:, None], v[(starts - 1).clamp(min=0)], 0)
+    corr = (st - above) & mask
+    lens = torch.from_numpy(np.diff(f)).to(vals.device)
+    return narrow((v + torch.repeat_interleave(corr, lens, dim=0)) & mask,
+                  elem_bits)
+
+
+def delta_chunk_seed(vals: torch.Tensor, chunk_first_row, states,
+                     elem_bits: int) -> torch.Tensor:
+    """Values (rows, D) u8/u16 of a whole delta timeline, the prefix from
+    its start -> the values of a decode cut into C chunks, chunk c from its
+    own state: rows ``chunk_first_row[c]`` to ``chunk_first_row[c + 1]``
+    (C + 1 rows from 0 to ``rows``, on the host) become
+    ``states[c] + their prefix within the chunk``, mod 2^elem_bits, as the
+    JAX package's chunk-parallel delta decode gives them. ``states``
+    (C, D) int32, numpy or torch. On CUDA the values change in place and
+    are returned."""
+    check_args("delta_chunk_seed", vals.device,
+               vals=(vals, narrow_dtype(elem_bits)))
+    if vals.dim() != 2:
+        raise ValueError(f"delta_chunk_seed: values {tuple(vals.shape)} are "
+                         f"not (rows, D)")
+    if vals.device.type == "cpu":
+        return delta_chunk_seed_plain(vals, chunk_first_row, states,
+                                      elem_bits)
+    f, st = _seed_args(vals, chunk_first_row, states)
+    nchunks, ndims = st.shape
+    if vals.numel() == 0:
+        return vals
+    first = to_device(f, vals.device)
+    scratch = torch.empty(nchunks * (ndims + 1), dtype=torch.int32,
+                          device=vals.device)
+    _build.launch("sprintz_delta_chunk_seed", vals, vals.data_ptr(),
+                  first.data_ptr(), st.data_ptr(), scratch.data_ptr(),
+                  nchunks, int(np.diff(f).max()), ndims, elem_bits)
+    delta_chunk_seed.launches += 1
+    return vals
+
+
+delta_chunk_seed.launches = 0

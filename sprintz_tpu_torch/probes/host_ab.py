@@ -2,20 +2,22 @@
 earlier copy of its source, on one machine.
 
     python3 sprintz_tpu_torch/probes/host_ab.py --old FILE [--reps N]
+        [--steps STEP ...]
 
 Builds ``FILE`` with ``native_host``'s flags beside the current library
 (its own hash, so its own file in ``build/sprintz_tpu_torch/``), makes
 ``chip_smoke.py``'s main-path and lowdim streams (random walks from a seed)
 and their sprintz streams with the port's compress (on the card where there
 is one, else on the CPU), and times every entry point of both libraries
-through the same wrappers on each stream: the walk, the gather, the plan,
-the assembly (also its C call alone, into a buffer kept across calls, so
+through the same wrappers on each stream: the walk, the walk split at
+the stream's sidecar checkpoints (every 16 groups, on threads), the
+gather, the plan, the assembly (also its C call alone, into a buffer kept across calls, so
 that the wrapper's fresh pages and its copy into a ``bytes`` show as the
 difference) and the histogram. The libraries take turns (old, new, new,
 old), ``--reps`` calls a turn, and each side's time is the median of its
 calls, on the host's clock. Every output of the old library must equal the
-new one's. Prints one line a stream and entry point and a JSON line last.
-Not imported by the port.
+new one's. ``--steps`` times only the steps named. Prints one line a
+stream and entry point and a JSON line last. Not imported by the port.
 """
 
 from __future__ import annotations
@@ -90,6 +92,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", type=pathlib.Path, required=True)
     ap.add_argument("--reps", type=int, default=9)
+    ap.add_argument("--steps", nargs="*", default=None)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     from sprintz_tpu_torch import decoder, encoder, native_host
@@ -111,8 +114,10 @@ def main() -> int:
              % (1 << (8 * es))).astype(np.uint8 if es == 1 else np.uint16)
         flat = x.reshape(-1)
         lowdim = nd <= LOWDIM_MAX_NDIMS[es]
-        buf = encoder.compress(flat, nd, device=dev)
+        buf, layout = encoder.compress_with_layout(flat, nd, device=dev)
         ng, _, _ = read_metadata_rle(buf)
+        bo = layout.group_offsets[::16]
+        ro = layout.group_first_rows[::16]
         w, h, d, ws = encoder.encode_device(encoder.upload_rows(x, dev), es,
                                             "delta", lowdim)
         w, h, d, ws = (w.to(torch.uint8).cpu().numpy(),
@@ -130,11 +135,13 @@ def main() -> int:
                 plan.kinds.size, plan.ngroups, plan.remaining_elems,
                 w.ctypes.data, h.ctypes.data, d.ctypes.data, d.shape[-1], nd,
                 es, int(lowdim), tail.ctypes.data, tail.nbytes,
-                out.ctypes.data, out.size, ws.ctypes.data)
+                out.ctypes.data, out.size, ws.ctypes.data, None)
             return n  # its bytes are the assemble step's, checked there
 
         steps = {
             "walk": lambda: decoder.walk_headers(buf, ng, nd, es, lowdim),
+            "walk at checkpoints": lambda: decoder.walk_headers_parallel(
+                buf, ng, nd, es, bo, ro, 16, lowdim),
             "gather": lambda: decoder.gather_payloads(buf, idx),
             "plan": lambda: build_plan(ws == 0, flat.size, nd),
             "assemble": lambda: encoder.assemble_stream(
@@ -144,6 +151,8 @@ def main() -> int:
         }
         result[name] = {}
         for step, fn in steps.items():
+            if args.steps is not None and step not in args.steps:
+                continue
             r = result[name][step] = ab(native_host, libs, fn, args.reps)
             print(f"[host_ab] {name} {step}: old {r['old']:.3f} ms, new "
                   f"{r['new']:.3f} ms", flush=True)

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Build the delta decode's kernels (``csrc/decode.cu``: K1/K4/K5
-``unpack_zz_kernel``, K2 ``prefix_finish_kernel`` and the lowdim decode
-``decode_lowdim_kernel``) and the encode kernels (``csrc/pack.cu``: K3
-``pack_rows_kernel`` and the lowdim ``encode_lowdim_kernel``) on the host
-with g++, and hold them to their plain versions at the cases of
-``probes/unpack_cases.py`` (``UNPACK_CASES``, ``LOWDIM_CASES``) and
-``probes/encode_cases.py`` (``PACK_CASES``, ``LOWDIM_PACK_CASES``), with
-no card and no nvcc.
+``unpack_zz_kernel``, K2 ``prefix_finish_kernel``, the lowdim decode
+``decode_lowdim_kernel`` and the chunk seed's two kernels), the encode
+kernels (``csrc/pack.cu``: K3 ``pack_rows_kernel`` and the lowdim
+``encode_lowdim_kernel``) and the FIRE kernels (``csrc/fire.cu``: the
+encode with and without its states, the decode serial and in chunks) on
+the host with g++, and hold them to their plain versions at the cases of
+``probes/unpack_cases.py`` (``UNPACK_CASES``, ``LOWDIM_CASES``,
+``SEED_CASES``), ``probes/encode_cases.py`` (``PACK_CASES``,
+``LOWDIM_PACK_CASES``) and ``FIRE_CASES`` below, with no card and no
+nvcc.
 
     python3 sprintz_tpu_torch/probes/host_build.py [--resident 1 3] [--src FILE]
 
@@ -14,8 +17,9 @@ A source is compiled as C++ against ``host_shim.h``: its launches
 become calls that run each CUDA thread as a std::thread, ``resident``
 CTAs at a time (more than one, so that a look-back waits on tiles or
 spans that run beside it); its device helpers (``cp.async``, the status
-words) are replaced between their marker lines by copies that land when a
-wait covers their group, and C++ atomics. Shared memory and every output
+words; FIRE's mbarriers) are replaced between their marker lines by
+copies that land when a wait covers their group, and C++ atomics (an
+mbarrier is a word of pending arrivals, phase and expected count). Shared memory and every output
 start as garbage, so a byte the kernel fails to write, or reads before
 its copy lands, shows; the lowdim decode's status words start zeroed, as
 the wrapper keeps them, and must be zeroed again after each launch. The C
@@ -40,6 +44,7 @@ HERE = pathlib.Path(__file__).resolve().parent
 ROOT = HERE.parents[1]
 SRC = ROOT / "sprintz_tpu_torch" / "csrc" / "decode.cu"
 PACK_SRC = ROOT / "sprintz_tpu_torch" / "csrc" / "pack.cu"
+FIRE_SRC = ROOT / "sprintz_tpu_torch" / "csrc" / "fire.cu"
 OUT = ROOT / "build" / "sprintz_tpu_torch" / "host"
 HELPERS = re.compile(r"// ---- device helpers \(PTX\)\n.*?// ---- end of device helpers\n",
                      re.S)
@@ -72,6 +77,31 @@ inline void st_status(unsigned long long* p, unsigned long long v) {
   std::atomic_ref<unsigned long long>(*p).store(v);
 }
 """
+FIRE_HELPERS = re.compile(r"// ---- mbarriers and timers \(PTX\)\n.*?// ---- end of PTX\n",
+                          re.S)
+FIRE_HOST_HELPERS = """
+// an mbarrier: its pending arrivals (bits 0-30), its phase (bit 31) and the
+// arrivals a phase expects (bits 32-63); the last arrival of a phase flips
+// it and restores the count. A wait for a parity returns once the phase
+// differs from it (the phase of that parity has completed).
+inline std::atomic_ref<uint64_t> shim_bar(uint64_t* bar) { return std::atomic_ref<uint64_t>(*bar); }
+inline void mbar_init(uint64_t* bar, uint32_t arrivals) {
+  shim_bar(bar).store(((uint64_t)arrivals << 32) | arrivals);
+}
+inline void mbar_init_fence() {}
+inline void mbar_arrive(uint64_t* bar) {
+  auto a = shim_bar(bar);
+  uint64_t old = a.load(), next;
+  do {
+    const uint64_t pending = old & 0x7fffffffu, expected = old >> 32;
+    next = pending == 1 ? (expected << 32) | (~old & 0x80000000u) | expected : old - 1;
+  } while (!a.compare_exchange_weak(old, next));
+}
+inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  while (((shim_bar(bar).load() >> 31) & 1u) == parity) std::this_thread::yield();
+}
+inline unsigned long long global_ns() { return 0; }
+"""
 ENTRY = """
 extern "C" void sprintz_shim_set_resident(int n) { g_resident = n; }
 extern "C" int sprintz_shim_fault() { return g_fault.exchange(0); }
@@ -86,31 +116,43 @@ ENTRIES = {
     "sprintz_decode_lowdim": [P, P, P, P, L, I, I, I, P],
     "sprintz_pack_rows": [P, P, P, L, I, I, I, P],
     "sprintz_encode_lowdim": [P, P, P, P, P, L, I, I, I, P],
+    "sprintz_delta_chunk_seed": [P, P, P, P, I, L, I, I, P],
+    "sprintz_fire_scan": [P, P, P, L, I, I, I, I, P],
+    "sprintz_fire_decode_chunks": [P, P, P, I, L, P, L, I, I, I, P],
 }
+# (elem_bits, ndims, blocks, chunks, truncated coefficient): FIRE's chunked
+# decode at chunk counts 1, 2, 7 and 33 of unequal lengths (empty ones
+# too), a CTA of 32 / D chunks at D <= 4 (3: two lanes shadow), chunks
+# that span CTAs of dims at D 33 and 64, and rings that wrap (more than 8
+# tiles of 16 blocks in a chunk)
+FIRE_CASES = [(8, 4, 40, 7, False), (8, 3, 33, 33, False), (16, 2, 300, 2, False),
+              (8, 1, 17, 1, False), (16, 1, 60, 33, False), (8, 33, 40, 7, True),
+              (16, 31, 35, 2, True), (8, 64, 150, 3, True), (16, 5, 9, 1, True)]
 
 
-def host_source(src: str, kernels: int) -> str:
+def host_source(src: str, kernels: int, helpers: re.Pattern = HELPERS,
+                host_helpers: str = HOST_HELPERS) -> str:
     """A kernel source as C++ for the shim: its device helpers, its shared
     memory, its ``kernels`` launches."""
-    out, n = HELPERS.subn(HOST_HELPERS, src)
+    out, n = helpers.subn(host_helpers, src)
     assert n == 1, "the device helpers' marker lines"
     out = out.replace("#include <cuda_runtime.h>\n", "")
-    out, n = re.subn(r"extern __shared__ __align__\(16\) uint8_t smem\[\];",
-                     "uint8_t* smem = shim_smem();", out)
+    out, n = re.subn(r"extern __shared__ __align__\(16\) (uint8_t|unsigned char) (\w+)\[\];",
+                     r"\1* \2 = shim_smem();", out)
     out, m = re.subn(r"extern __shared__ uint4 smem\[\];",
                      "uint4* smem = reinterpret_cast<uint4*>(shim_smem());", out)
     assert n + m <= kernels, "a dynamic shared buffer a kernel at most"
-    out, n = re.subn(r"(\w+<[^<>;]*>)<<<(.*?)>>>\(", r"shim_launch(\1, \2, ", out,
+    out, n = re.subn(r"(\w+(?:<[^<>;]*>)?)<<<(.*?)>>>\(", r"shim_launch(\1, \2, ", out,
                      flags=re.S)
     assert n == kernels, "one launch a kernel"
     return out + ENTRY
 
 
-def build(src: pathlib.Path = SRC, out: pathlib.Path = OUT,
-          kernels: int = 3) -> ctypes.CDLL:
+def build(src: pathlib.Path = SRC, out: pathlib.Path = OUT, kernels: int = 5,
+          helpers: re.Pattern = HELPERS, host_helpers: str = HOST_HELPERS) -> ctypes.CDLL:
     """Compile ``src`` for the shim into ``out`` (reused while the source
     and the shim are unchanged) and load it."""
-    text = host_source(src.read_text(), kernels)
+    text = host_source(src.read_text(), kernels, helpers, host_helpers)
     key = hashlib.sha256(text.encode() + (HERE / "host_shim.h").read_bytes()).hexdigest()[:16]
     out.mkdir(parents=True, exist_ok=True)
     lib = out / f"lib{src.stem}_host_{key}.so"
@@ -131,6 +173,12 @@ def build(src: pathlib.Path = SRC, out: pathlib.Path = OUT,
 def build_pack(src: pathlib.Path = PACK_SRC, out: pathlib.Path = OUT) -> ctypes.CDLL:
     """``build`` for pack.cu: two kernels."""
     return build(src, out, kernels=2)
+
+
+def build_fire(src: pathlib.Path = FIRE_SRC, out: pathlib.Path = OUT) -> ctypes.CDLL:
+    """``build`` for fire.cu: the encode, the decode and the chain probe,
+    with its mbarriers."""
+    return build(src, out, kernels=3, helpers=FIRE_HELPERS, host_helpers=FIRE_HOST_HELPERS)
 
 
 class HostKernels:
@@ -220,6 +268,56 @@ class HostKernels:
             wsums.data_ptr(), nb, nd, elem_sz, 0 if errors else 1, None))
         return widths, hdr, dense, wsums
 
+    def delta_chunk_seed(self, vals, first, states, elem_bits: int):
+        """The chunk seed on a copy of ``vals`` (the kernels work in place)."""
+        t = self.torch
+        out = vals.clone()
+        f = np.asarray(first, dtype=np.int64)
+        nchunks, nd = states.shape
+        st = t.as_tensor(states, dtype=t.int32).contiguous()
+        first_t = t.from_numpy(f.copy())
+        scratch = self.garbage((nchunks * (nd + 1),), t.int32)
+        self.check(self.so.sprintz_delta_chunk_seed(
+            out.data_ptr(), first_t.data_ptr(), st.data_ptr(), scratch.data_ptr(),
+            nchunks, int(np.diff(f).max()), nd, elem_bits, None))
+        return out
+
+    def fire_encode(self, rows, elem_bits: int, trunc: bool, states: bool):
+        t = self.torch
+        n, nd = rows.shape
+        out = self.garbage((n, nd), t.int32)
+        words = self.garbage((n // 8, nd, 4), t.int32) if states else None
+        self.check(self.so.sprintz_fire_scan(
+            rows.data_ptr(), None if words is None else words.data_ptr(),
+            out.data_ptr(), n // 8, nd, elem_bits, 0, int(trunc), None))
+        return (out, words[..., :3].transpose(1, 2)) if states else out
+
+    def fire_decode(self, errs, elem_bits: int, state, trunc: bool):
+        """The serial decode (sprintz_fire_scan), from ``state`` or zeros."""
+        from sprintz_tpu_torch.ops import decode_kernels as dk
+
+        n, nd = errs.shape
+        out = self.garbage((n, nd), dk.narrow_dtype(elem_bits))
+        st = None if state is None else state.to(self.torch.int32).contiguous()
+        self.check(self.so.sprintz_fire_scan(
+            errs.data_ptr(), None if st is None else st.data_ptr(), out.data_ptr(),
+            n // 8, nd, elem_bits, 1, int(trunc), None))
+        return out
+
+    def fire_decode_chunks(self, errs, elem_bits: int, first, states, trunc: bool):
+        from sprintz_tpu_torch.ops import decode_kernels as dk
+
+        t = self.torch
+        n, nd = errs.shape
+        out = self.garbage((n, nd), dk.narrow_dtype(elem_bits))
+        f = t.from_numpy(np.asarray(first, dtype=np.int64).copy())
+        st = states.to(t.int32).contiguous()
+        self.check(self.so.sprintz_fire_decode_chunks(
+            errs.data_ptr(), st.data_ptr(), f.data_ptr(), f.numel() - 1,
+            int(np.diff(f.numpy()).max()), out.data_ptr(), n // 8, nd, elem_bits,
+            int(trunc), None))
+        return out
+
     def prefix_finish(self, bz, toff, elem_bits: int):
         from sprintz_tpu_torch.ops import decode_kernels as dk
 
@@ -281,6 +379,81 @@ def check_lowdim_case(hk: HostKernels, eb: int, nd: int, nb: int,
     return None
 
 
+def chunk_cuts(rng, nb: int, nchunks: int) -> np.ndarray:
+    """C + 1 block indices from 0 to nb: chunks of unequal lengths, empty
+    ones where C exceeds the blocks."""
+    inner = np.sort(rng.integers(0, nb + 1, nchunks - 1))
+    return np.concatenate([[0], inner, [nb]]).astype(np.int64)
+
+
+def check_fire_case(hk: HostKernels, eb: int, nd: int, nb: int, nchunks: int,
+                    trunc: bool) -> str | None:
+    """The host-built FIRE kernels at a ``FIRE_CASES`` case: the encode with
+    and without its states, the serial decode from a carried state and the
+    chunked decode from the encode's states (one chunk's replaced by
+    random ones, its delta wider than an element) against their plain
+    versions: the name of the first that differs, or None."""
+    import torch
+
+    from sprintz_tpu_torch.models import forecasters as fc
+
+    rng = np.random.default_rng(eb * 7919 + nd * 31 + nb * 3 + nchunks)
+    half = 1 << (eb - 1)
+    vals = (np.cumsum(rng.integers(-6, 7, (nb * 8, nd)), axis=0) % (2 * half))
+    vals[: nb * 4] = rng.integers(0, 2 * half, (nb * 4, nd))
+    rows = torch.from_numpy(vals.astype(np.int32))
+    errs, carries = fc.fire_encode_plain(rows, eb, trunc, states=True)
+    zz = errs.to(torch.uint8) if eb == 8 else errs
+    first = chunk_cuts(rng, nb, nchunks)
+    states = carries[torch.from_numpy(np.minimum(first[:-1], nb - 1))].clone()
+    states[first[:-1] == nb] = 0
+    k = int(rng.integers(0, nchunks))
+    states[k] = torch.from_numpy(np.stack([
+        rng.integers(0, 2 * half, nd), rng.integers(-(1 << 20), 1 << 20, nd),
+        rng.integers(-(1 << 15), 1 << 15, nd)]).astype(np.int32))
+    got_e, got_c = hk.fire_encode(rows, eb, trunc, True)
+    pairs = [("FIRE encode", hk.fire_encode(rows, eb, trunc, False), errs),
+             ("FIRE encode with states: errors", got_e, errs),
+             ("FIRE encode with states: carries", got_c, carries),
+             ("FIRE serial decode", hk.fire_decode(zz, eb, states[k], trunc),
+              fc.fire_decode_plain(zz, eb, states[k], trunc)),
+             ("FIRE chunked decode", hk.fire_decode_chunks(zz, eb, first, states, trunc),
+              fc.fire_decode_chunks_plain(zz, eb, first, states, trunc))]
+    for name, got, want in pairs:
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            return name
+    return None
+
+
+def check_seed_case(hk: HostKernels, eb: int, nd: int, nb: int,
+                    nchunks: int) -> str | None:
+    """The host-built chunk seed at a ``SEED_CASES`` case, from states that
+    continue the values (nothing moves) and from random ones, against its
+    plain version: the name of the first that differs, or None."""
+    import torch
+
+    from sprintz_tpu_torch.ops import decode_kernels as dk
+
+    rng = np.random.default_rng(eb * 13 + nd * 7 + nb + nchunks)
+    vals = dk.narrow(torch.from_numpy(rng.integers(0, 1 << eb, (nb * 8, nd)).astype(
+        np.int32)), eb)
+    first = chunk_cuts(rng, nb, nchunks) * 8
+    wide = dk.widen(vals)
+    same = torch.where(torch.from_numpy(first[:-1] > 0)[:, None],
+                       wide[torch.from_numpy(np.maximum(first[:-1] - 1, 0))], 0)
+    other = same.clone()
+    other[rng.integers(0, nchunks)] += int(rng.integers(1, 1 << eb))
+    for name, st in (("chunk seed, continuing states", same),
+                     ("chunk seed, a moved state", other)):
+        got = hk.delta_chunk_seed(vals, first, st, eb)
+        want = dk.delta_chunk_seed_plain(vals, first, st, eb)
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            return name
+    if not torch.equal(hk.delta_chunk_seed(vals, first, same, eb), vals):
+        return "chunk seed moved values from their own states"
+    return None
+
+
 def check_pack_case(hk: HostKernels, nd: int, es: int, nb: int | None = None) -> str | None:
     """The host-built lowdim encode from the rows and from the errors
     (``nb`` given: a ``LOWDIM_PACK_CASES`` case) or K3 (a ``PACK_CASES``
@@ -322,6 +495,7 @@ def main() -> int:
 
     so = build(args.src)
     so_pack = build_pack()
+    so_fire = build_fire()
 
     def report(what, bad, good):
         print(f"[host] {what}: " + (f"{bad} differs from its plain version" if bad
@@ -339,6 +513,16 @@ def main() -> int:
             what = "lowdim u{} D {} nb {} {}, {} resident".format(*case, resident)
             if report(what, check_lowdim_case(hk, *case),
                       "the lowdim decode (both modes) equals its plain versions"):
+                return 1
+        for case in uc.SEED_CASES:
+            what = "chunk seed u{} D {} nb {} chunks {}, {} resident".format(*case, resident)
+            if report(what, check_seed_case(hk, *case), "equals its plain version"):
+                return 1
+        hf = HostKernels(so_fire, resident)
+        for case in FIRE_CASES:
+            what = "FIRE u{} D {} nb {} chunks {} trunc {}, {} resident".format(*case, resident)
+            if report(what, check_fire_case(hf, *case),
+                      "the encode (with states) and both decodes equal their plain versions"):
                 return 1
         hp = HostKernels(so_pack, resident)
         for nd, es in ec.PACK_CASES:

@@ -1,7 +1,7 @@
 // CUDA's names for a build of a kernel source on the host, with g++ (see
 // host_build.py, which rewrites the sources' launches and device helpers
-// before it includes this: decode.cu and pack.cu). Each CUDA thread is a std::thread; the CTAs of
-// a launch run `resident` at a time, their threads all at once. Shared
+// before it includes this: decode.cu, pack.cu and fire.cu). Each CUDA thread is a std::thread; the CTAs of
+// a launch run `resident` at a time (over x, then y), their threads all at once. Shared
 // memory is a buffer per CTA filled with garbage and followed by a canary;
 // __syncthreads is a barrier of the CTA, a shuffle a barrier of its mask's
 // lanes around a word per lane. Not part of the port.
@@ -70,6 +70,7 @@ struct Cta {
     return *b;
   }
   std::barrier<> bar;
+  std::atomic<int> any{0};  // __syncthreads_or's
   std::vector<uint8_t> smem;
   std::vector<long long> xch;
   std::mutex mu;
@@ -83,6 +84,24 @@ inline std::atomic<int> g_fault{0};  // a CTA wrote past its shared memory
 
 inline uint8_t* shim_smem() { return g_cta->smem.data(); }
 inline void __syncthreads() { g_cta->bar.arrive_and_wait(); }
+// whether `pred` holds for any thread of the CTA, to each of them
+inline int __syncthreads_or(int pred) {
+  if (pred) g_cta->any.store(1);
+  g_cta->bar.arrive_and_wait();
+  const int r = g_cta->any.load();
+  g_cta->bar.arrive_and_wait();
+  if (threadIdx.x == 0) g_cta->any.store(0);
+  g_cta->bar.arrive_and_wait();
+  return r;
+}
+inline long long clock64() { return 0; }
+// c + the products of a's signed 16-bit halves with b's signed bytes 0, 1
+inline int __dp2a_lo(int a, int b, int c) {
+  const uint32_t p0 = (uint32_t)(int32_t)(int16_t)(a & 0xffff) * (uint32_t)(int32_t)(int8_t)(b & 0xff);
+  const uint32_t p1 = (uint32_t)(int32_t)(int16_t)((uint32_t)a >> 16) *
+                      (uint32_t)(int32_t)(int8_t)((b >> 8) & 0xff);
+  return (int)((uint32_t)c + p0 + p1);
+}
 
 // Each lane of `mask` posts v; returns what lane src_lane posted (take), or
 // v.
@@ -165,8 +184,9 @@ inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned s) {
 template <class K, class... A>
 void shim_launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... args) {
   std::mt19937 gen(grid.x * 7919u + block.x);
-  for (unsigned c0 = 0; c0 < grid.x; c0 += g_resident) {
-    const unsigned n = std::min<unsigned>(g_resident, grid.x - c0);
+  const unsigned total = grid.x * grid.y;
+  for (unsigned c0 = 0; c0 < total; c0 += g_resident) {
+    const unsigned n = std::min<unsigned>(g_resident, total - c0);
     std::vector<std::unique_ptr<Cta>> ctas;
     for (unsigned i = 0; i < n; ++i) ctas.emplace_back(new Cta(block.x, smem, gen));
     std::vector<std::thread> threads;
@@ -174,7 +194,7 @@ void shim_launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A..
       for (unsigned t = 0; t < block.x; ++t) {
         threads.emplace_back([&, i, t] {
           threadIdx = dim3(t);
-          blockIdx = dim3(c0 + i);
+          blockIdx = dim3((c0 + i) % grid.x, (c0 + i) / grid.x);
           blockDim = block;
           gridDim = grid;
           g_cta = ctas[i].get();

@@ -169,3 +169,8 @@ def to_device(dense: np.ndarray, widths: np.ndarray, kind: str, device):
     d.copy_(torch.from_numpy(dense))
     assert d.data_ptr() % 16 == 1 and d.is_contiguous()
     return d, w
+
+# the delta chunk seed: (elem_bits, ndims, blocks, chunks), chunks of
+# unequal lengths (empty ones too) at chunk counts 1, 2, 7 and 33
+SEED_CASES = [(8, 64, 40, 7), (16, 3, 33, 33), (8, 1, 5, 1), (16, 130, 12, 2),
+              (8, 4, 300, 33)]

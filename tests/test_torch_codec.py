@@ -126,14 +126,15 @@ def test_headers_pack_roundtrip(rng):
 def test_outside_the_slice_raises():
     x = np.zeros((64, 9), np.uint8)
     codec = SprintzCodec("xff", entropy="huffman", device="cpu")
-    with pytest.raises(NotImplementedError, match="sidecar"):
-        codec.compress_seekable(x)
+    # sidecars are in the port now: the seekable stream is compress's
+    stream, sidecar = codec.compress_seekable(x)
+    assert stream == codec.compress(x)
+    np.testing.assert_array_equal(codec.decompress(stream, sidecar=sidecar),
+                                  x.reshape(-1))
     with pytest.raises(NotImplementedError, match="batch"):
         codec.compress_batch([x, x])
     with pytest.raises(NotImplementedError, match="batch"):
         codec.decompress_batch([compress(x, device="cpu")])
-    with pytest.raises(NotImplementedError, match="sidecar"):
-        SprintzCodec(device="cpu").decompress(b"\0" * 8, sidecar=object())
     # a d4 stream made by the JAX package (the lowdim layout) decodes, and
     # the port makes the same bytes
     from sprintz_tpu import encoder as jenc

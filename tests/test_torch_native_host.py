@@ -266,8 +266,9 @@ def test_entry_points_count_their_calls(rng):
             decoder.decompress(buf, codec=codec, elem_sz=es, device="cpu")
     hf.build_table(x)
     assert {fn.__name__: fn.calls for fn in native_host.ENTRY_POINTS} == {
-        "walk_headers": 4, "gather_blocks": 2, "gather_dims": 2,
-        "build_plan": 4, "assemble_stream": 4, "histogram": 1}
+        "walk_headers": 4, "walk_headers_parallel": 0, "gather_blocks": 2,
+        "gather_dims": 2, "build_plan": 4, "assemble_stream": 4,
+        "histogram": 1}
 
 
 def test_assembler_takes_an_empty_plan():
