@@ -96,6 +96,29 @@ Phases, each of which raises (exit code != 0) when it fails:
    kernel must have launched and FIRE's serial kernels never, the host
    library's parallel walk must have run, and every stream's bytes must
    be ``compress``'s; the sidecar's size is printed beside the stream's;
+3e. batch, its counts set to 0 before it and read after it:
+   ``SprintzCodec.compress_batch`` and ``decompress_batch`` on bench.py's
+   xff-batch shape (512 streams x 256 rows x 64 dims of a u8 walk), its
+   u16 twin (512 x 128 x 64), a lowdim batch (512 x 2048 x 4 u8) and 64
+   runs streams (2048 x 64), delta and xff, and a mixed delta batch (a
+   tail, a verbatim stream, another ndims); every batch kernel must have
+   launched, the lowdim encode from the rows and FIRE's serial decode
+   never; FIRE's encode launches once a batch and the decode is one
+   ``decode_device``; every stream's bytes equal its own ``compress`` on
+   the card and every decoded stream its input;
+3f. query, its counts set to 0 before it and read after it:
+   ``sprintz_tpu_torch.query`` on the 8 MiB u8 walk, the runs stream, an
+   8 MiB u16 stream near 65535 (sums past 2^31) and the 4 MiB u8 d4 walk
+   (delta: the compact pass) and the 8 MiB u8 walk under xff (the fused
+   pass), every op with ``materialize`` True and False: results equal
+   numpy over the raw data (sums wrapped to int32 on the device's share),
+   paths as the JAX package picks them; then the reduce kernel
+   (``csrc/query.cu``) equals its plain version on each stream's values,
+   with and without the runs' gaps;
+3g. cli: ``python -m sprintz_tpu_torch`` compress, decompress, info and
+   query in subprocesses on the 8 MiB u8 walk, delta and xff (with its
+   sidecar): containers equal the API's bytes, the decoded files the raw
+   one, info valid, sums numpy's;
 4. timings: each kernel's wrapper, the time inside its kernel launches
    alone, its plain version and, where one exists, one PyTorch call of the
    same function, by CUDA events (median of 25 after warm-up, L2 flushed
@@ -119,7 +142,12 @@ Phases, each of which raises (exit code != 0) when it fails:
    delta, xff and +Huf, and for delta and xff on the 4 MiB lowdim streams
    (medians of 3 runs); then ``decompress(sidecar=)`` beside
    ``decompress`` and ``compress_seekable`` beside ``compress`` in turns,
-   with both decodes' splits, on the xff walks and the 8 MiB u8 delta.
+   with both decodes' splits, on the xff walks and the 8 MiB u8 delta;
+   the batch's FIRE encode at S * D lanes and its chunked decode, the
+   reduce kernel at each query stream and op (beside torch.sum / amax /
+   amin); ``compress_batch`` and ``decompress_batch`` beside S single
+   calls, with their host / H2D / device / D2H splits; ``query`` (sum,
+   not materialized) beside ``decompress`` and numpy's sum, in turns.
 
 The last two lines of standard output are the card's name and power limit
 followed by ``{"ok": true, "device": {...}}``; the line before them is
@@ -214,6 +242,10 @@ KERNELS = {  # name -> (source, the TPU pass it replaces: file:line)
                                 "sprintz_tpu/models/forecasters.py:351"),
     "delta_chunk_seed": ("sprintz_tpu_torch/csrc/decode.cu",
                          "sprintz_tpu/decoder.py:945"),
+    # query pushdown: the reduce that JAX runs in XLA after its decode
+    # (jnp.sum in the fused pass)
+    "reduce_cols": ("sprintz_tpu_torch/csrc/query.cu",
+                    "sprintz_tpu/query/pushdown.py:84"),
 }
 # the kernels each main path must launch: the row-major one and the lowdim
 # one (u8 ndims <= 4, u16 ndims <= 2)
@@ -239,6 +271,19 @@ SEEKABLE_PATH = {"unpack_zz", "prefix_finish", "pack_rows", "unpack_rows",
                  "fire_decode_chunks_full", "delta_chunk_seed"}
 HOST_SEEKABLE_PATH = HOST_ROWMAJOR_PATH | HOST_LOWDIM_PATH | {
     "walk_headers_parallel"}
+# the batch path (compress_batch, decompress_batch) over both layouts and
+# codecs: FIRE's encode over S * D lanes, its decode in chunks (a chunk a
+# stream), delta's decode with the chunk seed
+BATCH_PATH = {"unpack_zz", "prefix_finish", "pack_rows", "unpack_rows",
+              "unpack_rows_narrow", "encode_lowdim_errs", "decode_lowdim",
+              "unpack_lowdim_raw", "fire_encode", "fire_encode_full",
+              "fire_decode_chunks", "fire_decode_chunks_full",
+              "delta_chunk_seed"}
+# query pushdown: the compact delta pass (both layouts), the fused xff pass
+# (u8: K5 and FIRE's serial decode), the reduce on each
+QUERY_PATH = {"unpack_zz", "prefix_finish", "decode_lowdim",
+              "unpack_rows_narrow", "fire_decode", "reduce_cols"}
+BATCH_REPS = 3
 EVERY_GROUPS = 16  # the sidecar's default: a checkpoint every 16 groups
 LOWDIM_ROWS = 1 << 20  # bench.py's extra_lowdim: 1M rows (bench.py:451-479)
 LOWDIM_SMALL_ROWS = 1 << 18
@@ -296,6 +341,8 @@ def main() -> int:
         from sprintz_tpu_torch.ops import decode_kernels as dk
         from sprintz_tpu_torch.ops import huffman_kernels as hk
         from sprintz_tpu_torch.ops import pack_kernels as pk
+        from sprintz_tpu_torch.ops import query_kernels as qk
+        from sprintz_tpu_torch import query as tquery
         from sprintz_tpu_torch.constants import LOWDIM_MAX_NDIMS
         from sprintz_tpu_torch.ops.bitmath import block_widths_rowmajor
         from sprintz_tpu_torch.planner import build_plan
@@ -345,9 +392,11 @@ def main() -> int:
         "fire_encode_states": (fc.fire_encode, "states_launches"),
         "fire_encode_states_full": (fc.fire_encode, "states_full_launches"),
         "delta_chunk_seed": (dk.delta_chunk_seed, "launches"),
+        "reduce_cols": (qk.reduce_cols, "launches"),
     }
     assert set(counters) == set(KERNELS) == (LOWDIM_PATH | ROWMAJOR_PATH
-                                             | SEEKABLE_PATH)
+                                             | SEEKABLE_PATH | BATCH_PATH
+                                             | QUERY_PATH)
 
     # ---------------------------------------------------------- 1. build
     t0 = time.perf_counter()
@@ -1277,6 +1326,289 @@ def main() -> int:
                              "not win, so K6 never ran on it")
     launches = {k: launches[k] + sk_launches[k] for k in KERNELS}
 
+    # --------------------------------------------------------- 3e. batch
+    # The batch API (SprintzCodec.compress_batch / decompress_batch) on
+    # bench.py's xff-batch shape (512 streams x 256 rows x 64 dims of a u8
+    # walk, bench.py:755-779), its u16 twin (512 x 128 x 64), a lowdim
+    # batch (512 x 2048 x 4 u8) and 64 runs streams (2048 x 64), each with
+    # delta and xff, and a mixed delta batch (a stream with a tail, a short
+    # verbatim stream, a stream of another ndims); every count set to 0
+    # just before and read just after. FIRE's encode must launch once a
+    # batch, a batch's decode must be one decode_device, the lowdim encode
+    # from the rows never (its delta would cross streams), FIRE's serial
+    # decode never; every stream's bytes must be its own compress's on the
+    # card and every decoded stream its input. A generator of its own.
+    t_phase = time.perf_counter()
+    brng = np.random.default_rng(SEED + 12)
+    batches = {
+        "u8 512 x 256 x 64": walk_stream(brng, 512 * 256, 64, 1).reshape(
+            512, 256, 64),
+        "u16 512 x 128 x 64": walk_stream(brng, 512 * 128, 64, 2).reshape(
+            512, 128, 64),
+        "u8 512 x 2048 x 4": walk_stream(brng, 512 * 2048, 4, 1).reshape(
+            512, 2048, 4),
+        "u8 runs 64 x 2048 x 64": runs_stream(brng, 64 * 2048, 64).reshape(
+            64, 2048, 64),
+    }
+    mixed = [walk_stream(brng, 1000, 64, 1), walk_stream(brng, 1, 64, 1),
+             walk_stream(brng, 800, 9, 1), walk_stream(brng, 2048, 64, 1)]
+    b_cases = [(w, c) for w in batches for c in ("delta", "xff")]
+    real_decode_device = decoder.decode_device
+    decode_calls = []
+
+    def counted_decode_device(*a, **k):
+        decode_calls.append(1)
+        return real_decode_device(*a, **k)
+
+    def fire_encodes() -> int:
+        return fc.fire_encode.launches + fc.fire_encode.full_launches
+
+    b_bufs, b_fire, b_decodes = {}, {}, {}
+    zero_counts()
+    decoder.decode_device = counted_decode_device
+    try:
+        for case in b_cases:
+            x = batches[case[0]]
+            cd = SprintzCodec(case[1], x.dtype.itemsize, device="cuda")
+            f0 = fire_encodes()
+            b_bufs[case] = cd.compress_batch(list(x))
+            b_fire[case] = fire_encodes() - f0
+            n0 = len(decode_calls)
+            out = cd.decompress_batch(b_bufs[case])
+            b_decodes[case] = len(decode_calls) - n0
+            if not all(np.array_equal(o, s.reshape(-1))
+                       for o, s in zip(out, x)):
+                raise AssertionError(f"batch {case}: a decoded stream differs "
+                                     f"from its input")
+        cd = SprintzCodec("delta", 1, device="cuda")
+        mixed_bufs = cd.compress_batch(mixed)
+        out = cd.decompress_batch(mixed_bufs)
+        if not all(np.array_equal(o, s.reshape(-1))
+                   for o, s in zip(out, mixed)):
+            raise AssertionError("mixed batch: a decoded stream differs from "
+                                 "its input")
+    finally:
+        decoder.decode_device = real_decode_device
+    b_launches = {k: getattr(obj, attr) for k, (obj, attr) in
+                  counters.items()}
+    host_calls("batch", (HOST_ROWMAJOR_PATH | HOST_LOWDIM_PATH)
+               - {"histogram"})
+    log(f"[batch] launches: {json.dumps(b_launches)}")
+    missing = [k for k in BATCH_PATH if b_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"batch path never launched: {missing}")
+    stray = [k for k in ("encode_lowdim", "fire_decode", "fire_decode_full")
+             if b_launches[k]]
+    if stray:
+        raise AssertionError(f"batch path launched {stray}")
+    for case in b_cases:
+        want_fire = int(case[1] == "xff")
+        if b_fire[case] != want_fire or b_decodes[case] != 1:
+            raise AssertionError(
+                f"batch {case}: {b_fire[case]} FIRE encode launches (not "
+                f"{want_fire}), {b_decodes[case]} decode_device calls (not 1)")
+    b_single = {}
+    for case in b_cases:
+        x = batches[case[0]]
+        cd = SprintzCodec(case[1], x.dtype.itemsize, device="cuda")
+        c = time.perf_counter()
+        single = [cd.compress(s) for s in x]
+        t_enc = time.perf_counter() - c
+        c = time.perf_counter()
+        for b in single:
+            cd.decompress(b)
+        b_single[case] = {"encode": t_enc,
+                          "decode": time.perf_counter() - c}
+        if single != b_bufs[case]:
+            raise AssertionError(f"batch {case}: bytes differ from each "
+                                 f"stream's own compress")
+        log(f"[batch] {' '.join(case)}: {x.shape[0]} streams, {x.nbytes} B "
+            f"-> {sum(map(len, single))} B; bytes == each stream's compress, "
+            f"decode exact; {b_fire[case]} FIRE encode launch, one "
+            f"decode_device")
+    cd = SprintzCodec("delta", 1, device="cuda")
+    if mixed_bufs != [cd.compress(s) for s in mixed]:
+        raise AssertionError("mixed batch: bytes differ from compress's")
+    log("[batch] mixed batch (a tail, a verbatim stream, another ndims): "
+        f"bytes == compress's, decode exact; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    launches = {k: launches[k] + b_launches[k] for k in KERNELS}
+
+    # --------------------------------------------------------- 3f. query
+    # Query pushdown (sprintz_tpu_torch.query) on the 8 MiB u8 walk and the
+    # 8 MiB runs stream (delta: the compact pass, the second with gaps), an
+    # 8 MiB u16 stream near 65535 whose sums wrap past 2^31, the 4 MiB u8
+    # d4 walk (the lowdim compact pass) and the 8 MiB u8 walk under xff (the
+    # fused pass), every op with materialize True and False; every count
+    # set to 0 just before and read just after. Results must equal numpy
+    # over the raw data, sums wrapped to int32 on the device's share; then
+    # reduce_cols equals its plain version on each stream's values.
+    t_phase = time.perf_counter()
+    qrng = np.random.default_rng(SEED + 13)
+    streams["u16 top 8 MiB"] = (65535 - np.cumsum(qrng.integers(
+        0, 4, (1 << 16, 64)), axis=0) % 512).astype(np.uint16)
+    q_cases = [("u8 walk 8 MiB", "delta", "compact"),
+               ("u8 runs 8 MiB", "delta", "compact"),
+               ("u16 top 8 MiB", "delta", "compact"),
+               ("u8 d4 walk 4 MiB", "delta", "compact"),
+               ("u8 walk 8 MiB", "xff", "fused")]
+    q_bufs = {c: bufs.get((c[0], c[1], "none")) or SprintzCodec(
+        c[1], streams[c[0]].dtype.itemsize, device="cuda").compress(
+        streams[c[0]]) for c in q_cases}
+    ops = list(tquery.Operation)
+
+    def expected(x: np.ndarray, buf: bytes, op):
+        """numpy over the raw rows: the device's share of a sum wraps to
+        int32, the verbatim tail's is added in int64."""
+        rem = read_metadata_rle(buf)[1]
+        flat = x.reshape(-1)
+        body, tail = flat[: x.size - rem], flat[x.size - rem:]
+        body = body.reshape(-1, x.shape[1]).astype(np.int64)
+        tail = tail[: tail.size // x.shape[1] * x.shape[1]].reshape(
+            -1, x.shape[1]).astype(np.int64)
+        if op == tquery.Operation.REDUCE_SUM:
+            s = body.sum(axis=0) & 0xFFFFFFFF
+            return (s - ((s & 0x80000000) << 1)) + tail.sum(axis=0)
+        rows = x.astype(np.int64)
+        return (rows.max(axis=0) if op == tquery.Operation.REDUCE_MAX
+                else rows.min(axis=0))
+
+    zero_counts()
+    q_paths = {}
+    for case in q_cases:
+        x, buf = streams[case[0]], q_bufs[case]
+        for op in ops:
+            for mat in (False, True):
+                res = tquery.query(buf, tquery.QueryParams(op, mat), case[1],
+                                   x.dtype.itemsize, device="cuda")
+                q_paths[case, op, mat] = tquery.pushdown.last_path
+                if mat and not np.array_equal(res.data, x):
+                    raise AssertionError(f"query {case} {op} materialized "
+                                         f"data differs")
+                if op == tquery.Operation.NOOP:
+                    continue
+                got = getattr(res, op.name.split("_")[1].lower())
+                if not np.array_equal(np.asarray(got, np.int64),
+                                      expected(x, buf, op)):
+                    raise AssertionError(f"query {case} {op} materialize "
+                                         f"{mat}: {got} differs from numpy")
+    q_launches = {k: getattr(obj, attr) for k, (obj, attr) in
+                  counters.items()}
+    host_calls("query", {"walk_headers", "gather_blocks", "gather_dims"})
+    log(f"[query] launches: {json.dumps(q_launches)}")
+    missing = [k for k in QUERY_PATH if q_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"query path never launched: {missing}")
+    for case in q_cases:
+        paths = {q_paths[case, op, False] for op in ops[1:]}
+        if paths != {case[2]}:
+            raise AssertionError(f"query {case}: paths {paths} without "
+                                 f"materialize, not {case[2]}")
+    wrap = expected(streams["u16 top 8 MiB"], q_bufs[q_cases[2]],
+                    tquery.Operation.REDUCE_SUM)
+    if not (wrap < 0).any():
+        raise AssertionError("the u16 top stream's sums did not wrap")
+    launches = {k: launches[k] + q_launches[k] for k in KERNELS}
+
+    def query_values(buf: bytes, es: int, codec: str, compact: bool):
+        """The values a query's reduce takes: the whole timeline, or the
+        data blocks alone with the gap after each (the compact pass)."""
+        ng, _, nd = read_metadata_rle(buf)
+        lowdim = nd <= LOWDIM_MAX_NDIMS[es]
+        idx = decoder.walk_headers(buf, ng, nd, es, lowdim)
+        up = decoder.upload_payload(decoder.gather_payloads(buf, idx), idx,
+                                    dev)
+        if not compact:
+            return decoder.decode_device(*up, idx.total_rows, es, codec,
+                                         lowdim), None, False
+        nd8 = idx.widths.shape[0] * 8
+        gaps = np.diff(idx.out_rows, append=idx.total_rows) - 8
+        return (decoder.decode_device(up[0], up[1], None, nd8, es, codec,
+                                      lowdim),
+                torch.from_numpy(gaps.astype(np.int32)).to(dev),
+                bool(idx.out_rows[0] > 0))
+
+    q_vals = {}
+    for case in q_cases:
+        es = streams[case[0]].dtype.itemsize
+        vals, gaps, lead = q_vals[case] = query_values(
+            q_bufs[case], es, case[1], case[2] == "compact")
+        for op in qk.OPS:
+            for g in ((None, False), (gaps, lead)) if gaps is not None else (
+                    (None, False),):
+                check("reduce_cols", qk.reduce_cols(vals, op, *g),
+                      qk.reduce_cols_plain(vals, op, *g),
+                      f"{case[0]} {case[1]} {op}"
+                      + (" with gaps" if g[0] is not None else ""))
+    log(f"[query] {len(q_cases)} streams x {len(ops)} ops x materialize: "
+        f"results == numpy (sums wrapped to int32 on the device's share; the "
+        f"u16 top stream's sums {wrap.tolist()[:3]}...), paths "
+        f"{sorted({c[2] for c in q_cases})}; reduce_cols == its plain version "
+        f"on every stream's values; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # ----------------------------------------------------------- 3g. cli
+    # python -m sprintz_tpu_torch compress / decompress / info / query in a
+    # subprocess each, all eight at once, on the 8 MiB u8 walk as a raw
+    # file, delta and xff (whose container carries a sidecar): each
+    # compress must write the API's container, and the reads of the API's
+    # containers must give the raw file, a valid info and numpy's sums.
+    t_phase = time.perf_counter()
+    cli_dir = here / "build" / "cli_smoke"
+    cli_dir.mkdir(parents=True, exist_ok=True)
+    x = streams["u8 walk 8 MiB"]
+    raw = cli_dir / "raw.bin"
+    x.tofile(raw)
+    codecs = ("delta", "xff")
+    api = {}
+    for c in codecs:
+        cd = SprintzCodec(c, 1, device="cuda")
+        if c == "xff":
+            stream, sc = cd.compress_seekable(x)
+            sc_b = sc.to_bytes()
+            api[c] = (b"SPZT2" + bytes([1 | 1 << 5])
+                      + np.uint32(len(sc_b)).tobytes() + sc_b + stream)
+        else:
+            api[c] = b"SPZT2" + bytes([0]) + cd.compress(x)
+        (cli_dir / f"{c}.api.spz").write_bytes(api[c])
+    argvs = {}
+    for c in codecs:
+        src = str(cli_dir / f"{c}.api.spz")
+        argvs["compress", c] = ["compress", str(raw), str(cli_dir / f"{c}.spz"),
+                                "--ndims", "64", "--codec", c]
+        argvs["decompress", c] = ["decompress", src, str(cli_dir / f"{c}.out")]
+        argvs["info", c] = ["info", src]
+        argvs["query", c] = ["query", src, "--op", "sum"]
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(
+        [sys.executable, "-m", "sprintz_tpu_torch", *a], cwd=here,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k, a in argvs.items()}
+    outs = {}
+    for k, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        if proc.returncode:
+            raise AssertionError(f"cli {' '.join(k)}: rc {proc.returncode}: "
+                                 f"{err}")
+        outs[k] = out
+    cli_s = time.perf_counter() - t0
+    for c in codecs:
+        if (cli_dir / f"{c}.spz").read_bytes() != api[c]:
+            raise AssertionError(f"cli {c}: the container is not the API's "
+                                 f"bytes")
+        if (cli_dir / f"{c}.out").read_bytes() != raw.read_bytes():
+            raise AssertionError(f"cli {c}: decompress differs from the raw "
+                                 f"file")
+        if "valid:     True" not in outs["info", c]:
+            raise AssertionError(f"cli {c}: info says {outs['info', c]}")
+        if (json.loads(outs["query", c])
+                != x.sum(axis=0, dtype=np.int64).tolist()):
+            raise AssertionError(f"cli {c}: query sums differ from numpy")
+    log(f"[cli] compress, decompress, info and query on an 8 MiB file, "
+        f"delta and xff (with its sidecar): 8 subprocesses at once in "
+        f"{cli_s:.1f} s; containers == the API's bytes, files, info and sums "
+        f"right; the phase {time.perf_counter() - t_phase:.1f} s")
+
     # -------------------------------------------------------- 4. timings
     flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
 
@@ -1868,6 +2200,215 @@ def main() -> int:
                 r["decode_sidecar_split_s"].items()))
     log("[e2e seekable] " + json.dumps({"card": smi, "streams": sk_e2e}))
 
+    # The batch's FIRE at S * D lanes: the encode over the xff-batch
+    # shape's (256, 512 * 64) lanes, the decode's 512 chunks of 32 blocks
+    # from the zero state, each beside its plain version (a loop over the
+    # 32 blocks of a lane).
+    t_phase = time.perf_counter()
+    bx = batches["u8 512 x 256 x 64"]
+    lanes = pk.widen_rows(encoder.upload_rows(
+        bx.reshape(-1, 64), dev, narrow=True).reshape(512, 256, 64).permute(
+        1, 0, 2).reshape(256, 512 * 64)).contiguous()
+    b_errs = fc.fire_encode(lanes, 8).reshape(256, 512, 64).permute(
+        1, 0, 2).reshape(-1, 64).to(torch.uint8).contiguous()
+    b_first = np.arange(513, dtype=np.int64) * 32
+    b_states = torch.zeros((512, 3, 64), dtype=torch.int32, device=dev)
+    what = "batch u8 512 x 256 x 64 (S * D = 32768 lanes)"
+    check("fire_encode", fc.fire_encode(lanes, 8),
+          fc.fire_encode_plain(lanes, 8), what)
+    check("fire_decode_chunks",
+          fc.fire_decode_chunks(b_errs, 8, b_first, b_states),
+          fc.fire_decode_chunks_plain(b_errs, 8, b_first, b_states), what)
+    nv = lanes.numel()
+    out_bd = fc.fire_decode_chunks(b_errs, 8, b_first, b_states)
+    table[what] = [
+        row("fire_encode", lambda: fc.fire_encode(lanes, 8),
+            lambda: fc.fire_encode_plain(lanes, 8), None, 2 * nbytes(lanes),
+            OPS_PER_ELEM["fire_encode"] * nv,
+            chain_steps=32 * CHAIN_OPS["fire_encode"][8], lanes=512 * 64),
+        row("fire_decode_chunks",
+            lambda: fc.fire_decode_chunks(b_errs, 8, b_first, b_states),
+            lambda: fc.fire_decode_chunks_plain(b_errs, 8, b_first,
+                                                b_states), None,
+            nbytes(b_errs, out_bd, b_states) + b_first.nbytes,
+            OPS_PER_ELEM["fire_decode"] * nv,
+            chain_steps=32 * CHAIN_OPS["fire_decode"][8], chunks=512)]
+    log_rows(what, table[what])
+    del lanes, b_errs, out_bd
+
+    # The reduce on each query stream's values (the whole timeline, or the
+    # data blocks with their gaps), each op, beside its plain version and
+    # torch.sum / amax / amin (on u16 through an int16 view: torch has no
+    # uint16 reduction kernels; the yardstick is the bytes, not the values)
+    def library_reduce(vals, op):
+        v = vals.view(torch.int16) if vals.dtype == torch.uint16 else vals
+        if op == "sum":
+            return lambda: torch.sum(v, dim=0, dtype=torch.int32)
+        return (lambda: torch.amax(v, dim=0)) if op == "max" else (
+            lambda: torch.amin(v, dim=0))
+
+    reduce_json = None
+    for case in q_cases:
+        vals, gaps, lead = q_vals[case]
+        what = f"query {case[0]} {case[1]} ({case[2]}) reduce"
+        table[what] = []
+        calls = [(op, None, False) for op in qk.OPS]
+        if gaps is not None:
+            calls.append(("sum", gaps, lead))
+        for op, g, ld in calls:
+            r_ = row("reduce_cols",
+                     lambda: qk.reduce_cols(vals, op, g, ld),
+                     lambda: qk.reduce_cols_plain(vals, op, g, ld),
+                     library_reduce(vals, op),
+                     nbytes(vals, g) + 4 * vals.shape[1], 2 * vals.numel(),
+                     op=op + (" with gaps" if g is not None else ""))
+            table[what].append(r_)
+            if reduce_json is None:
+                reduce_json = r_
+        log_rows(what, table[what])
+        log(f"[timing] {what} ops: "
+            + ", ".join(f"{r_['op']} {r_['ms']:.4f} ms" for r_ in table[what]))
+    log("[timing] batch and query kernels " + json.dumps(
+        {k: v for k, v in table.items() if k.startswith(("batch", "query"))}))
+
+    def split_encode_batch(sp: Split, x: np.ndarray, codec: str):
+        """compress_batch's steps: H2D, the device pass, D2H, the plans and
+        assemblies of every stream (host)."""
+        ns, nrows, nd = x.shape
+        es = x.dtype.itemsize
+        lowdim = nd <= LOWDIM_MAX_NDIMS[es]
+        nr = nrows // 8 * 8
+        t = sp.sync("h2d", lambda: encoder.upload_rows(
+            x[:, :nr].reshape(-1, nd), dev, narrow=True))
+        out = sp.device("device", lambda: encoder.encode_batch_device(
+            t.reshape(ns, nr, nd), es, codec, lowdim))
+        w_np, h_np, d_np, ws_np = sp.host("d2h", lambda: (
+            out[0].to(torch.uint8).cpu().numpy(),
+            out[1].to(torch.uint8).cpu().numpy(), out[2].cpu().numpy(),
+            out[3].cpu().numpy()))
+
+        def host():
+            nb, n = nr // 8, nrows * nd
+            for s in range(ns):
+                blk = slice(s * nb, (s + 1) * nb)
+                plan = build_plan(ws_np[blk] == 0, n, nd,
+                                  codec == "xff" and not lowdim)
+                encoder.assemble_stream(
+                    plan, w_np[blk], h_np[blk], d_np[blk], nd, es,
+                    x[s].reshape(-1)[n - plan.remaining_elems:], lowdim,
+                    ws_np[blk])
+
+        sp.host("host", host)
+
+    def split_decode_batch(sp: Split, bb: list, es: int, codec: str):
+        """decompress_batch's steps: the walks, the gather, H2D, the device
+        pass, D2H, the split into streams with their tails (host)."""
+        nd = read_metadata_rle(bb[0])[2]
+        lowdim = nd <= LOWDIM_MAX_NDIMS[es]
+        udt = np.uint8 if es == 1 else np.uint16
+
+        def walks():
+            out = []
+            for i, b in enumerate(bb):
+                ng, rem, _ = read_metadata_rle(b)
+                idx = decoder.walk_headers(b, ng, nd, es, lowdim)
+                out.append((i, idx, np.frombuffer(b, udt, rem,
+                                                  idx.tail_offset)))
+            return out
+
+        batch = sp.host("walk", walks)
+        dense, widths, out_rows, starts = sp.host(
+            "gather", lambda: decoder.gather_batch(bb, batch, nd, es, lowdim))
+        up = sp.sync("h2d", lambda: [torch.from_numpy(a).to(dev) for a in (
+            dense, widths, out_rows)])
+        vals = sp.device("device", lambda: decoder.decode_batch(
+            *up, starts, es, codec, lowdim))
+        flat = sp.host("d2h", lambda: decoder.download_values(vals))
+        sp.host("split", lambda: [
+            np.concatenate([flat[r * nd:(r + idx.total_rows) * nd], tail])
+            for (_, idx, tail), r in zip(batch, starts)])
+
+    def batch_e2e(case) -> dict:
+        """compress_batch and decompress_batch (medians of BATCH_REPS) beside
+        S single calls (one run, from the checks), and their splits."""
+        x, bb = batches[case[0]], b_bufs[case]
+        cd = SprintzCodec(case[1], x.dtype.itemsize, device="cuda")
+        t = {"encode": [], "decode": []}
+        for _ in range(BATCH_REPS):
+            c = time.perf_counter()
+            cd.compress_batch(list(x))
+            t["encode"].append(time.perf_counter() - c)
+            c = time.perf_counter()
+            cd.decompress_batch(bb)
+            t["decode"].append(time.perf_counter() - c)
+
+        def enc_split():
+            sp = Split()
+            split_encode_batch(sp, x, case[1])
+            return sp.t
+
+        def dec_split():
+            sp = Split()
+            split_decode_batch(sp, bb, x.dtype.itemsize, case[1])
+            return sp.t
+
+        return {"streams": x.shape[0], "bytes": x.nbytes,
+                "compressed": sum(map(len, bb)),
+                "encode_batch_s": statistics.median(t["encode"]),
+                "encode_single_s": b_single[case]["encode"],
+                "decode_batch_s": statistics.median(t["decode"]),
+                "decode_single_s": b_single[case]["decode"],
+                "encode_split_s": med(enc_split, BATCH_REPS),
+                "decode_split_s": med(dec_split, BATCH_REPS)}
+
+    b_e2e = {}
+    for case in b_cases:
+        key = " ".join(case)
+        r = b_e2e[key] = batch_e2e(case)
+        log(f"[e2e batch] {key}: compress_batch {r['encode_batch_s'] * 1e3:.3f}"
+            f" ms ({r['bytes'] / r['encode_batch_s'] / 1e9:.4f} GB/s) against "
+            f"{r['streams']} single compress {r['encode_single_s'] * 1e3:.3f} "
+            f"ms; decompress_batch {r['decode_batch_s'] * 1e3:.3f} ms ("
+            f"{r['bytes'] / r['decode_batch_s'] / 1e9:.4f} GB/s) against "
+            f"{r['decode_single_s'] * 1e3:.3f} ms; splits ms: encode "
+            + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in
+                        r["encode_split_s"].items())
+            + "; decode " + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in
+                                      r["decode_split_s"].items()))
+    log("[e2e batch] " + json.dumps({"card": smi, "batches": b_e2e}))
+
+    def query_e2e(case) -> dict:
+        """query(sum, materialize=False) beside decompress + numpy's sum, in
+        turns (decompress, query, query, decompress), medians."""
+        x, buf = streams[case[0]], q_bufs[case]
+        es, nd = x.dtype.itemsize, x.shape[1]
+        cd = SprintzCodec(case[1], es, device="cuda")
+        params = tquery.QueryParams(tquery.Operation.REDUCE_SUM, False)
+        t = {"query": [], "decompress_numpy": []}
+        for _ in range(E2E_REPS):
+            for key in ("decompress_numpy", "query", "query",
+                        "decompress_numpy"):
+                c = time.perf_counter()
+                if key == "query":
+                    tquery.query(buf, params, case[1], es, device="cuda")
+                else:
+                    cd.decompress(buf).reshape(-1, nd).sum(axis=0,
+                                                            dtype=np.int64)
+                t[key].append(time.perf_counter() - c)
+        return {"bytes": x.nbytes, "path": case[2],
+                **{k + "_s": statistics.median(v) for k, v in t.items()}}
+
+    q_e2e = {}
+    for case in q_cases:
+        key = " ".join(case)
+        r = q_e2e[key] = query_e2e(case)
+        log(f"[e2e query] {key}: query sum {r['query_s'] * 1e3:.3f} ms "
+            f"({r['bytes'] / r['query_s'] / 1e9:.4f} GB/s), decompress + "
+            f"numpy {r['decompress_numpy_s'] * 1e3:.3f} ms")
+    log("[e2e query] " + json.dumps({"card": smi, "streams": q_e2e}))
+    log(f"[timing] the batch and query rows took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "chain_bound_ms")
@@ -1879,7 +2420,8 @@ def main() -> int:
             + table["u8 main (nb 16384, D 64) sidecar"]
             + [r for r in table["u8 d4 walk 4 MiB (nb 131072, D 4) sidecar"]
                if r["name"] == "fire_decode_chunks_full"]
-            + table["u8 d4 walk 32k rows (nb 4096, D 4) sidecar"])
+            + table["u8 d4 walk 32k rows (nb 4096, D 4) sidecar"]
+            + [reduce_json])
     assert sorted(r["name"] for r in line) == sorted(KERNELS)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in line]}),
           flush=True)

@@ -2,15 +2,18 @@
 
 A port of ``sprintz_tpu`` that imports neither JAX nor the JAX package.
 It covers the delta and FIRE (xff) codecs in both layouts (u8 and u16,
-RLE of zero blocks), the +Huf entropy stage and checkpoint sidecars
+RLE of zero blocks), the +Huf entropy stage, checkpoint sidecars
 (``SprintzCodec.compress_seekable``, ``decompress(sidecar=)``,
-``checkpoint.decode_range``); the kernels are CUDA C++ under ``csrc/``,
-built with nvcc at first use. Streams are byte-identical to the reference
-codec and to the JAX package.
+``checkpoint.decode_range``), batches of streams in one device pass
+(``SprintzCodec.compress_batch`` / ``decompress_batch``), query pushdown
+(``query.query``) and a file CLI (``python -m sprintz_tpu_torch``); the
+kernels are CUDA C++ under ``csrc/``, built with nvcc at first use.
+Streams are byte-identical to the reference codec and to the JAX package.
 """
 
+from . import query
 from .api import Sidecar, SprintzCodec, compress, decompress
 from .errors import CorruptStreamError
 
 __all__ = ["CorruptStreamError", "Sidecar", "SprintzCodec", "compress",
-           "decompress"]
+           "decompress", "query"]

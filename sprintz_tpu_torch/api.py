@@ -1,15 +1,15 @@
-"""Public API: compress/decompress entry points for the port's slice.
+"""Public API: the port's compress/decompress entry points.
 
-Mirrors ``sprintz_tpu/api.py`` for the configurations this port covers so
-far: the delta and FIRE (xff) codecs, u8 and u16, at every ndims, in the
-layout the JAX package picks (``constants.LOWDIM_MAX_NDIMS``): row-major
-for u8 ndims > 4 and u16 ndims > 2, lowdim (column-major blocks, FIRE's
-full-precision coefficient) below; with RLE of zero blocks, streams short
+Mirrors ``sprintz_tpu/api.py``: the delta and FIRE (xff) codecs, u8 and
+u16, at every ndims, in the layout the JAX package picks
+(``constants.LOWDIM_MAX_NDIMS``): row-major for u8 ndims > 4 and u16
+ndims > 2, lowdim (column-major blocks, FIRE's full-precision
+coefficient) below; with RLE of zero blocks, streams short
 enough to be stored verbatim, and the +Huf entropy stage on either codec
 and layout; checkpoint sidecars (``compress_seekable``,
-``decompress(sidecar=)``, and ``checkpoint.decode_range``). Batches raise
-``NotImplementedError`` naming the slice of the port that brings them;
-nothing falls back to another codec path.
+``decompress(sidecar=)``, and ``checkpoint.decode_range``); and batches of
+streams in one device pass (``compress_batch``, ``decompress_batch``).
+Nothing falls back to another codec path.
 
 Entry points run on CUDA unless ``device`` says otherwise; ``"cpu"`` runs
 the kernels' plain PyTorch versions and is meant for tests.
@@ -128,13 +128,34 @@ class SprintzCodec:
             stream = self._entropy_wrap(stream)
         return stream, sc
 
-    def compress_batch(self, arrays, ndims=None):
-        raise NotImplementedError(
-            "the batch API arrives with a later slice of the port")
+    def compress_batch(self, arrays: list[np.ndarray],
+                       ndims: int | None = None) -> list[bytes]:
+        """Compress S same-shape (rows, ndims) arrays in one device pass
+        (``encoder.compress_batch``: the forecast runs S * ndims lanes
+        wide); each stream is byte-identical to its own ``compress``.
+        Other batches (other shapes, 1-D arrays, an explicit ``ndims``,
+        +Huf) and any array whose dtype is not the codec's go through
+        ``compress`` one by one, which raises the same ``TypeError`` on a
+        wrong dtype."""
+        expected = np.dtype(np.uint8 if self.elem_sz == 1 else np.uint16)
+        arrays = [np.asarray(a) for a in arrays]
+        if (self.entropy == "none" and ndims is None and arrays
+                and all(a.ndim == 2 and a.shape == arrays[0].shape
+                        and a.dtype == expected for a in arrays)):
+            return _encoder.compress_batch(np.stack(arrays),
+                                           codec=self.codec,
+                                           device=self.device)
+        return [self.compress(a, ndims=ndims) for a in arrays]
 
-    def decompress_batch(self, bufs):
-        raise NotImplementedError(
-            "the batch API arrives with a later slice of the port")
+    def decompress_batch(self, bufs: list[bytes]) -> list[np.ndarray]:
+        """Decompress S streams in one device pass
+        (``decoder.decompress_batch``), the counterpart of
+        ``compress_batch``; +Huf streams decode one by one."""
+        if self.entropy == "none":
+            return _decoder.decompress_batch(bufs, codec=self.codec,
+                                             elem_sz=self.elem_sz,
+                                             device=self.device)
+        return [self.decompress(b) for b in bufs]
 
 
 def compress(

@@ -214,19 +214,26 @@ def _walk_headers_py(buf: bytes, ngroups: int, ndims: int, elem_sz: int,
     )
 
 
-def gather_payloads(buf: bytes, idx: StreamIndex) -> np.ndarray:
+def stream_maxb(idx: StreamIndex) -> int:
+    """The row-major stream's widest payload row in bytes, at least 1."""
+    return max(int(idx.row_bytes.max()) if idx.row_bytes.size else 1, 1)
+
+
+def gather_payloads(buf: bytes, idx: StreamIndex, maxb: int | None = None,
+                    out: np.ndarray | None = None) -> np.ndarray:
     """Gather the packed payload rows into a dense (ndata, 8, MAXB) uint8
-    buffer, zero padded, in the port's host library; MAXB is the stream's
-    widest row in bytes (at least 1), not a bucket. In the lowdim layout
-    the (block, dim) sections go into a dense (ndata, D, EB) buffer, zero
-    past each section's w bytes. ``_gather_payloads_py`` is its plain
-    version."""
+    buffer, zero padded, in the port's host library; MAXB is ``maxb`` or
+    the stream's widest row in bytes (``stream_maxb``), not a bucket. In
+    the lowdim layout the (block, dim) sections go into a dense
+    (ndata, D, EB) buffer, zero past each section's w bytes. ``out``: the
+    buffer to gather into (a batch's slice), else a new one.
+    ``_gather_payloads_py`` is its plain version."""
     if idx.section_bytes:
         return native_host.gather_dims(buf, idx.payload_offsets, idx.widths,
-                                       idx.section_bytes)
-    maxb = max(int(idx.row_bytes.max()) if idx.row_bytes.size else 1, 1)
-    return native_host.gather_blocks(buf, idx.payload_offsets, idx.row_bytes,
-                                     maxb)
+                                       idx.section_bytes, out)
+    return native_host.gather_blocks(
+        buf, idx.payload_offsets, idx.row_bytes,
+        stream_maxb(idx) if maxb is None else maxb, out)
 
 
 def _gather_payloads_py(buf: bytes, idx: StreamIndex) -> np.ndarray:
@@ -354,6 +361,113 @@ def decompress(buf: bytes, codec: str = "delta", elem_sz: int = 1,
     vals = decode_device(*upload_payload(dense, idx, dev), idx.total_rows,
                          elem_sz, codec, lowdim)
     return np.concatenate([download_values(vals), tail])
+
+
+def decompress_batch(bufs: list[bytes], codec: str = "delta",
+                     elem_sz: int = 1,
+                     device: str | torch.device | None = None
+                     ) -> list[np.ndarray]:
+    """Decompress S streams in one device pass; returns each stream's flat
+    elements, as ``decompress`` would. The counterpart of the JAX package's
+    ``decoder.decompress_batch``, whose two vmapped passes become one
+    ``decode_device`` over the streams' timelines laid end to end, each
+    stream a chunk from the zero state: one set of launches for the batch,
+    with runs or without, in either layout and codec.
+
+    The streams that share the first stream's ndims and have rows are
+    walked and gathered on the host (row-major payloads padded to the
+    batch's widest row), go up in one copy and come down in one; each
+    stream's verbatim tail is appended on the host. Short (verbatim)
+    streams are read on the host, and streams without rows, or of another
+    ndims, take ``decompress`` one by one, as in the JAX package (which
+    walks a stream of another ndims with the first stream's, and may raise
+    for it; the port does not). Raises ``CorruptStreamError`` for a
+    truncated or inconsistent stream."""
+    if codec not in ("delta", "xff"):
+        raise ValueError(f"codec must be 'delta' or 'xff', got {codec!r}")
+    if elem_sz not in (1, 2):
+        raise ValueError(f"elem_sz must be 1 or 2, got {elem_sz}")
+    dev = resolve_device(device)
+    if not bufs:
+        return []
+    udt = np.uint8 if elem_sz == 1 else np.uint16
+    for buf in bufs:
+        if len(buf) < METADATA_LEN_RLE:
+            raise CorruptStreamError(
+                f"stream shorter than its {METADATA_LEN_RLE}-byte metadata "
+                f"({len(buf)} bytes)")
+    metas = [read_metadata_rle(b) for b in bufs]
+    ndims = metas[0][2]
+    lowdim = ndims <= LOWDIM_MAX_NDIMS[elem_sz]
+    out: list[np.ndarray | None] = [None] * len(bufs)
+    batch = []  # (stream, its walk, its verbatim tail)
+    for i, (buf, (ngroups, remaining_len, nd)) in enumerate(zip(bufs, metas)):
+        if ngroups == 0 and remaining_len < MIN_DATA_SIZE:
+            if len(buf) < METADATA_LEN_RLE + remaining_len * elem_sz:
+                raise CorruptStreamError("verbatim stream truncated")
+            out[i] = np.frombuffer(buf, dtype=udt, count=remaining_len,
+                                   offset=METADATA_LEN_RLE).copy()
+            continue
+        if nd != ndims:
+            out[i] = decompress(buf, codec, elem_sz, dev)
+            continue
+        idx = walk_headers(buf, ngroups, ndims, elem_sz, lowdim)
+        if idx.tail_offset + remaining_len * elem_sz > len(buf):
+            raise CorruptStreamError(
+                f"verbatim tail truncated: need "
+                f"{idx.tail_offset + remaining_len * elem_sz} bytes, "
+                f"have {len(buf)}")
+        if idx.total_rows == 0:
+            out[i] = decompress(buf, codec, elem_sz, dev)
+            continue
+        batch.append((i, idx, np.frombuffer(buf, dtype=udt,
+                                            count=remaining_len,
+                                            offset=idx.tail_offset)))
+    if batch:
+        dense, widths, out_rows, starts = gather_batch(
+            bufs, batch, ndims, elem_sz, lowdim)
+        up = [torch.from_numpy(a).to(dev) for a in (dense, widths, out_rows)]
+        vals = download_values(decode_batch(*up, starts, elem_sz, codec,
+                                            lowdim))
+        for (i, idx, tail), row in zip(batch, starts):
+            body = vals[row * ndims:(row + idx.total_rows) * ndims]
+            out[i] = np.concatenate([body, tail])
+    return out
+
+
+def gather_batch(bufs: list[bytes], batch, ndims: int, elem_sz: int,
+                 lowdim: bool):
+    """A batch's payloads on the host: each (stream, walk, tail) of
+    ``batch`` gathered into one buffer (row-major rows padded to the
+    batch's widest), its timeline after the previous stream's ->
+    (dense, widths, out_rows, starts): starts (S + 1,) the streams' first
+    rows on the joined timeline and its total."""
+    ndata = [idx.widths.shape[0] for _, idx, _ in batch]
+    starts = np.cumsum([0] + [idx.total_rows for _, idx, _ in batch])
+    if lowdim:
+        inner = (ndims, 8 * elem_sz)
+    else:
+        inner = (BLOCK_SZ, max(stream_maxb(idx) for _, idx, _ in batch))
+    dense = np.empty((sum(ndata),) + inner, dtype=np.uint8)
+    at = np.cumsum([0] + ndata)
+    for s, (i, idx, _) in enumerate(batch):
+        gather_payloads(bufs[i], idx, inner[1], dense[at[s]:at[s + 1]])
+    widths = np.concatenate([idx.widths for _, idx, _ in batch])
+    out_rows = np.concatenate([idx.out_rows + starts[s]
+                               for s, (_, idx, _) in enumerate(batch)])
+    return dense, widths, out_rows, starts
+
+
+def decode_batch(dense: torch.Tensor, widths: torch.Tensor,
+                 out_rows: torch.Tensor, starts: np.ndarray, elem_sz: int,
+                 codec: str, lowdim: bool) -> torch.Tensor:
+    """A batch's device pass: one ``decode_device`` over the joined
+    timeline, a chunk a stream (from ``starts``, on the host) from the
+    zero state -> the streams' rows end to end."""
+    states = np.zeros((starts.size - 1, 3, widths.shape[1]), np.int32)
+    return decode_device(dense, widths, out_rows, int(starts[-1]), elem_sz,
+                         codec, lowdim,
+                         chunks=(starts[:-1] // BLOCK_SZ, states))
 
 
 def decode_indexed(buf: bytes, idx: StreamIndex, ndims: int, elem_sz: int,

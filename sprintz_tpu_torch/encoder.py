@@ -47,7 +47,8 @@ from .constants import (
 from .device import resolve_device
 from .models.forecasters import delta_encode, fire_encode
 from .ops.bitmath import block_widths_rowmajor, header_value
-from .ops.pack_kernels import encode_lowdim, pack_rows, rows_dtype
+from .ops.pack_kernels import (encode_lowdim, pack_rows, rows_dtype,
+                               widen_rows)
 from .planner import KIND_DATA, KIND_RUN, EmissionPlan, build_plan, pack_headers
 from .stream_format import copy_ranges, write_metadata_rle
 
@@ -90,13 +91,21 @@ def encode_device(rows: torch.Tensor, elem_sz: int, codec: str = "delta",
         errs = fire_encode(rows, eb, truncate_coeffs=not lowdim)
     else:
         errs = delta_encode(rows, eb)
+    return encode_errors(errs, elem_sz, lowdim) + carries
+
+
+def encode_errors(errs: torch.Tensor, elem_sz: int, lowdim: bool):
+    """The device pass after the forecast: zigzag errors (N, D) int32, N
+    divisible by 8 -> (widths, hdr, dense, width_sums) as ``encode_device``
+    returns them: row-major through K3 ``pack_rows``, lowdim through
+    ``encode_lowdim(errors=True)``."""
     if lowdim:
-        return encode_lowdim(errs, elem_sz, errors=True) + carries
-    blocks = errs.reshape(-1, BLOCK_SZ, rows.shape[1])
+        return encode_lowdim(errs, elem_sz, errors=True)
+    blocks = errs.reshape(-1, BLOCK_SZ, errs.shape[1])
     widths = block_widths_rowmajor(blocks.amax(dim=1), elem_sz)
-    return (widths, header_value(widths, eb), pack_rows(blocks, widths,
-                                                        elem_sz),
-            widths.sum(dim=1, dtype=torch.int32)) + carries
+    return (widths, header_value(widths, 8 * elem_sz),
+            pack_rows(blocks, widths, elem_sz),
+            widths.sum(dim=1, dtype=torch.int32))
 
 
 @dataclasses.dataclass
@@ -168,6 +177,84 @@ def compress_with_layout(flat: np.ndarray, ndims: int, codec: str = "delta",
         plan, widths_np, hdr_np, dense_np, ndims, elem_sz,
         flat[n - plan.remaining_elems:], lowdim, wsums_np, group_index=True)
     return stream, StreamLayout(nb, offsets, first_rows, carries)
+
+
+def compress_batch(streams: np.ndarray, codec: str = "delta",
+                   device: str | torch.device | None = None) -> list[bytes]:
+    """Compress S same-shape streams, (S, nrows, D) u8/u16, in one device
+    pass; each stream's bytes are those ``compress`` gives it alone. The
+    counterpart of the JAX package's ``encoder.compress_batch``, which
+    vmaps its encode pass over the batch.
+
+    The streams go up in one copy, narrow, and are laid out on the device
+    as (nb * 8, S * D) lanes: FIRE and delta are column-independent and
+    every column starts from the zero state at row 0, so one
+    ``fire_encode`` (S * D lanes) or ``delta_encode`` over that layout
+    gives each stream its own errors. The errors go back to (S * nb, 8, D)
+    blocks for one ``encode_errors`` (K3, or the lowdim encode from
+    errors); the lowdim delta takes that route too, since
+    ``encode_lowdim``'s delta from the rows would difference each stream's
+    first row against the stream before it. One download brings every
+    stream's widths, headers, payload and width sums; each stream is then
+    planned and assembled on the host with its own tail."""
+    if codec not in ("delta", "xff"):
+        raise ValueError(f"codec must be 'delta' or 'xff', got {codec!r}")
+    streams = np.ascontiguousarray(streams)
+    if streams.ndim != 3:
+        raise ValueError(f"streams must be (S, nrows, ndims), got shape "
+                         f"{streams.shape}")
+    if streams.dtype not in (np.uint8, np.uint16):
+        raise TypeError(f"expected uint8 or uint16 streams, got "
+                        f"{streams.dtype}")
+    dev = resolve_device(device)
+    nstreams, nrows, ndims = streams.shape
+    elem_sz = streams.dtype.itemsize
+    n = nrows * ndims
+    if n < MIN_DATA_SIZE:
+        return [write_metadata_rle(0, n, ndims) + s.tobytes()
+                for s in streams]
+    nb = nrows // BLOCK_SZ
+    if nstreams == 0 or nb == 0:
+        return [compress(s.reshape(-1), ndims, codec, elem_sz, dev)
+                for s in streams]
+    lowdim = ndims <= LOWDIM_MAX_NDIMS[elem_sz]
+    nr = nb * BLOCK_SZ
+    x = upload_rows(streams[:, :nr].reshape(nstreams * nr, ndims), dev,
+                    narrow=True)
+    widths, hdr, dense, width_sums = encode_batch_device(
+        x.reshape(nstreams, nr, ndims), elem_sz, codec, lowdim)
+    widths_np = widths.to(torch.uint8).cpu().numpy()
+    hdr_np = hdr.to(torch.uint8).cpu().numpy()
+    dense_np = dense.cpu().numpy()
+    wsums_np = width_sums.cpu().numpy()
+
+    out = []
+    for s in range(nstreams):
+        blk = slice(s * nb, (s + 1) * nb)
+        plan = build_plan(wsums_np[blk] == 0, n, ndims,
+                          codec == "xff" and not lowdim)
+        flat = streams[s].reshape(-1)
+        out.append(assemble_stream(
+            plan, widths_np[blk], hdr_np[blk], dense_np[blk], ndims, elem_sz,
+            flat[n - plan.remaining_elems:], lowdim, wsums_np[blk]))
+    return out
+
+
+def encode_batch_device(x: torch.Tensor, elem_sz: int, codec: str,
+                        lowdim: bool):
+    """``compress_batch``'s device pass: narrow rows (S, nb * 8, D), as
+    ``upload_rows(..., narrow=True)`` gives them -> ``encode_device``'s
+    outputs for the S * nb blocks, stream after stream. The forecast runs
+    once over the (nb * 8, S * D) lanes."""
+    nstreams, nr, ndims = x.shape
+    eb = 8 * elem_sz
+    lanes = widen_rows(x.permute(1, 0, 2).reshape(
+        nr, nstreams * ndims)).contiguous()
+    errs = (fire_encode(lanes, eb, truncate_coeffs=not lowdim)
+            if codec == "xff" else delta_encode(lanes, eb))
+    errs = errs.reshape(nr, nstreams, ndims).permute(1, 0, 2).reshape(
+        nstreams * nr, ndims).contiguous()
+    return encode_errors(errs, elem_sz, lowdim)
 
 
 def assemble_stream(plan: EmissionPlan, widths_np: np.ndarray,

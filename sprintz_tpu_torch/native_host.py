@@ -195,14 +195,27 @@ def walk_headers_parallel(buf, byte_offsets: np.ndarray,
             row_bytes[:ndata], int(meta[1]), int(meta[2]))
 
 
+def _gather_out(out: np.ndarray | None, shape: tuple) -> np.ndarray:
+    """A gather's output: a new array, or the caller's (a contiguous
+    uint8 array of that shape, such as a slice of a batch's buffer)."""
+    if out is None:
+        return np.empty(shape, dtype=np.uint8)
+    if (out.shape != shape or out.dtype != np.uint8
+            or not out.flags.c_contiguous):
+        raise ValueError(f"gather output {out.shape} {out.dtype} is not a "
+                         f"contiguous uint8 array of shape {shape}")
+    return out
+
+
 def gather_blocks(buf, offsets: np.ndarray, row_bytes: np.ndarray,
-                  maxb: int) -> np.ndarray:
+                  maxb: int, out: np.ndarray | None = None) -> np.ndarray:
     """Row-major payload gather: block i's 8 rows of ``row_bytes[i]`` bytes
-    at ``offsets[i]`` -> (ndata, 8, maxb) uint8, zero past each row."""
+    at ``offsets[i]`` -> (ndata, 8, maxb) uint8, zero past each row, into
+    ``out`` when given."""
     data = _u8(buf)
     offsets = np.ascontiguousarray(offsets, dtype=np.int64)
     row_bytes = np.ascontiguousarray(row_bytes, dtype=np.int32)
-    out = np.empty((offsets.size, BLOCK_SZ, maxb), dtype=np.uint8)
+    out = _gather_out(out, (offsets.size, BLOCK_SZ, maxb))
     gather_blocks.calls += 1
     if _library().sprintz_gather_blocks(
             _ptr(data), data.size, _ptr(offsets), _ptr(row_bytes),
@@ -212,15 +225,16 @@ def gather_blocks(buf, offsets: np.ndarray, row_bytes: np.ndarray,
 
 
 def gather_dims(buf, offsets: np.ndarray, widths: np.ndarray,
-                section_bytes: int) -> np.ndarray:
+                section_bytes: int, out: np.ndarray | None = None
+                ) -> np.ndarray:
     """Lowdim payload gather: block i's D sections of ``widths[i, d]`` bytes
     from ``offsets[i]`` on -> (ndata, D, section_bytes) uint8, zero past
-    each section's w bytes."""
+    each section's w bytes, into ``out`` when given."""
     data = _u8(buf)
     offsets = np.ascontiguousarray(offsets, dtype=np.int64)
     widths = np.ascontiguousarray(widths, dtype=np.uint8)
     ndata, ndims = widths.shape
-    out = np.empty((ndata, ndims, section_bytes), dtype=np.uint8)
+    out = _gather_out(out, (ndata, ndims, section_bytes))
     gather_dims.calls += 1
     if _library().sprintz_gather_dims(
             _ptr(data), data.size, _ptr(offsets), _ptr(widths), ndata, ndims,

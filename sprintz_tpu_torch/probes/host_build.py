@@ -5,11 +5,12 @@
 kernels (``csrc/pack.cu``: K3 ``pack_rows_kernel`` and the lowdim
 ``encode_lowdim_kernel``) and the FIRE kernels (``csrc/fire.cu``: the
 encode with and without its states, the decode serial and in chunks) on
-the host with g++, and hold them to their plain versions at the cases of
-``probes/unpack_cases.py`` (``UNPACK_CASES``, ``LOWDIM_CASES``,
+the host with g++, and the query pushdown's reduce (``csrc/query.cu``:
+``reduce_cols_kernel``), and hold them to their plain versions at the cases
+of ``probes/unpack_cases.py`` (``UNPACK_CASES``, ``LOWDIM_CASES``,
 ``SEED_CASES``), ``probes/encode_cases.py`` (``PACK_CASES``,
-``LOWDIM_PACK_CASES``) and ``FIRE_CASES`` below, with no card and no
-nvcc.
+``LOWDIM_PACK_CASES``) and ``FIRE_CASES`` and ``QUERY_CASES`` below, with
+no card and no nvcc.
 
     python3 sprintz_tpu_torch/probes/host_build.py [--resident 1 3] [--src FILE]
 
@@ -45,6 +46,7 @@ ROOT = HERE.parents[1]
 SRC = ROOT / "sprintz_tpu_torch" / "csrc" / "decode.cu"
 PACK_SRC = ROOT / "sprintz_tpu_torch" / "csrc" / "pack.cu"
 FIRE_SRC = ROOT / "sprintz_tpu_torch" / "csrc" / "fire.cu"
+QUERY_SRC = ROOT / "sprintz_tpu_torch" / "csrc" / "query.cu"
 OUT = ROOT / "build" / "sprintz_tpu_torch" / "host"
 HELPERS = re.compile(r"// ---- device helpers \(PTX\)\n.*?// ---- end of device helpers\n",
                      re.S)
@@ -119,6 +121,7 @@ ENTRIES = {
     "sprintz_delta_chunk_seed": [P, P, P, P, I, L, I, I, P],
     "sprintz_fire_scan": [P, P, P, L, I, I, I, I, P],
     "sprintz_fire_decode_chunks": [P, P, P, I, L, P, L, I, I, I, P],
+    "sprintz_reduce_cols": [P, P, P, L, I, I, I, I, P],
 }
 # (elem_bits, ndims, blocks, chunks, truncated coefficient): FIRE's chunked
 # decode at chunk counts 1, 2, 7 and 33 of unequal lengths (empty ones
@@ -128,14 +131,22 @@ ENTRIES = {
 FIRE_CASES = [(8, 4, 40, 7, False), (8, 3, 33, 33, False), (16, 2, 300, 2, False),
               (8, 1, 17, 1, False), (16, 1, 60, 33, False), (8, 33, 40, 7, True),
               (16, 31, 35, 2, True), (8, 64, 150, 3, True), (16, 5, 9, 1, True)]
+# (elem_bits, ndims, rows): the reduce at column tiles of 1, 4, 8 and 32
+# lanes (D 33 and 129 leave a ragged tile), one row, rows that end inside a
+# strip or a block, and u16 sums that wrap past 2^31 (40000 rows near 65535)
+QUERY_CASES = [(8, 1, 1), (8, 3, 2049), (8, 4, 4096), (8, 5, 808), (8, 64, 1000),
+               (8, 129, 264), (16, 1, 40000), (16, 2, 520), (16, 33, 3000),
+               (16, 64, 2048)]
 
 
-def host_source(src: str, kernels: int, helpers: re.Pattern = HELPERS,
+def host_source(src: str, kernels: int, helpers: re.Pattern | None = HELPERS,
                 host_helpers: str = HOST_HELPERS) -> str:
     """A kernel source as C++ for the shim: its device helpers, its shared
     memory, its ``kernels`` launches."""
-    out, n = helpers.subn(host_helpers, src)
-    assert n == 1, "the device helpers' marker lines"
+    out = src
+    if helpers is not None:
+        out, n = helpers.subn(host_helpers, src)
+        assert n == 1, "the device helpers' marker lines"
     out = out.replace("#include <cuda_runtime.h>\n", "")
     out, n = re.subn(r"extern __shared__ __align__\(16\) (uint8_t|unsigned char) (\w+)\[\];",
                      r"\1* \2 = shim_smem();", out)
@@ -149,7 +160,8 @@ def host_source(src: str, kernels: int, helpers: re.Pattern = HELPERS,
 
 
 def build(src: pathlib.Path = SRC, out: pathlib.Path = OUT, kernels: int = 5,
-          helpers: re.Pattern = HELPERS, host_helpers: str = HOST_HELPERS) -> ctypes.CDLL:
+          helpers: re.Pattern | None = HELPERS,
+          host_helpers: str = HOST_HELPERS) -> ctypes.CDLL:
     """Compile ``src`` for the shim into ``out`` (reused while the source
     and the shim are unchanged) and load it."""
     text = host_source(src.read_text(), kernels, helpers, host_helpers)
@@ -179,6 +191,11 @@ def build_fire(src: pathlib.Path = FIRE_SRC, out: pathlib.Path = OUT) -> ctypes.
     """``build`` for fire.cu: the encode, the decode and the chain probe,
     with its mbarriers."""
     return build(src, out, kernels=3, helpers=FIRE_HELPERS, host_helpers=FIRE_HOST_HELPERS)
+
+
+def build_query(src: pathlib.Path = QUERY_SRC, out: pathlib.Path = OUT) -> ctypes.CDLL:
+    """``build`` for query.cu: the reduce, which has no device helpers."""
+    return build(src, out, kernels=1, helpers=None)
 
 
 class HostKernels:
@@ -318,6 +335,21 @@ class HostKernels:
             int(trunc), None))
         return out
 
+    def reduce_cols(self, vals, op: str, gap_after, leading_gap: bool):
+        """The reduce into an output of garbage, which the entry point sets
+        before its launch."""
+        from sprintz_tpu_torch.ops import query_kernels as qk
+
+        t = self.torch
+        rows, nd = vals.shape
+        out = self.garbage((nd,), t.int32)
+        gaps = None if gap_after is None else t.from_numpy(
+            np.ascontiguousarray(gap_after, dtype=np.int32))
+        self.check(self.so.sprintz_reduce_cols(
+            vals.data_ptr(), None if gaps is None else gaps.data_ptr(), out.data_ptr(),
+            rows, nd, 8 * vals.element_size(), qk.OPS.index(op), int(leading_gap), None))
+        return out
+
     def prefix_finish(self, bz, toff, elem_bits: int):
         from sprintz_tpu_torch.ops import decode_kernels as dk
 
@@ -454,6 +486,35 @@ def check_seed_case(hk: HostKernels, eb: int, nd: int, nb: int,
     return None
 
 
+def check_query_case(hk: HostKernels, eb: int, nd: int, rows: int) -> str | None:
+    """The host-built reduce at a ``QUERY_CASES`` case, each op, the sum
+    also with run gaps after the blocks (up to 2^31 - 1 rows, where rows
+    are whole blocks) and min also after a leading run, against its plain
+    version: the name of the first that differs, or None."""
+    import torch
+
+    from sprintz_tpu_torch.ops import decode_kernels as dk
+    from sprintz_tpu_torch.ops import query_kernels as qk
+
+    rng = np.random.default_rng(eb * 101 + nd * 7 + rows)
+    top = 1 << eb
+    x = rng.integers(top - top // 64, top, (rows, nd)).astype(np.int32)
+    x[rng.integers(0, rows, 3), rng.integers(0, nd, 3)] = 0  # a few zeros for min
+    vals = dk.narrow(torch.from_numpy(x), eb)
+    calls = [(op, None, False) for op in qk.OPS] + [("min", None, True)]
+    if rows % 8 == 0:
+        gaps = rng.integers(0, 1 << 20, rows // 8).astype(np.int32)
+        gaps[rng.integers(0, rows // 8)] = (1 << 31) - 1
+        calls.append(("sum", gaps, False))
+    for op, gaps, lead in calls:
+        got = hk.reduce_cols(vals, op, gaps, lead)
+        want = qk.reduce_cols_plain(vals, op, gaps, lead)
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            return f"reduce_cols {op}" + (" with gaps" if gaps is not None else "") + (
+                " after a leading run" if lead else "")
+    return None
+
+
 def check_pack_case(hk: HostKernels, nd: int, es: int, nb: int | None = None) -> str | None:
     """The host-built lowdim encode from the rows and from the errors
     (``nb`` given: a ``LOWDIM_PACK_CASES`` case) or K3 (a ``PACK_CASES``
@@ -496,6 +557,7 @@ def main() -> int:
     so = build(args.src)
     so_pack = build_pack()
     so_fire = build_fire()
+    so_query = build_query()
 
     def report(what, bad, good):
         print(f"[host] {what}: " + (f"{bad} differs from its plain version" if bad
@@ -523,6 +585,12 @@ def main() -> int:
             what = "FIRE u{} D {} nb {} chunks {} trunc {}, {} resident".format(*case, resident)
             if report(what, check_fire_case(hf, *case),
                       "the encode (with states) and both decodes equal their plain versions"):
+                return 1
+        hq = HostKernels(so_query, resident)
+        for case in QUERY_CASES:
+            what = "reduce u{} D {} rows {}, {} resident".format(*case, resident)
+            if report(what, check_query_case(hq, *case),
+                      "every op equals its plain version"):
                 return 1
         hp = HostKernels(so_pack, resident)
         for nd, es in ec.PACK_CASES:

@@ -1,6 +1,6 @@
 // CUDA's names for a build of a kernel source on the host, with g++ (see
 // host_build.py, which rewrites the sources' launches and device helpers
-// before it includes this: decode.cu, pack.cu and fire.cu). Each CUDA thread is a std::thread; the CTAs of
+// before it includes this: decode.cu, pack.cu, fire.cu and query.cu). Each CUDA thread is a std::thread; the CTAs of
 // a launch run `resident` at a time (over x, then y), their threads all at once. Shared
 // memory is a buffer per CTA filled with garbage and followed by a canary;
 // __syncthreads is a barrier of the CTA, a shuffle a barrier of its mask's
@@ -173,6 +173,20 @@ inline unsigned atomicAdd(unsigned* p, unsigned v) {
 }
 inline unsigned atomicOr(unsigned* p, unsigned v) {
   return std::atomic_ref<unsigned>(*p).fetch_or(v);
+}
+inline unsigned atomicMax(unsigned* p, unsigned v) {
+  std::atomic_ref<unsigned> a(*p);
+  unsigned old = a.load();
+  while (old < v && !a.compare_exchange_weak(old, v)) {
+  }
+  return old;
+}
+inline unsigned atomicMin(unsigned* p, unsigned v) {
+  std::atomic_ref<unsigned> a(*p);
+  unsigned old = a.load();
+  while (old > v && !a.compare_exchange_weak(old, v)) {
+  }
+  return old;
 }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }

@@ -131,10 +131,14 @@ def test_outside_the_slice_raises():
     assert stream == codec.compress(x)
     np.testing.assert_array_equal(codec.decompress(stream, sidecar=sidecar),
                                   x.reshape(-1))
-    with pytest.raises(NotImplementedError, match="batch"):
-        codec.compress_batch([x, x])
-    with pytest.raises(NotImplementedError, match="batch"):
-        codec.decompress_batch([compress(x, device="cpu")])
+    # so are batches: each stream's bytes are its own compress's
+    bufs = codec.compress_batch([x, x])
+    assert bufs == [codec.compress(x)] * 2
+    for out in codec.decompress_batch(bufs):
+        np.testing.assert_array_equal(out, x.reshape(-1))
+    for out in SprintzCodec("xff", device="cpu").decompress_batch(
+            [compress(x, codec="xff", device="cpu")] * 2):
+        np.testing.assert_array_equal(out, x.reshape(-1))
     # a d4 stream made by the JAX package (the lowdim layout) decodes, and
     # the port makes the same bytes
     from sprintz_tpu import encoder as jenc
