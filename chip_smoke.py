@@ -49,13 +49,18 @@ Phases, each of which raises (exit code != 0) when it fails:
    and its raw mode at the 4 MiB u8 d4 and u16 d2 streams;
 2c. seekable kernels, bit-exact against their plain versions: FIRE's
    encode with its per-block states over the 8 MiB walks and the 32k-row
-   lowdim streams; the chunked FIRE decode (both coefficients) over the
-   8 MiB and 4 MiB walks at the chunks and states of each stream's own
-   sidecar (where it must give the stream) and from a sidecar with one
-   state changed; the delta chunk seed at the same chunks, from the
-   stream's states and a changed one; the chunked decode and the states'
-   encode at the ring shapes with 1, 2, 7 and 33 chunks of unequal
-   lengths from random states;
+   lowdim streams; over the 8 MiB and 4 MiB walks, at the chunks and
+   states of each stream's own sidecar (where they must give the stream)
+   and from a sidecar with one state changed, the chunked FIRE decode
+   (both coefficients: the sidecar's 16-group chunks on the short-chunk
+   kernel, 1024-group chunks on the ring kernel) and the chunked delta
+   decode (K1 then K2 with chunks, or the lowdim decode with them, also
+   against the serial decode followed by the plain chunk seed); the same
+   at the CPU tests' cuts (``host_build.FIRE_CASES`` and ``SHORT_CASES``,
+   ``unpack_cases.SEED_CASES`` and ``CHUNK_CASES``: ragged and empty
+   chunks, starts mid-tile and at tile and span edges); the chunked decode
+   and the states' encode at the ring shapes with 1, 2, 7 and 33 chunks of
+   unequal lengths from random states;
 3. main path: compress then decompress with device="cuda", every kernel's
    launch counter and every host entry point's call counter set to 0
    before that run and read after it (every kernel must have launched, and
@@ -93,9 +98,12 @@ Phases, each of which raises (exit code != 0) when it fails:
    three ranges on the 8 MiB u8 and u16 walks, the runs stream and the
    4 MiB u8 d4 and u16 d2 walks (delta and xff), the smooth stream
    (delta+Huf and xff+Huf) and the 64 MiB u8 walk (xff); every sidecar
-   kernel must have launched and FIRE's serial kernels never, the host
-   library's parallel walk must have run, and every stream's bytes must
-   be ``compress``'s; the sidecar's size is printed beside the stream's;
+   kernel must have launched (FIRE's short-chunk kernel for the sidecars,
+   its ring kernel for ``decode_range``'s one chunk from row 0 to the
+   stream's end; the delta decode's chunked modes) and FIRE's serial
+   kernels never, the host library's parallel walk must have run, and
+   every stream's bytes must be ``compress``'s; the sidecar's size is
+   printed beside the stream's;
 3e. batch, its counts set to 0 before it and read after it:
    ``SprintzCodec.compress_batch`` and ``decompress_batch`` on bench.py's
    xff-batch shape (512 streams x 256 rows x 64 dims of a u8 walk), its
@@ -134,16 +142,19 @@ Phases, each of which raises (exit code != 0) when it fails:
    and from FIRE's errors), the decode and its raw mode at the 4 MiB u8
    d4 and u16 d2 streams, FIRE's full-coefficient kernels there (no plain
    time) and at the 32k-row streams (beside the plain version's one run).
-   The sidecar rows: the chunked FIRE decode beside the serial one, the
-   states' encode beside the plain encode, the chunk seed (nothing moves,
-   and every chunk moved), at the 8 MiB and 4 MiB walks. Then compress
+   The sidecar rows: the chunked FIRE decode on both kernels (the
+   sidecar's chunks, chunks of 1024 groups) beside the serial one, the
+   states' encode beside the plain encode, the chunked delta decode's
+   modes beside the serial kernels (nothing moves, and every chunk
+   moved), at the 8 MiB and 4 MiB walks. Then compress
    and decompress end to end, split into host, H2D, device pass, kernels
    (the part of the device pass inside the kernel launches) and D2H, for
    delta, xff and +Huf, and for delta and xff on the 4 MiB lowdim streams
    (medians of 3 runs); then ``decompress(sidecar=)`` beside
    ``decompress`` and ``compress_seekable`` beside ``compress`` in turns,
    with both decodes' splits, on the xff walks and the 8 MiB u8 delta;
-   the batch's FIRE encode at S * D lanes and its chunked decode, the
+   the batch's FIRE encode at S * D lanes and its chunked (short-chunk)
+   decode, the
    reduce kernel at each query stream and op (beside torch.sum / amax /
    amin); ``compress_batch`` and ``decompress_batch`` beside S single
    calls, with their host / H2D / device / D2H splits; ``query`` (sum,
@@ -230,18 +241,28 @@ KERNELS = {  # name -> (source, the TPU pass it replaces: file:line)
     "fire_decode_full": ("sprintz_tpu_torch/csrc/fire.cu",
                          "sprintz_tpu/models/forecasters.py:303"),
     # the sidecar path: FIRE's decode vmapped over chunks from their states
-    # (decoder._decode_pass_chunks), the encode's second scan for its
-    # states (fire_encode_with_states), and delta's per-chunk seed there
+    # (decoder._decode_pass_chunks), long chunks on the ring kernel, short
+    # ones on the short-chunk kernel; the encode's second scan for its
+    # states (fire_encode_with_states); and delta's decode vmapped over the
+    # chunks, each from its state: K1, K2 and the lowdim decode with chunks
     "fire_decode_chunks": ("sprintz_tpu_torch/csrc/fire.cu",
                            "sprintz_tpu/decoder.py:949"),
     "fire_decode_chunks_full": ("sprintz_tpu_torch/csrc/fire.cu",
                                 "sprintz_tpu/decoder.py:949"),
+    "fire_decode_short": ("sprintz_tpu_torch/csrc/fire.cu",
+                          "sprintz_tpu/decoder.py:949"),
+    "fire_decode_short_full": ("sprintz_tpu_torch/csrc/fire.cu",
+                               "sprintz_tpu/decoder.py:949"),
     "fire_encode_states": ("sprintz_tpu_torch/csrc/fire.cu",
                            "sprintz_tpu/models/forecasters.py:351"),
     "fire_encode_states_full": ("sprintz_tpu_torch/csrc/fire.cu",
                                 "sprintz_tpu/models/forecasters.py:351"),
-    "delta_chunk_seed": ("sprintz_tpu_torch/csrc/decode.cu",
-                         "sprintz_tpu/decoder.py:945"),
+    "unpack_zz_chunks": ("sprintz_tpu_torch/csrc/decode.cu",
+                         "sprintz_tpu/ops/pallas_decode.py:99"),
+    "prefix_finish_chunks": ("sprintz_tpu_torch/csrc/decode.cu",
+                             "sprintz_tpu/ops/pallas_decode.py:171"),
+    "decode_lowdim_chunks": ("sprintz_tpu_torch/csrc/decode.cu",
+                             "sprintz_tpu/decoder.py:945"),
     # query pushdown: the reduce that JAX runs in XLA after its decode
     # (jnp.sum in the fused pass)
     "reduce_cols": ("sprintz_tpu_torch/csrc/query.cu",
@@ -262,23 +283,30 @@ ROWMAJOR_PATH = {"unpack_zz", "prefix_finish", "pack_rows", "unpack_rows",
                  "fire_encode", "fire_decode"}
 # the sidecar path (compress_seekable, decompress(sidecar=), decode_range)
 # over both layouts: FIRE's encode writes its states, its decode runs in
-# chunks, and delta's decode takes the chunk seed
-SEEKABLE_PATH = {"unpack_zz", "prefix_finish", "pack_rows", "unpack_rows",
-                 "unpack_rows_narrow", "huff_decode", "huff_encode",
-                 "encode_lowdim", "encode_lowdim_errs", "decode_lowdim",
-                 "unpack_lowdim_raw", "fire_encode_states",
-                 "fire_encode_states_full", "fire_decode_chunks",
-                 "fire_decode_chunks_full", "delta_chunk_seed"}
+# chunks (a sidecar's on the short-chunk kernel; decode_range's one chunk
+# from row 0 to the stream's end on the ring kernel), and delta's decode
+# runs K1 and K2, or the lowdim decode, with chunks
+SEEKABLE_PATH = {"pack_rows", "unpack_rows", "unpack_rows_narrow",
+                 "huff_decode", "huff_encode", "encode_lowdim",
+                 "encode_lowdim_errs", "unpack_lowdim_raw",
+                 "fire_encode_states", "fire_encode_states_full",
+                 "fire_decode_chunks", "fire_decode_chunks_full",
+                 "fire_decode_short", "fire_decode_short_full",
+                 "unpack_zz_chunks", "prefix_finish_chunks",
+                 "decode_lowdim_chunks"}
 HOST_SEEKABLE_PATH = HOST_ROWMAJOR_PATH | HOST_LOWDIM_PATH | {
     "walk_headers_parallel"}
 # the batch path (compress_batch, decompress_batch) over both layouts and
 # codecs: FIRE's encode over S * D lanes, its decode in chunks (a chunk a
-# stream), delta's decode with the chunk seed
+# stream: short ones on the short-chunk kernel, the runs batch's 2048-row
+# streams on the ring kernel), delta's decode with chunks (K1 and K2
+# serial for the mixed batch's stream of another ndims)
 BATCH_PATH = {"unpack_zz", "prefix_finish", "pack_rows", "unpack_rows",
-              "unpack_rows_narrow", "encode_lowdim_errs", "decode_lowdim",
-              "unpack_lowdim_raw", "fire_encode", "fire_encode_full",
-              "fire_decode_chunks", "fire_decode_chunks_full",
-              "delta_chunk_seed"}
+              "unpack_rows_narrow", "encode_lowdim_errs", "unpack_lowdim_raw",
+              "fire_encode", "fire_encode_full", "fire_decode_chunks",
+              "fire_decode_short", "fire_decode_short_full",
+              "unpack_zz_chunks", "prefix_finish_chunks",
+              "decode_lowdim_chunks"}
 # query pushdown: the compact delta pass (both layouts), the fused xff pass
 # (u8: K5 and FIRE's serial decode), the reduce on each
 QUERY_PATH = {"unpack_zz", "prefix_finish", "decode_lowdim",
@@ -350,7 +378,8 @@ def main() -> int:
         from sprintz_tpu_torch.probes import decode_cases as dc
         from sprintz_tpu_torch.probes import encode_cases as ec
         from sprintz_tpu_torch.probes import unpack_cases as uc
-        from sprintz_tpu_torch.probes.host_build import chunk_cuts
+        from sprintz_tpu_torch.probes.host_build import (
+            FIRE_CASES, SHORT_CASES, chunk_cuts, chunk_states, short_case)
         from sprintz_tpu_torch.stream_format import read_metadata_rle
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
@@ -389,9 +418,14 @@ def main() -> int:
         "fire_decode_full": (fc.fire_decode, "full_launches"),
         "fire_decode_chunks": (fc.fire_decode_chunks, "launches"),
         "fire_decode_chunks_full": (fc.fire_decode_chunks, "full_launches"),
+        "fire_decode_short": (fc.fire_decode_chunks, "short_launches"),
+        "fire_decode_short_full": (fc.fire_decode_chunks,
+                                   "short_full_launches"),
         "fire_encode_states": (fc.fire_encode, "states_launches"),
         "fire_encode_states_full": (fc.fire_encode, "states_full_launches"),
-        "delta_chunk_seed": (dk.delta_chunk_seed, "launches"),
+        "unpack_zz_chunks": (dk.unpack_zz, "chunk_launches"),
+        "prefix_finish_chunks": (dk.prefix_finish, "chunk_launches"),
+        "decode_lowdim_chunks": (dk.decode_delta_lowdim, "chunk_launches"),
         "reduce_cols": (qk.reduce_cols, "launches"),
     }
     assert set(counters) == set(KERNELS) == (LOWDIM_PATH | ROWMAJOR_PATH
@@ -847,13 +881,19 @@ def main() -> int:
     # ---------------------------------------------- 2c. seekable kernels
     # The sidecar path's kernels against their plain versions: FIRE's encode
     # with its states over the 8 MiB walks and the 32k-row lowdim streams;
-    # the chunked FIRE decode (both coefficients) over the 8 MiB and 4 MiB
-    # walks at the chunks and states of each stream's own sidecar, where it
-    # must give the stream, and from a sidecar with one state changed; the
-    # delta chunk seed at the same chunks (its plain versions are torch
-    # ops, cheap at any size); then the chunked decode and the states'
-    # encode at the ring shapes with 1, 2, 7 and 33 chunks of unequal
-    # lengths, from random states. A generator of its own.
+    # over the 8 MiB and 4 MiB walks, at the chunks and states of each
+    # stream's own sidecar (where they must give the stream) and from a
+    # sidecar with one state changed, the chunked FIRE decode (both
+    # coefficients: the sidecar's chunks of 16 groups on the short-chunk
+    # kernel, every 64th checkpoint's chunks of 1024 groups on the ring
+    # kernel) and the chunked delta decode (K1 then K2 with chunks, or the
+    # lowdim decode; its plain version's also the serial decode followed
+    # by delta_chunk_seed_plain); the same at the CPU tests' cuts
+    # (host_build.FIRE_CASES and SHORT_CASES, unpack_cases.SEED_CASES and
+    # CHUNK_CASES: ragged and empty chunks, starts mid-tile and at tile and
+    # span edges, from random states); then the chunked FIRE decode and the
+    # states' encode at the ring shapes with 1, 2, 7 and 33 chunks of
+    # unequal lengths from random states. A generator of its own.
     krng = np.random.default_rng(SEED + 7)
 
     def sidecar_cuts(x: np.ndarray, codec: str, nblocks: int):
@@ -872,6 +912,41 @@ def main() -> int:
             -(1 << 15), 1 << 15, tuple(out[k].shape)).astype(np.int32))
         return out
 
+    def fire_chunk_kernel(first, nd: int, eb: int, trunc: bool) -> str:
+        """The kernel that fire_decode_chunks launches at chunks `first`."""
+        short = fc.fire_short_fits(int(np.diff(first).max()), nd, eb)
+        return (("fire_decode_short" if short else "fire_decode_chunks")
+                + ("" if trunc else "_full"))
+
+    def check_fire_chunks(zz, eb, first, states, trunc, what):
+        got = fc.fire_decode_chunks(zz, eb, first, states, trunc)
+        check(fire_chunk_kernel(first, zz.shape[1], eb, trunc), got,
+              fc.fire_decode_chunks_plain(zz, eb, first, states, trunc), what)
+        return got
+
+    def check_delta_chunks(dense, dwidths, eb, ck, lowdim, what, serial=None):
+        """The chunked delta decode of a payload (K1 then K2, or the lowdim
+        decode) against its plain version and, given the serial decode's
+        values, against them followed by the plain chunk seed."""
+        if lowdim:
+            name = "decode_lowdim_chunks"
+            got = dk.decode_delta_lowdim(dense, dwidths, eb, ck)
+            check(name, got, dk.decode_delta_lowdim_plain(dense, dwidths, eb,
+                                                          ck), what)
+        else:
+            name = "prefix_finish_chunks"
+            bz, toff = dk.unpack_zz(dense, dwidths, eb, ck)
+            check("unpack_zz_chunks", (bz, toff),
+                  dk.unpack_zz_plain(dense, dwidths, eb, ck), what)
+            bz = bz.reshape(-1, bz.shape[2])
+            got = dk.prefix_finish(bz, toff, eb, ck)
+            check(name, got, dk.prefix_finish_plain(bz, toff, eb, ck), what)
+        if serial is not None:
+            check(name, got, dk.delta_chunk_seed_plain(
+                serial, ck.first * 8, ck.states, eb), what + ", against the "
+                "serial decode and the seed")
+        return got
+
     seek = {}
     for what, a, x in (
             [(w, inputs[w], shapes[w]) for w in list(shapes)[:2]]
@@ -889,30 +964,43 @@ def main() -> int:
             check("fire_encode_states", got, (want_e, want_c), what)
             a["fire_plain_ms"]["fire_encode_states"] = ms_s
         first, states = sidecar_cuts(x, "xff", nblocks)
-        got = fc.fire_decode_chunks(fe, eb, first, states, trunc)
-        check("fire_decode_chunks" + sfx, got,
-              fc.fire_decode_chunks_plain(fe, eb, first, states, trunc), what)
-        if not torch.equal(dk.widen(got), r):
-            raise AssertionError(f"fire_decode_chunks {what}: values from the "
-                                 f"stream's own sidecar differ from it")
-        bad = moved(states)
-        check("fire_decode_chunks" + sfx,
-              fc.fire_decode_chunks(fe, eb, first, bad, trunc),
-              fc.fire_decode_chunks_plain(fe, eb, first, bad, trunc),
-              what + ", a changed state")
-        vals = (dk.decode_delta_contiguous(a["dense"], a["dwidths"], eb) if trunc
-                else dk.decode_delta_lowdim(a["dense"], a["dwidths"], eb))
-        dfirst, dstates = sidecar_cuts(x, "delta", vals.shape[0] // 8)
-        drows, dst = dfirst * 8, dstates[:, 0]
-        for st, how in ((dst, ""), (moved(dst[:, None])[:, 0], ", a changed state")):
-            check("delta_chunk_seed",
-                  dk.delta_chunk_seed(vals.clone(), drows, st, eb),
-                  dk.delta_chunk_seed_plain(vals, drows, st, eb), what + how)
-        seek[what] = dict(a=a, fe=fe, first=first, states=states, trunc=trunc,
-                          vals=vals, drows=drows, dst=dst, eb=eb)
-        log(f"[kernels] {what}: fire_decode_chunks{sfx} at its sidecar's "
-            f"{first.size - 1} chunks (and a changed state) and "
-            f"delta_chunk_seed at {drows.size - 1} equal their plain versions"
+        # every 64th checkpoint: chunks of 1024 groups, past the short
+        # kernel's budget
+        lfirst, lstates = np.append(first[:-1][::64], nblocks), states[::64]
+        for f, st, how in ((first, states, ""),
+                           (first, moved(states), ", a changed state"),
+                           (lfirst, lstates, ", chunks of 1024 groups")):
+            got = check_fire_chunks(fe, eb, f, st, trunc, what + how)
+            if how != ", a changed state" and not torch.equal(dk.widen(got), r):
+                raise AssertionError(f"fire_decode_chunks {what}{how}: values "
+                                     f"from the stream's own sidecar differ")
+        kinds = (fire_chunk_kernel(first, nd, eb, trunc),
+                 fire_chunk_kernel(lfirst, nd, eb, trunc))
+        if kinds != ("fire_decode_short" + sfx, "fire_decode_chunks" + sfx):
+            raise AssertionError(f"{what}: the chunked FIRE decode took "
+                                 f"{kinds} at 16 and 1024 groups a chunk")
+        serial = (dk.decode_delta_contiguous(a["dense"], a["dwidths"], eb)
+                  if trunc else dk.decode_delta_lowdim(a["dense"],
+                                                       a["dwidths"], eb))
+        dfirst, dstates = sidecar_cuts(x, "delta", serial.shape[0] // 8)
+        dst = dstates[:, 0]
+        for st, how in ((dst, ""), (moved(dst[:, None])[:, 0],
+                                    ", a changed state")):
+            ck = dk.delta_chunks(dfirst, st, int(dfirst[-1]), nd, dev)
+            got = check_delta_chunks(a["dense"], a["dwidths"], eb, ck,
+                                     not trunc, what + how, serial)
+            if not how and not torch.equal(got, serial):
+                raise AssertionError(f"chunked delta decode {what}: values "
+                                     f"from the stream's own sidecar differ")
+        seek[what] = dict(a=a, fe=fe, first=first, states=states,
+                          lfirst=lfirst, lstates=lstates, trunc=trunc,
+                          serial=serial, dfirst=dfirst, dst=dst, eb=eb,
+                          lowdim=not trunc)
+        log(f"[kernels] {what}: the chunked FIRE decode at its sidecar's "
+            f"{first.size - 1} chunks (short-chunk kernel; and a changed "
+            f"state) and at {lfirst.size - 1} chunks of 1024 groups (ring "
+            f"kernel), the chunked delta decode at {dfirst.size - 1} chunks "
+            f"(and a changed state) equal their plain versions"
             + ("; fire_encode_states too" if trunc else ""))
     for what, f in ld_fire.items():  # the full coefficient's states, 32k rows
         eb, r = f["eb"], f["rows"]
@@ -921,6 +1009,37 @@ def main() -> int:
             r, eb, truncate_coeffs=False, states=True))
         check("fire_encode_states_full", got, want, what)
         f["plain_ms"]["fire_encode_states_full"] = ms_s
+    # the CPU tests' cuts: FIRE's (random states) and the delta decode's
+    # (states that continue the stream, and moved ones)
+    for eb, nd, nb, chunks, trunc in (
+            [(e, d, b, c, t) for e, d, b, c, t in FIRE_CASES] + SHORT_CASES):
+        zz, first, states = short_case(eb, nd, nb, chunks, trunc)
+        check_fire_chunks(zz.to(dev), eb, first, states.to(dev), trunc,
+                          f"cut u{eb} D {nd} nb {nb} chunks {chunks}")
+    delta_cuts = [(eb, nd, nb, chunk_cuts(np.random.default_rng(eb + nd + nb), nb,
+                                          c)) for eb, nd, nb, c in uc.SEED_CASES]
+    delta_cuts += [(eb, nd, nb, np.asarray(f)) for _, eb, nd, nb, f in
+                   uc.CHUNK_CASES]
+    for eb, nd, nb, first in delta_cuts:
+        crng = np.random.default_rng(eb * 3 + nd + nb)
+        layouts = [(uc.unpack_case(crng, eb, nd, nb, "random"), False)]
+        if nd * eb <= 32:
+            layouts.append((uc.lowdim_case(crng, eb, nd, nb, "random"), True))
+        for (dense, widths, _), lowdim in layouts:
+            d, w = uc.to_device(dense, widths, "random", dev)
+            serial = (dk.decode_delta_lowdim(d, w, eb) if lowdim
+                      else dk.decode_delta_contiguous(d, w, eb))
+            sv = dk.widen(serial).cpu().numpy()
+            for mv in (False, True):
+                st = chunk_states(crng, sv, first, eb, mv)
+                ck = dk.delta_chunks(first, st, nb, nd, dev)
+                check_delta_chunks(d, w, eb, ck, lowdim,
+                                   f"cut u{eb} D {nd} nb {nb}, {first.size - 1} "
+                                   f"chunks" + (", moved" if mv else ""),
+                                   serial)
+    log(f"[kernels] the chunked FIRE decode at {len(FIRE_CASES) + len(SHORT_CASES)}"
+        f" and the chunked delta decode at {len(delta_cuts)} of the CPU tests' "
+        f"cuts equal their plain versions")
     nchecked = 0
     for eb in (8, 16):
         for nb in (1, FIRE_TILE_BLOCKS - 1, FIRE_TILE_BLOCKS + 1,
@@ -944,14 +1063,14 @@ def main() -> int:
                     krng.integers(-half, half, (nchunks, nd)),
                     krng.integers(-(1 << 15), 1 << 15, (nchunks, nd))],
                     axis=1).astype(np.int32))
-                check("fire_decode_chunks" + sfx,
-                      fc.fire_decode_chunks(zz, eb, first, states, trunc),
-                      fc.fire_decode_chunks_plain(zz, eb, first, states, trunc),
-                      f"ring shape u{eb} nb {nb} D {nd}, {nchunks} chunks")
+                check_fire_chunks(zz, eb, first, states, trunc,
+                                  f"ring shape u{eb} nb {nb} D {nd}, "
+                                  f"{nchunks} chunks")
                 nchecked += 1
-    log(f"[kernels] fire_encode_states and fire_decode_chunks (both "
-        f"coefficients) equal their plain versions at {nchecked} ring shapes "
-        f"(1, 2, 7 and 33 chunks of unequal lengths, random states)")
+    log(f"[kernels] fire_encode_states and the chunked FIRE decode (both "
+        f"coefficients, both kernels) equal their plain versions at "
+        f"{nchecked} ring shapes (1, 2, 7 and 33 chunks of unequal lengths, "
+        f"random states)")
 
     # ------------------------------------------------------ 3. main path
     streams = {
@@ -1273,8 +1392,11 @@ def main() -> int:
     # on the u8 smooth stream with delta+Huf and xff+Huf, and on the 64
     # MiB u8 walk with xff (whose walk runs on threads); every count
     # set to 0 just before and read just after. Every sidecar kernel must
-    # launch, FIRE's serial kernels never, and the host library's parallel
-    # walk must run. The stream bytes must be compress's.
+    # launch (decode_range(0, 64) decodes one chunk from row 0 to the
+    # stream's end: FIRE's ring kernel there, its short-chunk kernel at the
+    # sidecars' chunks), FIRE's serial kernels never, and the host
+    # library's parallel walk must run. The stream bytes must be
+    # compress's.
     sk_cases = [(w, c, "none") for c in ("delta", "xff") for w in (
         "u8 walk 8 MiB", "u16 walk 8 MiB", "u8 runs 8 MiB",
         "u8 d4 walk 4 MiB", "u16 d2 walk 4 MiB")]
@@ -1923,25 +2045,34 @@ def main() -> int:
         log_rows(what, table[what])
     def seek_rows(what, k):
         """The sidecar's kernels at a stream: the chunked FIRE decode at its
-        sidecar's chunks (beside the serial decode, in the same call), the
-        encode with its states (beside the encode without), and the delta
-        chunk seed with the stream's own states (nothing moves) and with
-        every chunk moved."""
+        sidecar's chunks (the short-chunk kernel, beside the serial decode
+        in the same call) and at chunks of 1024 groups (the ring kernel),
+        the encode with its states (beside the encode without), and the
+        chunked delta decode with the stream's own states (beside the
+        serial decode; with every chunk moved too)."""
         a, eb, fe, trunc = k["a"], k["eb"], k["fe"], k["trunc"]
-        first, states = k["first"], k["states"].to(dev)
         sfx = "" if trunc else "_full"
         nvals = a["rows"].numel()
-        longest = int(np.diff(first).max())
-        out_fd = fc.fire_decode_chunks(fe, eb, first, states, trunc)
         dec = "fire_decode" + sfx
-        out = [row(
-            "fire_decode_chunks" + sfx,
-            lambda: fc.fire_decode_chunks(fe, eb, first, states, trunc),
-            lambda: fc.fire_decode_chunks_plain(fe, eb, first, states, trunc),
-            None, nbytes(fe, out_fd) + nbytes(states) + first.nbytes,
-            OPS_PER_ELEM[dec] * nvals,
-            chain_steps=longest * CHAIN_OPS[dec][eb], chunks=first.size - 1,
-            serial_ms=time_ms(lambda: fc.fire_decode(fe, eb, None, trunc)))]
+        out = []
+        serial_ms = time_ms(lambda: fc.fire_decode(fe, eb, None, trunc))
+        for first, states, kern in ((k["first"], k["states"], "fire_decode_short"),
+                                    (k["lfirst"], k["lstates"], "fire_decode_chunks")):
+            states = states.to(dev)
+            longest = int(np.diff(first).max())
+            out_fd = fc.fire_decode_chunks(fe, eb, first, states, trunc)
+            # the plain version loops over the longest chunk's blocks: the
+            # ring's chunks of 2048 blocks are timed by one run
+            plain = (lambda: fc.fire_decode_chunks_plain(fe, eb, first, states,
+                                                         trunc))
+            out.append(row(
+                kern + sfx,
+                lambda: fc.fire_decode_chunks(fe, eb, first, states, trunc),
+                plain if kern == "fire_decode_short" else once_ms(plain)[1],
+                None, nbytes(fe, out_fd) + nbytes(states) + first.nbytes,
+                OPS_PER_ELEM[dec] * nvals,
+                chain_steps=longest * CHAIN_OPS[dec][eb], chunks=first.size - 1,
+                serial_ms=serial_ms))
         r = a["rows"]
         enc = "fire_encode" + sfx
         out_c = fc.fire_encode(r, eb, trunc, states=True)
@@ -1952,21 +2083,53 @@ def main() -> int:
             None, nbytes(r, *out_c), OPS_PER_ELEM[enc] * nvals,
             chain_steps=(r.shape[0] // 8) * CHAIN_OPS[enc][eb],
             no_states_ms=time_ms(lambda: fc.fire_encode(r, eb, trunc))))
-        vals, drows, dst = k["vals"], k["drows"], k["dst"].to(dev)
+        # the chunked delta decode: its kernels' bytes are the serial
+        # ones' and the chunks' (C + 1 starts, C x D states)
+        dense, dw, serial = a["dense"], a["dwidths"], k["serial"]
+        dfirst, dst = k["dfirst"], k["dst"].to(dev)
         nchunks, nd = dst.shape
-        es = eb // 8
-        every = moved(dst[:, None])[:, 0] + 1  # every chunk moves
-        scratch = vals.clone()
-        out.append(row(
-            "delta_chunk_seed",
-            lambda: dk.delta_chunk_seed(vals, drows, dst, eb),
-            lambda: dk.delta_chunk_seed_plain(vals, drows, dst, eb), None,
-            nchunks * nd * (es + 4) + drows.nbytes, 4 * nchunks * nd,
-            chunks=nchunks,
-            moved_ms=time_ms(
-                lambda: dk.delta_chunk_seed(scratch, drows, every, eb)),
-            moved_bytes_bound_ms=(2 * nbytes(vals) + nchunks * nd * 4)
-            / mem_rate * 1e3))
+        nb = int(dfirst[-1])
+        ck = dk.delta_chunks(dfirst, dst, nb, nd, dev)
+        every = dk.delta_chunks(dfirst, moved(dst[:, None])[:, 0] + 1, nb, nd,
+                                dev)  # every chunk moves
+        cbytes = nbytes(dst) + dfirst.nbytes
+        nv = serial.numel()
+        extra = dict(chunks=nchunks, bytes_chunks=cbytes)
+        if k["lowdim"]:
+            out.append(row(
+                "decode_lowdim_chunks",
+                lambda: dk.decode_delta_lowdim(dense, dw, eb, ck),
+                lambda: dk.decode_delta_lowdim_plain(dense, dw, eb, ck), None,
+                nbytes(dense, dw, serial) + cbytes,
+                OPS_PER_ELEM["decode_lowdim"] * nv,
+                serial_ms=time_ms(lambda: dk.decode_delta_lowdim(dense, dw, eb)),
+                moved_ms=time_ms(lambda: dk.decode_delta_lowdim(dense, dw, eb,
+                                                                every)),
+                **extra))
+            return out
+        bz, toff = dk.unpack_zz(dense, dw, eb, ck)
+        bz = bz.reshape(-1, nd)
+        sbz, stoff = dk.unpack_zz(dense, dw, eb)
+        sbz = sbz.reshape(-1, nd)
+        bz_e, toff_e = dk.unpack_zz(dense, dw, eb, every)
+        bz_e = bz_e.reshape(-1, nd)
+        out += [
+            row("unpack_zz_chunks", lambda: dk.unpack_zz(dense, dw, eb, ck),
+                lambda: dk.unpack_zz_plain(dense, dw, eb, ck), None,
+                nbytes(dense, dw, bz, toff) + cbytes,
+                OPS_PER_ELEM["unpack_zz"] * nv,
+                serial_ms=time_ms(lambda: dk.unpack_zz(dense, dw, eb)),
+                moved_ms=time_ms(lambda: dk.unpack_zz(dense, dw, eb, every)),
+                **extra),
+            row("prefix_finish_chunks",
+                lambda: dk.prefix_finish(bz, toff, eb, ck),
+                lambda: dk.prefix_finish_plain(bz, toff, eb, ck), None,
+                nbytes(bz, toff, bz) + cbytes,
+                OPS_PER_ELEM["prefix_finish"] * nv,
+                serial_ms=time_ms(lambda: dk.prefix_finish(sbz, stoff, eb)),
+                moved_ms=time_ms(lambda: dk.prefix_finish(bz_e, toff_e, eb,
+                                                          every)),
+                **extra)]
         return out
 
     def fire_states_full_rows(f):
@@ -1986,8 +2149,8 @@ def main() -> int:
         log_rows(what + " sidecar", table[what + " sidecar"])
         for r_ in table[what + " sidecar"]:
             extra = {k_: r_[k_] for k_ in ("chunks", "serial_ms",
-                                           "no_states_ms", "moved_ms",
-                                           "moved_bytes_bound_ms") if k_ in r_}
+                                           "no_states_ms", "moved_ms")
+                     if k_ in r_}
             log(f"[timing] {what} sidecar {r_['name']}: {json.dumps(extra)}")
     for what, f in ld_fire.items():
         table[what + " sidecar"] = fire_states_full_rows(f)
@@ -2216,7 +2379,7 @@ def main() -> int:
     what = "batch u8 512 x 256 x 64 (S * D = 32768 lanes)"
     check("fire_encode", fc.fire_encode(lanes, 8),
           fc.fire_encode_plain(lanes, 8), what)
-    check("fire_decode_chunks",
+    check("fire_decode_short",
           fc.fire_decode_chunks(b_errs, 8, b_first, b_states),
           fc.fire_decode_chunks_plain(b_errs, 8, b_first, b_states), what)
     nv = lanes.numel()
@@ -2226,7 +2389,7 @@ def main() -> int:
             lambda: fc.fire_encode_plain(lanes, 8), None, 2 * nbytes(lanes),
             OPS_PER_ELEM["fire_encode"] * nv,
             chain_steps=32 * CHAIN_OPS["fire_encode"][8], lanes=512 * 64),
-        row("fire_decode_chunks",
+        row("fire_decode_short",
             lambda: fc.fire_decode_chunks(b_errs, 8, b_first, b_states),
             lambda: fc.fire_decode_chunks_plain(b_errs, 8, b_first,
                                                 b_states), None,
@@ -2419,7 +2582,9 @@ def main() -> int:
             + table["u8 d4 walk 32k rows (nb 4096, D 4)"]
             + table["u8 main (nb 16384, D 64) sidecar"]
             + [r for r in table["u8 d4 walk 4 MiB (nb 131072, D 4) sidecar"]
-               if r["name"] == "fire_decode_chunks_full"]
+               if r["name"] in ("fire_decode_short_full",
+                                "fire_decode_chunks_full",
+                                "decode_lowdim_chunks")]
             + table["u8 d4 walk 32k rows (nb 4096, D 4) sidecar"]
             + [reduce_json])
     assert sorted(r["name"] for r in line) == sorted(KERNELS)

@@ -109,25 +109,20 @@
 //   buffer a device and stream. RAW mode takes steps 1, 2 and 4, its span
 //   from blockIdx.
 //
-// seed_corr_kernel<EB> + seed_apply_kernel<EB>  (the delta chunk seed)
-//   The delta half of the JAX package's chunk-parallel decode
-//   (sprintz_tpu/decoder.py:945-947, vmapped over a sidecar's chunks): chunk
-//   c's values are state_c + its own prefix, mod 2^EB. The port decodes the
-//   stream's whole timeline at once (K1 + K2, or the lowdim decode), which
-//   gives v[r], the prefix from the stream's start; so chunk c needs
-//   corr_c = state_c - v[first_c - 1] (v[-1] = 0) added to its rows. With a
-//   sidecar of the stream every corr_c is 0; with any other, each chunk
-//   follows its own state, as in JAX. decode_range is the case of one chunk,
-//   corr = the checkpoint's state.
-//   Bound on this card: launch. With every corr_c 0 (the normal case) it
-//   reads C x D values and writes nothing else; otherwise one narrow read
-//   and write a value of the chunks that move.
-//   Design: two launches, as a chunk's correction reads the last row of the
-//   chunk before it, which that chunk's own correction rewrites: every
-//   corr_c must be taken before any row is written. seed_corr_kernel, a CTA
-//   a chunk, computes corr_c and whether any dim of it is non-zero;
-//   seed_apply_kernel, CTAs (chunk, slice of its values), adds it in place,
-//   and a CTA whose chunk's corr_c is 0 leaves at once.
+// The CHUNKED instantiations of K1, K2 and the lowdim decode  (a decode in
+// chunks, each from its own state)
+//   Replace the delta half of the JAX package's chunk-parallel decode
+//   (sprintz_tpu/decoder.py:945-947, vmapped over a sidecar's chunks, or a
+//   batch's streams): chunk c's values are state_c + its own prefix, mod
+//   2^EB. The chunk starts (C + 1 block indices) and states ((C, D) i32)
+//   come in beside the payload, and each tile or span finds its chunk
+//   starts by a warp's search of them while its payload lands. The
+//   look-backs become segmented ones (see "chunks" below); K2 and the
+//   lowdim decode restart their running sums from a chunk's state at its
+//   start. The chunked decode costs no launch beyond the serial decode's
+//   (it replaced two launches after it: a CTA a chunk that took each
+//   chunk's correction, then CTAs that added it). The serial
+//   instantiations (CHUNKED false) are the kernels above, unchanged.
 
 #include <cstdint>
 
@@ -263,13 +258,12 @@ __device__ __forceinline__ void store_range(uint8_t* dst, int64_t g0, int len,
   }
 }
 
-// Tile `tile`'s exclusive offset in dim d, once its total `agg` is
-// published: the decoupled look-back over the (ntiles, ndims) status
-// words. It reads LOOK_BACK predecessors at once, sums back to the nearest
-// inclusive prefix, and publishes its own.
-__device__ __forceinline__ uint32_t look_back(unsigned long long* status, int64_t tile,
-                                              int ndims, int d, uint32_t agg) {
-  if (tile == 0) return 0;
+// Tile `tile`'s exclusive offset in dim d: the decoupled look-back over the
+// (ntiles, ndims) status words. It reads LOOK_BACK predecessors at once and
+// sums back to the nearest inclusive prefix; look_back, once the tile's
+// total `agg` is published, also publishes the tile's inclusive prefix.
+__device__ __forceinline__ uint32_t look_back_sum(const unsigned long long* status,
+                                                  int64_t tile, int ndims, int d) {
   uint32_t excl = 0;
   bool done = false;
   for (int64_t next = tile - 1; !done; next -= LOOK_BACK) {
@@ -287,16 +281,94 @@ __device__ __forceinline__ uint32_t look_back(unsigned long long* status, int64_
       }
     }
   }
+  return excl;
+}
+
+__device__ __forceinline__ uint32_t look_back(unsigned long long* status, int64_t tile,
+                                              int ndims, int d, uint32_t agg) {
+  if (tile == 0) return 0;
+  const uint32_t excl = look_back_sum(status, tile, ndims, d);
   st_status(status + tile * ndims + d, FLAG_PREFIX | (excl + agg));
   return excl;
 }
 
-template <int EB, bool RAW, bool CONTIG>
+// ---- chunks: a decode cut at a sidecar's checkpoints (or a batch's streams)
+//
+// Chunk c is blocks [first[c], first[c + 1]) and its values are
+// state[c] + the prefix of its own deltas: the delta half of the JAX
+// package's chunk-parallel decode (sprintz_tpu/decoder.py:945-947, vmapped
+// over the chunks). The kernels fold it into their look-back: a tile (K1)
+// or span (the lowdim decode) that holds a chunk start publishes an
+// inclusive prefix at once, state + its deltas from its last chunk start
+// on, and the look-back of the tiles after it stops there (a segmented
+// look-back); its rows from a chunk start on take the chunk's state where
+// others take the tile's offset. A tile that starts on a chunk start
+// needs no look-back at all, which at a sidecar's default (16 groups, 32
+// blocks) is every tile. With one chunk from the zero state the values are
+// the serial decode's.
+
+// Chunk starts of blocks [b0, b0 + n) in shared memory: mark[k] = c + 1
+// where block b0 + k starts chunk c (the last chunk of that start: chunks
+// before it are empty), else 0; *last = 1 + the last such k, or 0.
+struct ChunkMarks {
+  unsigned* mark;
+  unsigned* last;
+  int* range;  // the chunks that own blocks b0 and b0 + n - 1
+};
+
+// #{c < n : first[c] <= x} for a rising `first`: a warp's search, 32
+// samples a round (the range shrinks 32-fold); every lane returns it.
+__device__ __forceinline__ int count_le(const long long* __restrict__ first, int n, long long x,
+                                        int lane) {
+  int lo = 0, hi = n;  // first[c] <= x below lo, > x from hi on
+  while (hi - lo > 32) {
+    const int step = (hi - lo + 31) / 32;
+    const int i = lo + lane * step;
+    const int k = __popc(__ballot_sync(0xffffffffu, i < hi && first[i] <= x));
+    if (k == 0) return lo;
+    const int top = lo + k * step;
+    lo += (k - 1) * step + 1;
+    hi = top < hi ? top : hi;
+  }
+  const int i = lo + lane;
+  return lo + __popc(__ballot_sync(0xffffffffu, i < hi && first[i] <= x));
+}
+
+// All threads of the CTA: warp 0 searches `first` for the chunks that own
+// the first and last block, then every thread marks the starts of the
+// chunks between. Two __syncthreads.
+__device__ __forceinline__ void mark_chunks(const long long* __restrict__ first, int nchunks,
+                                            long long b0, int n, int cap, ChunkMarks m,
+                                            int tid, int nt) {
+  for (int k = tid; k < cap; k += nt) m.mark[k] = 0;
+  if (tid < 32) {
+    const int lo = count_le(first, nchunks, b0, tid) - 1;
+    const int hi = count_le(first, nchunks, b0 + n - 1, tid) - 1;
+    if (tid == 0) {
+      m.range[0] = lo;
+      m.range[1] = hi;
+      *m.last = 0;
+    }
+  }
+  __syncthreads();
+  for (int c = m.range[0] + tid; c <= m.range[1]; c += nt) {
+    const long long k = first[c] - b0;  // < n: the last block's chunk starts at or before it
+    if (k >= 0) {
+      atomicMax(m.mark + k, (unsigned)c + 1u);
+      atomicMax(m.last, (unsigned)k + 1u);
+    }
+  }
+  __syncthreads();
+}
+
+template <int EB, bool RAW, bool CONTIG, bool CHUNKED>
 __global__ void __launch_bounds__(THREADS)
     unpack_zz_kernel(const uint8_t* __restrict__ dense, const uint8_t* __restrict__ widths,
                      typename UnpackOut<EB, RAW>::type* __restrict__ out,
                      int32_t* __restrict__ tile_off, unsigned long long* __restrict__ status,
-                     int64_t nb, int ndims, int maxb, Plan p) {
+                     int64_t nb, int ndims, int maxb, Plan p,
+                     const long long* __restrict__ first, int nchunks,
+                     const int32_t* __restrict__ cstate) {
   using OutT = typename UnpackOut<EB, RAW>::type;
   constexpr int OS = sizeof(OutT);
   constexpr uint32_t kBias = 1u << (EB - 1);
@@ -315,6 +387,10 @@ __global__ void __launch_bounds__(THREADS)
   uint32_t* s_tot = s_ow + TILE_BLOCKS * ow_stride;                 // [dc]
   int32_t* s_boff = reinterpret_cast<int32_t*>(s_tot + p.dc);       // [TILE_BLOCKS]
   int32_t* s_tile = s_boff + TILE_BLOCKS;
+  // CHUNKED: the tile's chunk starts
+  const ChunkMarks cm{reinterpret_cast<unsigned*>(s_tile + 1),
+                      reinterpret_cast<unsigned*>(s_tile + 1) + TILE_BLOCKS,
+                      reinterpret_cast<int*>(s_tile + 1) + TILE_BLOCKS + 1};
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -382,6 +458,9 @@ __global__ void __launch_bounds__(THREADS)
     if (!RAW) {
       for (int j = tid; j < dc; j += THREADS) s_tot[j] = 0;
     }
+    if (CHUNKED && d0 == 0) mark_chunks(first, nchunks, b0, nbt, TILE_BLOCKS, cm, tid, THREADS);
+    // CHUNKED: the tile's total counts its blocks from its last chunk start
+    const int from = CHUNKED ? (int)*cm.last - 1 : -1;
     cp_async_wait_prior();
     __syncthreads();
     if (sb < nbt) {  // uniform in the block's 8 lanes
@@ -475,7 +554,7 @@ __global__ void __launch_bounds__(THREADS)
         if (!RAW) {
   #pragma unroll
           for (int k = 0; k < NV; ++k) {
-            if (j + k < dc) atomicAdd(s_tot + j + k, sum[k]);
+            if (j + k < dc && (!CHUNKED || b >= from)) atomicAdd(s_tot + j + k, sum[k]);
           }
         }
         b += bstep;
@@ -506,17 +585,39 @@ __global__ void __launch_bounds__(THREADS)
     store_rows(0, half * BLOCK_SZ);
     extract(half, nbt);
     __syncthreads();
-    if (!RAW) {
+    if (!RAW && !CHUNKED) {
       for (int jj = tid; jj < dc; jj += THREADS) {  // the first tile's total is its prefix
         st_status(status + tile * ndims + d0 + jj,
                   (tile == 0 ? FLAG_PREFIX : FLAG_TOTAL) | s_tot[jj]);
       }
     }
+    if (CHUNKED) {  // a tile with a chunk start: state + its deltas from there, a prefix
+      const unsigned owner = from >= 0 ? cm.mark[from] : 0u;
+      for (int jj = tid; jj < dc; jj += THREADS) {
+        st_status(status + tile * ndims + d0 + jj,
+                  owner ? FLAG_PREFIX | (uint32_t)(cstate[(owner - 1) * (int64_t)ndims + d0 + jj] +
+                                                   (int32_t)s_tot[jj])
+                        : FLAG_TOTAL | s_tot[jj]);
+      }
+    }
     store_rows(half * BLOCK_SZ, rows);
-    if (!RAW) {
+    if (!RAW && !CHUNKED) {
       for (int jj = tid; jj < dc; jj += THREADS) {
         tile_off[tile * ndims + d0 + jj] =
             (int32_t)look_back(status, tile, ndims, d0 + jj, s_tot[jj]);
+      }
+    }
+    if (CHUNKED) {  // the offset entering the tile: its chunk's state where it starts one
+      const unsigned head = cm.mark[0];
+      for (int jj = tid; jj < dc; jj += THREADS) {
+        const int d = d0 + jj;
+        if (head) {
+          tile_off[tile * ndims + d] = cstate[(head - 1) * (int64_t)ndims + d];
+        } else {
+          const uint32_t excl = look_back_sum(status, tile, ndims, d);
+          if (from < 0) st_status(status + tile * ndims + d, FLAG_PREFIX | (excl + s_tot[jj]));
+          tile_off[tile * ndims + d] = (int32_t)excl;
+        }
       }
     }
     if (sl == 0 && sb < nbt) s_boff[sb] = carry;
@@ -524,18 +625,23 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int EB, bool CONTIG>
+template <int EB, bool CONTIG, bool CHUNKED>
 __global__ void __launch_bounds__(THREADS)
     prefix_finish_kernel(const typename Narrow<EB>::type* __restrict__ bz,
                          const int32_t* __restrict__ tile_off,
                          typename Narrow<EB>::type* __restrict__ out, int64_t nrows,
-                         int ndims, Plan p) {
+                         int ndims, Plan p, const long long* __restrict__ first, int nchunks,
+                         const int32_t* __restrict__ cstate) {
   using T = typename Narrow<EB>::type;
   constexpr int ES = sizeof(T);
   constexpr uint32_t kBias = 1u << (EB - 1);
   constexpr uint32_t kMask = (1u << EB) - 1u;
   extern __shared__ __align__(16) uint8_t smem[];
   uint32_t* s_run = reinterpret_cast<uint32_t*>(smem + p.aux_off);  // [RUNS][dc]
+  // CHUNKED: the tile's chunk starts, and each run's last one (its mark)
+  unsigned* s_runs_last = s_run + RUNS * p.dc;
+  const ChunkMarks cm{s_runs_last + RUNS, s_runs_last + RUNS + TILE_BLOCKS,
+                      reinterpret_cast<int*>(s_runs_last + RUNS + TILE_BLOCKS + 1)};
   const int64_t ntiles = (nrows + TILE_ROWS - 1) / TILE_ROWS;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -562,6 +668,17 @@ __global__ void __launch_bounds__(THREADS)
     stage_range(smem + p.w_off, reinterpret_cast<const uint8_t*>(tile_off), to0, dc * 4,
                 ntiles * ndims * 4, tid, THREADS);
     const uint32_t* s_toff = reinterpret_cast<const uint32_t*>(smem + p.w_off + (to0 & 15));
+    if (CHUNKED && d0 == 0) {
+      mark_chunks(first, nchunks, row0 / BLOCK_SZ, (rows + BLOCK_SZ - 1) / BLOCK_SZ,
+                  TILE_BLOCKS, cm, tid, THREADS);
+      if (tid < RUNS) {
+        unsigned last = 0;
+        for (int b = tid * (RUN_ROWS / BLOCK_SZ); b < (tid + 1) * (RUN_ROWS / BLOCK_SZ); ++b) {
+          if (cm.mark[b]) last = cm.mark[b];
+        }
+        s_runs_last[tid] = last;
+      }
+    }
     cp_async_wait_all();
     __syncthreads();
 
@@ -573,13 +690,25 @@ __global__ void __launch_bounds__(THREADS)
                                 j * ES;
       return reinterpret_cast<T*>(smem + pos);
     };
+    // a chunk's state in dim j of the chunk of dims
+    auto state = [&](unsigned mark, int j) -> uint32_t {
+      return (uint32_t)cstate[(mark - 1) * (int64_t)ndims + d0 + j];
+    };
     for (int it = tid; it < RUNS * dc; it += THREADS) {
       const int k = it / dc;
       const int j = it - k * dc;
       const int r1 = (k + 1) * RUN_ROWS < rows ? (k + 1) * RUN_ROWS : rows;
       uint32_t sum = 0;
+      if constexpr (CHUNKED) {  // the run's sum from its last chunk start on
+        for (int r0 = k * RUN_ROWS; r0 < r1; r0 += BLOCK_SZ) {
+          if (cm.mark[r0 / BLOCK_SZ]) sum = 0;
+#pragma unroll
+          for (int r = r0; r < r0 + BLOCK_SZ; ++r) sum += (uint32_t)*elem(r, j) - kBias;
+        }
+      } else {
 #pragma unroll 8
-      for (int r = k * RUN_ROWS; r < r1; ++r) sum += (uint32_t)*elem(r, j) - kBias;
+        for (int r = k * RUN_ROWS; r < r1; ++r) sum += (uint32_t)*elem(r, j) - kBias;
+      }
       s_run[k * p.dc + j] = sum;
     }
     __syncthreads();
@@ -588,12 +717,29 @@ __global__ void __launch_bounds__(THREADS)
       const int j = it - k * dc;
       const int r1 = (k + 1) * RUN_ROWS < rows ? (k + 1) * RUN_ROWS : rows;
       uint32_t acc = s_toff[j];
-      for (int kk = 0; kk < k; ++kk) acc += s_run[kk * p.dc + j];
+      if constexpr (CHUNKED) {  // a run with a chunk start restarts the sum from its state
+        for (int kk = 0; kk < k; ++kk) {
+          const unsigned last = s_runs_last[kk];
+          acc = (last ? state(last, j) : acc) + s_run[kk * p.dc + j];
+        }
+        for (int r0 = k * RUN_ROWS; r0 < r1; r0 += BLOCK_SZ) {
+          const unsigned mark = cm.mark[r0 / BLOCK_SZ];
+          if (mark) acc = state(mark, j);
+#pragma unroll
+          for (int r = r0; r < r0 + BLOCK_SZ; ++r) {
+            T* v = elem(r, j);
+            acc += (uint32_t)*v - kBias;
+            *v = (T)(acc & kMask);
+          }
+        }
+      } else {
+        for (int kk = 0; kk < k; ++kk) acc += s_run[kk * p.dc + j];
 #pragma unroll 8
-      for (int r = k * RUN_ROWS; r < r1; ++r) {
-        T* v = elem(r, j);
-        acc += (uint32_t)*v - kBias;
-        *v = (T)(acc & kMask);
+        for (int r = k * RUN_ROWS; r < r1; ++r) {
+          T* v = elem(r, j);
+          acc += (uint32_t)*v - kBias;
+          *v = (T)(acc & kMask);
+        }
       }
     }
     __syncthreads();
@@ -691,7 +837,8 @@ __device__ __forceinline__ uint32_t lowdim_look_back(unsigned long long* status,
 // ticket. A thread's part of the image is kOutWords 8-byte words (3, 4 or
 // 8), kept kPadWords apart, an odd number, so that the 8-byte stores of a
 // half-warp's threads fall in 16 different banks.
-template <int EB, int ND, bool RAW>
+// CHUNKED: also the span's chunk starts (ChunkMarks) and each warp's flag.
+template <int EB, int ND, bool RAW, bool CHUNKED>
 struct DecodeLowdimSmem {
   using S = LowdimShape<EB / 8, ND>;
   static constexpr int kOutWords = RAW && EB == 16 ? S::NR * ND / 2 : S::CW;
@@ -700,16 +847,27 @@ struct DecodeLowdimSmem {
   static constexpr int kWidths = kIn + 8 * S::CW * LD_THREADS;
   static constexpr int kImage = kWidths + round16(S::SPAN * ND);
   static constexpr int kWarp = kImage + 8 * kPadWords * LD_THREADS;
-  static constexpr int kBytes = kWarp + 4 * LD_WARPS + 16;
+  static constexpr int kMarks = kWarp + 4 * LD_WARPS + 16;
+  static constexpr int kBytes = kMarks + (CHUNKED ? 4 * (S::SPAN + 3 + LD_WARPS) : 0);
 };
 
-template <int EB, int ND, bool RAW>
+// The segmented scan's step: (flag, value) of rows a, then of rows b after
+// them. A flag says that the value is absolute (it holds a chunk's state);
+// else it is a sum to add to what comes before.
+template <int EB>
+__device__ __forceinline__ void seg_add(uint32_t& fa, uint32_t& va, uint32_t fb, uint32_t vb) {
+  va = fb ? vb : vadd<EB>(va, vb);
+  fa |= fb;
+}
+
+template <int EB, int ND, bool RAW, bool CHUNKED>
 __global__ void __launch_bounds__(LD_THREADS)
     decode_lowdim_kernel(const uint8_t* __restrict__ dense, const uint8_t* __restrict__ widths,
                          uint8_t* __restrict__ out, unsigned long long* __restrict__ status,
-                         int64_t nb) {
+                         int64_t nb, const long long* __restrict__ first, int nchunks,
+                         const int32_t* __restrict__ cstate) {
   using S = LowdimShape<EB / 8, ND>;
-  using L = DecodeLowdimSmem<EB, ND, RAW>;
+  using L = DecodeLowdimSmem<EB, ND, RAW, CHUNKED>;
   constexpr int K = S::K, NR = S::NR, SPAN = S::SPAN;
   constexpr uint32_t kMask = (1u << EB) - 1u;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -738,6 +896,11 @@ __global__ void __launch_bounds__(LD_THREADS)
   const int nbs = (int)(nb - b0 < SPAN ? nb - b0 : SPAN);
   stage_range(smem + L::kIn, dense, b0 * ND * EB, nbs * ND * EB, nb * ND * EB, tid, LD_THREADS);
   stage_range(s_w, widths, b0 * ND, nbs * ND, nb * ND, tid, LD_THREADS);
+  // CHUNKED: the span's chunk starts, while the copies land
+  unsigned* s_marks = reinterpret_cast<unsigned*>(smem + L::kMarks);
+  unsigned* s_wflag = s_marks + SPAN + 3;  // [LD_WARPS]
+  const ChunkMarks cm{s_marks, s_marks + SPAN, reinterpret_cast<int*>(s_marks + SPAN + 1)};
+  if (CHUNKED) mark_chunks(first, nchunks, b0, nbs, SPAN, cm, tid, LD_THREADS);
   cp_async_wait_all();
   __syncthreads();
 
@@ -785,7 +948,73 @@ __global__ void __launch_bounds__(LD_THREADS)
     }
   }
 
-  if constexpr (!RAW) {
+  if constexpr (!RAW && CHUNKED) {
+    // 2b. The rows' running sum in registers, from a chunk's state (its
+    // lanes packed as a row is) at each chunk start: rows from the first
+    // start on (fs) are values, those before it sums to add to the prefix.
+    int fs = NR;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const unsigned mark = s_marks[tid * K + k];  // 0 past the span's blocks
+      uint32_t st = 0;
+      if (mark) {
+#pragma unroll
+        for (int d = 0; d < ND; ++d)
+          st |= ((uint32_t)cstate[(mark - 1) * (int64_t)ND + d] & kMask) << (d * EB);
+        if (fs == NR) fs = k * BLOCK_SZ;
+      }
+#pragma unroll
+      for (int r = k * BLOCK_SZ; r < (k + 1) * BLOCK_SZ; ++r) {
+        if (r == k * BLOCK_SZ && mark) {
+          row[r] = vadd<EB>(st, row[r]);
+        } else if (r > 0) {
+          row[r] = vadd<EB>(row[r - 1], row[r]);
+        }
+      }
+    }
+    // 3. The CTA's segmented scan of the threads' (flag, value) pairs: a
+    // warp's by shuffles, then the warps' in order. Warp 0 publishes the
+    // span's: a prefix where the span holds a chunk start, else a total,
+    // after which it looks back as the serial decode does. A span whose
+    // first block starts a chunk needs no look-back.
+    uint32_t f = fs < NR, v = row[NR - 1];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t tf = __shfl_up_sync(0xffffffffu, f, o);
+      const uint32_t tv = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) {
+        uint32_t a = tf, av = tv;
+        seg_add<EB>(a, av, f, v);
+        f = a, v = av;
+      }
+    }
+    uint32_t ef = __shfl_up_sync(0xffffffffu, f, 1), ev = __shfl_up_sync(0xffffffffu, v, 1);
+    if (lane == 0) ef = 0, ev = 0;
+    if (lane == 31) s_warp[warp] = v, s_wflag[warp] = f;
+    __syncthreads();
+    if (warp == 0) {
+      uint32_t sf = 0, sv = 0;  // the span's
+      for (int i = 0; i < LD_WARPS; ++i) seg_add<EB>(sf, sv, s_wflag[i], s_warp[i]);
+      unsigned long long* st = status + 1;
+      if (lane == 0) st_status(st + span, (sf ? FLAG_PREFIX : FLAG_TOTAL) | sv);
+      uint32_t excl = 0;
+      if (!s_marks[0]) {  // span > 0: span 0 starts chunk 0
+        excl = lowdim_look_back<EB>(st, span, lane);
+        if (lane == 0 && !sf) st_status(st + span, FLAG_PREFIX | vadd<EB>(excl, sv));
+      }
+      if (lane == 0) *s_excl = excl;
+    }
+    uint32_t bf = 0, bv = 0;  // the rows before this thread's
+    for (int i = 0; i < warp; ++i) seg_add<EB>(bf, bv, s_wflag[i], s_warp[i]);
+    seg_add<EB>(bf, bv, ef, ev);
+    __syncthreads();
+    const uint32_t base = bf ? bv : vadd<EB>(*s_excl, bv);
+    // 4. Values into the image.
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      if (r < fs) row[r] = vadd<EB>(base, row[r]);
+    }
+  } else if constexpr (!RAW) {
     // 2b. The rows' running sum in registers.
 #pragma unroll
     for (int r = 1; r < NR; ++r) row[r] = vadd<EB>(row[r - 1], row[r]);
@@ -863,9 +1092,12 @@ __global__ void __launch_bounds__(LD_THREADS)
 
 // K1's tile: contiguous where the whole rows fit SMEM_BUDGET, else the
 // widest chunk of dims (a multiple of 32) that fits.
-Plan unpack_plan(int ndims, int maxb, int es, int os) {
+Plan unpack_plan(int ndims, int maxb, int es, int os, bool chunked) {
   Plan p{};
-  auto aux = [](int dc) { return 4 * TILE_BLOCKS * (dc + 1) + 4 * dc + 4 * TILE_BLOCKS + 16; };
+  const int marks = chunked ? 4 * (TILE_BLOCKS + 3) : 0;  // ChunkMarks
+  auto aux = [marks](int dc) {
+    return 4 * TILE_BLOCKS * (dc + 1) + 4 * dc + 4 * TILE_BLOCKS + 16 + marks;
+  };
   p.out_off = round16(15 + (long long)TILE_ROWS * maxb + READ_SLACK);
   p.w_off = p.out_off + round16(15 + (long long)TILE_ROWS * ndims * os);
   p.aux_off = p.w_off + round16(15 + (long long)TILE_BLOCKS * ndims);
@@ -897,11 +1129,12 @@ Plan unpack_plan(int ndims, int maxb, int es, int os) {
 }
 
 // K2's tile: one image of the values, in place, and the tile's offsets.
-Plan finish_plan(int ndims, int es) {
+Plan finish_plan(int ndims, int es, bool chunked) {
   Plan p{};
+  const int marks = chunked ? 4 * (RUNS + TILE_BLOCKS + 3) : 0;  // runs' last, ChunkMarks
   p.w_off = round16(15 + (long long)TILE_ROWS * ndims * es);
   p.aux_off = p.w_off + round16(15 + 4LL * ndims);
-  p.smem = p.aux_off + 4 * RUNS * ndims;
+  p.smem = p.aux_off + 4 * RUNS * ndims + marks;
   if (p.smem <= SMEM_BUDGET) {
     p.dc = ndims;
     p.contig = 1;
@@ -909,7 +1142,7 @@ Plan finish_plan(int ndims, int es) {
   }
   for (int dc = 32;; dc += 32) {
     const int in_stride = round16(15 + dc * es);
-    const int smem = TILE_ROWS * in_stride + round16(15 + 4 * dc) + 4 * RUNS * dc;
+    const int smem = TILE_ROWS * in_stride + round16(15 + 4 * dc) + 4 * RUNS * dc + marks;
     if (dc > 32 && (smem > SMEM_BUDGET || dc >= ndims)) break;
     p.dc = dc;
     p.in_stride = in_stride;
@@ -926,159 +1159,117 @@ cudaError_t allow_smem(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <int EB, bool RAW, bool CONTIG>
+// The chunks of a chunked launch (null first: the serial decode)
+struct ChunkArgs {
+  const long long* first;
+  int nchunks;
+  const int32_t* state;
+};
+
+template <int EB, bool RAW, bool CONTIG, bool CHUNKED>
 int launch_unpack(const uint8_t* dense, const uint8_t* widths, void* out, int32_t* tile_off,
                   unsigned long long* status, long long nb, int ndims, int maxb, const Plan& p,
-                  cudaStream_t s) {
+                  const ChunkArgs& ck, cudaStream_t s) {
   using OutT = typename UnpackOut<EB, RAW>::type;
   const long long ntiles = (nb + TILE_BLOCKS - 1) / TILE_BLOCKS;
-  cudaError_t err = allow_smem(unpack_zz_kernel<EB, RAW, CONTIG>, p.smem);
+  cudaError_t err = allow_smem(unpack_zz_kernel<EB, RAW, CONTIG, CHUNKED>, p.smem);
   if (err == cudaSuccess && !RAW) {  // the status words and the ticket
     err = cudaMemsetAsync(status, 0, (size_t)(ntiles * ndims + 1) * sizeof(*status), s);
   }
   if (err != cudaSuccess) return (int)err;
-  unpack_zz_kernel<EB, RAW, CONTIG><<<(unsigned)ntiles, THREADS, (size_t)p.smem, s>>>(
-      dense, widths, static_cast<OutT*>(out), tile_off, status, nb, ndims, maxb, p);
+  unpack_zz_kernel<EB, RAW, CONTIG, CHUNKED><<<(unsigned)ntiles, THREADS, (size_t)p.smem, s>>>(
+      dense, widths, static_cast<OutT*>(out), tile_off, status, nb, ndims, maxb, p, ck.first,
+      ck.nchunks, ck.state);
   return (int)cudaGetLastError();
 }
 
-template <int EB, bool RAW>
+template <int EB, bool RAW, bool CHUNKED>
 int launch_unpack(const uint8_t* dense, const uint8_t* widths, void* out, int32_t* tile_off,
                   unsigned long long* status, long long nb, int ndims, int maxb,
-                  cudaStream_t s) {
+                  const ChunkArgs& ck, cudaStream_t s) {
   const Plan p = unpack_plan(ndims, maxb, EB / 8,
-                             (int)sizeof(typename UnpackOut<EB, RAW>::type));
-  return p.contig ? launch_unpack<EB, RAW, true>(dense, widths, out, tile_off, status, nb,
-                                                 ndims, maxb, p, s)
-                  : launch_unpack<EB, RAW, false>(dense, widths, out, tile_off, status, nb,
-                                                  ndims, maxb, p, s);
+                             (int)sizeof(typename UnpackOut<EB, RAW>::type), CHUNKED);
+  return p.contig ? launch_unpack<EB, RAW, true, CHUNKED>(dense, widths, out, tile_off, status,
+                                                          nb, ndims, maxb, p, ck, s)
+                  : launch_unpack<EB, RAW, false, CHUNKED>(dense, widths, out, tile_off, status,
+                                                           nb, ndims, maxb, p, ck, s);
 }
 
-template <int EB, bool CONTIG>
+template <int EB, bool CONTIG, bool CHUNKED>
 int launch_finish(const void* bz, const int32_t* tile_off, void* out, long long rows, int ndims,
-                  const Plan& p, cudaStream_t s) {
+                  const Plan& p, const ChunkArgs& ck, cudaStream_t s) {
   using T = typename Narrow<EB>::type;
-  const cudaError_t err = allow_smem(prefix_finish_kernel<EB, CONTIG>, p.smem);
+  const cudaError_t err = allow_smem(prefix_finish_kernel<EB, CONTIG, CHUNKED>, p.smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned ntiles = (unsigned)((rows + TILE_ROWS - 1) / TILE_ROWS);
-  prefix_finish_kernel<EB, CONTIG><<<ntiles, THREADS, (size_t)p.smem, s>>>(
-      static_cast<const T*>(bz), tile_off, static_cast<T*>(out), rows, ndims, p);
+  prefix_finish_kernel<EB, CONTIG, CHUNKED><<<ntiles, THREADS, (size_t)p.smem, s>>>(
+      static_cast<const T*>(bz), tile_off, static_cast<T*>(out), rows, ndims, p, ck.first,
+      ck.nchunks, ck.state);
   return (int)cudaGetLastError();
 }
 
-template <int EB>
+template <int EB, bool CHUNKED>
 int launch_finish(const void* bz, const int32_t* tile_off, void* out, long long rows, int ndims,
-                  cudaStream_t s) {
-  const Plan p = finish_plan(ndims, EB / 8);
-  return p.contig ? launch_finish<EB, true>(bz, tile_off, out, rows, ndims, p, s)
-                  : launch_finish<EB, false>(bz, tile_off, out, rows, ndims, p, s);
+                  const ChunkArgs& ck, cudaStream_t s) {
+  const Plan p = finish_plan(ndims, EB / 8, CHUNKED);
+  return p.contig ? launch_finish<EB, true, CHUNKED>(bz, tile_off, out, rows, ndims, p, ck, s)
+                  : launch_finish<EB, false, CHUNKED>(bz, tile_off, out, rows, ndims, p, ck, s);
 }
 
-template <int EB, int ND, bool RAW>
+template <int EB, int ND, bool RAW, bool CHUNKED>
 int launch_lowdim(const uint8_t* dense, const uint8_t* widths, void* out,
-                  unsigned long long* status, long long nb, cudaStream_t s) {
+                  unsigned long long* status, long long nb, const ChunkArgs& ck,
+                  cudaStream_t s) {
   constexpr int span = LowdimShape<EB / 8, ND>::SPAN;
-  constexpr int smem = DecodeLowdimSmem<EB, ND, RAW>::kBytes;
+  constexpr int smem = DecodeLowdimSmem<EB, ND, RAW, CHUNKED>::kBytes;
   static_assert(smem <= SMEM_DEFAULT, "the lowdim decode stays in the default shared memory");
   // the status words are zero: the last span of every launch zeroes them
-  decode_lowdim_kernel<EB, ND, RAW><<<(unsigned)((nb + span - 1) / span), LD_THREADS,
-                                      (size_t)smem, s>>>(
-      dense, widths, static_cast<uint8_t*>(out), status, nb);
+  const unsigned spans = (unsigned)((nb + span - 1) / span);
+  decode_lowdim_kernel<EB, ND, RAW, CHUNKED><<<spans, LD_THREADS, (size_t)smem, s>>>(
+      dense, widths, static_cast<uint8_t*>(out), status, nb, ck.first, ck.nchunks, ck.state);
   return (int)cudaGetLastError();
 }
 
-template <bool RAW>
+template <bool RAW, bool CHUNKED>
 int launch_lowdim(const uint8_t* dense, const uint8_t* widths, void* out,
                   unsigned long long* status, long long nb, int ndims, int elem_bits,
-                  cudaStream_t s) {
+                  const ChunkArgs& ck, cudaStream_t s) {
   switch (elem_bits * 8 + ndims) {
-    case 8 * 8 + 1: return launch_lowdim<8, 1, RAW>(dense, widths, out, status, nb, s);
-    case 8 * 8 + 2: return launch_lowdim<8, 2, RAW>(dense, widths, out, status, nb, s);
-    case 8 * 8 + 3: return launch_lowdim<8, 3, RAW>(dense, widths, out, status, nb, s);
-    case 8 * 8 + 4: return launch_lowdim<8, 4, RAW>(dense, widths, out, status, nb, s);
-    case 16 * 8 + 1: return launch_lowdim<16, 1, RAW>(dense, widths, out, status, nb, s);
-    case 16 * 8 + 2: return launch_lowdim<16, 2, RAW>(dense, widths, out, status, nb, s);
+    case 8 * 8 + 1: return launch_lowdim<8, 1, RAW, CHUNKED>(dense, widths, out, status, nb, ck, s);
+    case 8 * 8 + 2: return launch_lowdim<8, 2, RAW, CHUNKED>(dense, widths, out, status, nb, ck, s);
+    case 8 * 8 + 3: return launch_lowdim<8, 3, RAW, CHUNKED>(dense, widths, out, status, nb, ck, s);
+    case 8 * 8 + 4: return launch_lowdim<8, 4, RAW, CHUNKED>(dense, widths, out, status, nb, ck, s);
+    case 16 * 8 + 1: return launch_lowdim<16, 1, RAW, CHUNKED>(dense, widths, out, status, nb, ck, s);
+    case 16 * 8 + 2: return launch_lowdim<16, 2, RAW, CHUNKED>(dense, widths, out, status, nb, ck, s);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-// ------------------------------------------------------- the chunk seed
-
-constexpr int SEED_THREADS = 256;
-constexpr int SEED_VALUES = 16;  // values a thread of seed_apply_kernel, about
-
-// corr[c][d] = (state[c][d] - vals[first[c] - 1][d]) mod 2^EB, vals[-1] = 0;
-// moves[c]: whether any of chunk c's is non-zero. One CTA a chunk.
-template <int EB>
-__global__ void __launch_bounds__(SEED_THREADS)
-    seed_corr_kernel(const typename Narrow<EB>::type* __restrict__ vals,
-                     const long long* __restrict__ first, const int32_t* __restrict__ state,
-                     uint32_t* __restrict__ corr, int32_t* __restrict__ moves, int ndims) {
-  const long long c = blockIdx.x;
-  const long long above = first[c] - 1;
-  int any = 0;
-  for (int d = threadIdx.x; d < ndims; d += SEED_THREADS) {
-    const uint32_t v = above >= 0 ? (uint32_t)vals[above * ndims + d] : 0u;
-    const uint32_t k = ((uint32_t)state[c * ndims + d] - v) & ((1u << EB) - 1u);
-    corr[c * ndims + d] = k;
-    any |= k != 0;
-  }
-  any = __syncthreads_or(any);
-  if (threadIdx.x == 0) moves[c] = any;
-}
-
-// vals[r][d] += corr[c][d] mod 2^EB for the rows of chunk c = blockIdx.x,
-// slice blockIdx.y of gridDim.y of them.
-template <int EB>
-__global__ void __launch_bounds__(SEED_THREADS)
-    seed_apply_kernel(typename Narrow<EB>::type* __restrict__ vals,
-                      const long long* __restrict__ first, const uint32_t* __restrict__ corr,
-                      const int32_t* __restrict__ moves, int ndims) {
-  using T = typename Narrow<EB>::type;
-  const long long c = blockIdx.x;
-  if (!moves[c]) return;
-  const long long e0 = first[c] * ndims, n = (first[c + 1] - first[c]) * ndims;
-  const uint32_t* k = corr + c * ndims;
-  for (long long i = (long long)blockIdx.y * SEED_THREADS + threadIdx.x; i < n;
-       i += (long long)gridDim.y * SEED_THREADS) {
-    T* v = vals + e0 + i;
-    *v = (T)(((uint32_t)*v + k[i % ndims]) & ((1u << EB) - 1u));
-  }
-}
-
-template <int EB>
-int launch_seed(void* vals, const long long* first, const int32_t* state, void* scratch,
-                int nchunks, long long most_rows, int ndims, cudaStream_t s) {
-  using T = typename Narrow<EB>::type;
-  uint32_t* corr = static_cast<uint32_t*>(scratch);
-  int32_t* moves = reinterpret_cast<int32_t*>(corr + (long long)nchunks * ndims);
-  seed_corr_kernel<EB><<<(unsigned)nchunks, SEED_THREADS, 0, s>>>(
-      static_cast<const T*>(vals), first, state, corr, moves, ndims);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long per = (long long)SEED_THREADS * SEED_VALUES;
-  long long slices = (most_rows * ndims + per - 1) / per;
-  slices = slices < 1 ? 1 : (slices > 65535 ? 65535 : slices);
-  seed_apply_kernel<EB><<<dim3((unsigned)nchunks, (unsigned)slices), SEED_THREADS, 0, s>>>(
-      static_cast<T*>(vals), first, corr, moves, ndims);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// The chunks of a chunked decode, for each entry point below: first null
+// (the serial decode), or (nchunks + 1) i64 block indices on the device,
+// first[0] = 0, rising, first[nchunks] = nb (16-byte aligned or not), and
+// state (nchunks, ndims) i32 on the device, chunk c's value before its
+// first row. The values of chunk c are state[c] + the prefix of its own
+// deltas, mod 2^elem_bits.
+
 // dense (nb, 8, maxb) u8; widths (nb, ndims) u8, each at most elem_bits;
 // dense, widths and out 16-byte aligned.
 // raw == 0: out (nb, 8, ndims) u8/u16 biased deltas; tile_off
-//           (ceil(nb / 32), ndims) i32 exclusive offsets of the tiles;
-//           status ceil(nb / 32) * ndims + 1 words of 8 bytes, scratch.
+//           (ceil(nb / 32), ndims) i32 exclusive offsets of the tiles (with
+//           chunks: the value entering each tile, its chunk's state where it
+//           starts one); status ceil(nb / 32) * ndims + 1 words of 8 bytes,
+//           scratch.
 // raw != 0: out (nb, 8, ndims) fields, u8 at elem_bits 8 and i32 at 16;
-//           tile_off and status unused.
+//           tile_off, status and the chunks unused.
 int sprintz_unpack_zz(const void* dense, const void* widths, void* out, void* tile_off,
                       void* status, long long nb, int ndims, int maxb, int elem_bits, int raw,
-                      void* stream) {
-  if (((uintptr_t)dense | (uintptr_t)widths | (uintptr_t)out) & 15) {
+                      const void* first, int nchunks, const void* state, void* stream) {
+  if (((uintptr_t)dense | (uintptr_t)widths | (uintptr_t)out) & 15 ||
+      (first != nullptr && (raw || nchunks < 1 || state == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1086,25 +1277,41 @@ int sprintz_unpack_zz(const void* dense, const void* widths, void* out, void* ti
   const uint8_t* wd = static_cast<const uint8_t*>(widths);
   int32_t* to = static_cast<int32_t*>(tile_off);
   unsigned long long* st = static_cast<unsigned long long*>(status);
-  if (raw && elem_bits == 8) return launch_unpack<8, true>(dn, wd, out, to, st, nb, ndims, maxb, s);
-  if (raw && elem_bits == 16) return launch_unpack<16, true>(dn, wd, out, to, st, nb, ndims, maxb, s);
+  const ChunkArgs ck{static_cast<const long long*>(first), nchunks,
+                     static_cast<const int32_t*>(state)};
+  if (raw && elem_bits == 8)
+    return launch_unpack<8, true, false>(dn, wd, out, to, st, nb, ndims, maxb, ck, s);
+  if (raw && elem_bits == 16)
+    return launch_unpack<16, true, false>(dn, wd, out, to, st, nb, ndims, maxb, ck, s);
   if (raw) return (int)cudaErrorInvalidValue;
-  if (elem_bits == 8) return launch_unpack<8, false>(dn, wd, out, to, st, nb, ndims, maxb, s);
-  if (elem_bits == 16) return launch_unpack<16, false>(dn, wd, out, to, st, nb, ndims, maxb, s);
+  if (elem_bits == 8)
+    return first ? launch_unpack<8, false, true>(dn, wd, out, to, st, nb, ndims, maxb, ck, s)
+                 : launch_unpack<8, false, false>(dn, wd, out, to, st, nb, ndims, maxb, ck, s);
+  if (elem_bits == 16)
+    return first ? launch_unpack<16, false, true>(dn, wd, out, to, st, nb, ndims, maxb, ck, s)
+                 : launch_unpack<16, false, false>(dn, wd, out, to, st, nb, ndims, maxb, ck, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // bz, out (rows, ndims) u8/u16; tile_off (ceil(rows / 256), ndims) i32;
-// all three 16-byte aligned.
+// all three 16-byte aligned. With chunks, rows = first[nchunks] * 8.
 int sprintz_prefix_finish(const void* bz, const void* tile_off, void* out, long long rows,
-                          int ndims, int elem_bits, void* stream) {
-  if (((uintptr_t)bz | (uintptr_t)tile_off | (uintptr_t)out) & 15) {
+                          int ndims, int elem_bits, const void* first, int nchunks,
+                          const void* state, void* stream) {
+  if (((uintptr_t)bz | (uintptr_t)tile_off | (uintptr_t)out) & 15 ||
+      (first != nullptr && (nchunks < 1 || state == nullptr || rows % BLOCK_SZ))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* to = static_cast<const int32_t*>(tile_off);
-  if (elem_bits == 8) return launch_finish<8>(bz, to, out, rows, ndims, s);
-  if (elem_bits == 16) return launch_finish<16>(bz, to, out, rows, ndims, s);
+  const ChunkArgs ck{static_cast<const long long*>(first), nchunks,
+                     static_cast<const int32_t*>(state)};
+  if (elem_bits == 8)
+    return first ? launch_finish<8, true>(bz, to, out, rows, ndims, ck, s)
+                 : launch_finish<8, false>(bz, to, out, rows, ndims, ck, s);
+  if (elem_bits == 16)
+    return first ? launch_finish<16, true>(bz, to, out, rows, ndims, ck, s)
+                 : launch_finish<16, false>(bz, to, out, rows, ndims, ck, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1112,39 +1319,28 @@ int sprintz_prefix_finish(const void* bz, const void* tile_off, void* out, long 
 // w bits at bits r * w); widths (nb, ndims) u8, each at most elem_bits;
 // ndims * elem_bits <= 32; dense, widths and out 16-byte aligned.
 // raw == 0: out (nb * 8, ndims) u8/u16 values, the running sum of the
-//           zigzag-decoded fields down each dim modulo 2^elem_bits; status
-//           ceil(nb / span) + 1 words of 8 bytes, zero on entry and left
-//           zero (span: 256 * max(1, 4 / (ndims * elem_bits / 8)) blocks,
-//           256 at u8 D 3).
+//           zigzag-decoded fields down each dim modulo 2^elem_bits (of each
+//           chunk's, from its state); status ceil(nb / span) + 1 words of 8
+//           bytes, zero on entry and left zero (span: 256 * max(1, 4 /
+//           (ndims * elem_bits / 8)) blocks, 256 at u8 D 3).
 // raw != 0: out (nb, 8, ndims) fields, u8 at elem_bits 8 and i32 at 16;
-//           status unused.
+//           status and the chunks unused.
 int sprintz_decode_lowdim(const void* dense, const void* widths, void* out, void* status,
-                          long long nb, int ndims, int elem_bits, int raw, void* stream) {
-  if (nb < 1 || ((uintptr_t)dense | (uintptr_t)widths | (uintptr_t)out) & 15) {
+                          long long nb, int ndims, int elem_bits, int raw, const void* first,
+                          int nchunks, const void* state, void* stream) {
+  if (nb < 1 || ((uintptr_t)dense | (uintptr_t)widths | (uintptr_t)out) & 15 ||
+      (first != nullptr && (raw || nchunks < 1 || state == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* dn = static_cast<const uint8_t*>(dense);
   const uint8_t* wd = static_cast<const uint8_t*>(widths);
   unsigned long long* st = static_cast<unsigned long long*>(status);
-  return raw ? launch_lowdim<true>(dn, wd, out, st, nb, ndims, elem_bits, s)
-             : launch_lowdim<false>(dn, wd, out, st, nb, ndims, elem_bits, s);
-}
-
-// The delta chunk seed, in place: vals (rows, ndims) u8/u16; first
-// (nchunks + 1) i64 rows on the device, first[0] = 0, rising, last = rows;
-// state (nchunks, ndims) i32; scratch nchunks * (ndims + 1) words of 4
-// bytes; most_rows: the rows of the longest chunk.
-int sprintz_delta_chunk_seed(void* vals, const void* first, const void* state, void* scratch,
-                             int nchunks, long long most_rows, int ndims, int elem_bits,
-                             void* stream) {
-  if (nchunks < 1 || ndims < 1 || most_rows < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long* f = static_cast<const long long*>(first);
-  const int32_t* st = static_cast<const int32_t*>(state);
-  if (elem_bits == 8) return launch_seed<8>(vals, f, st, scratch, nchunks, most_rows, ndims, s);
-  if (elem_bits == 16) return launch_seed<16>(vals, f, st, scratch, nchunks, most_rows, ndims, s);
-  return (int)cudaErrorInvalidValue;
+  const ChunkArgs ck{static_cast<const long long*>(first), nchunks,
+                     static_cast<const int32_t*>(state)};
+  if (raw) return launch_lowdim<true, false>(dn, wd, out, st, nb, ndims, elem_bits, ck, s);
+  return first ? launch_lowdim<false, true>(dn, wd, out, st, nb, ndims, elem_bits, ck, s)
+               : launch_lowdim<false, false>(dn, wd, out, st, nb, ndims, elem_bits, ck, s);
 }
 
 // The message of a CUDA error code, for the errors of every library here.

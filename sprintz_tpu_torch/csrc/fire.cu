@@ -1,6 +1,7 @@
 // FIRE (xff) forecaster scan for Hopper (sm_90a), bound with ctypes.
 //
-// fire_encode_kernel<EB, TRUNC>, fire_decode_kernel<EB, TRUNC>
+// fire_encode_kernel<EB, TRUNC>, fire_decode_kernel<EB, TRUNC>,
+// fire_decode_short_kernel<EB, TRUNC>
 //   Replace the lax.scan of sprintz_tpu/models/forecasters.py:_fire_scan
 //   (forecasters.py:303-339) over _fire_block_step (:247-300). TRUNC is
 //   truncate_coeffs: true for the row-major layout's int16 coefficient
@@ -46,8 +47,7 @@
 //   and comes back). The byte and operation bounds are microseconds.
 //
 //   Design. One CTA owns 32 neighbouring dims and is warp-specialised
-//   around a ring of STAGES row tiles (TILE_BLOCKS blocks x 32 dims; the
-//   decode takes SHORT_STAGES where its longest chunk fits in them) in
+//   around a ring of STAGES row tiles (TILE_BLOCKS blocks x 32 dims) in
 //   shared memory, handed on through mbarriers (loaded -> chained -> free):
 //   - loader warps keep the ring full, LOAD_TEAMS tiles at a time. A lane
 //     starts LOAD_DEPTH independent loads of its dim (neighbouring lanes,
@@ -78,8 +78,9 @@
 //   (runs), so a CTA runs as many tiles as its longest chunk needs, and a
 //   lane stores only the blocks of its own. Lanes past the last chunk or
 //   dim shadow a live lane's rows and store nothing. One kernel serves the
-//   serial decode (C = 1) and the chunked one: the lane mapping is the
-//   only difference, and at C = 1 it is the serial kernel's.
+//   serial decode (C = 1) and the chunked one where a chunk is long: the
+//   lane mapping is the only difference, and at C = 1 it is the serial
+//   kernel's. Short chunks take fire_decode_short_kernel (below).
 //   All arithmetic wraps as JAX's int32 does: products and sums are taken
 //   in uint32_t and read back as int32_t. That holds for the full-precision
 //   coefficient too, which at EB 16 reaches 2^30 (a 32-bit counter >> 1),
@@ -105,11 +106,6 @@ constexpr int GROUP = 32;        // dims per CTA: one lane of each warp a dim
 constexpr int TILE_BLOCKS = 16;  // blocks per tile
 constexpr int TILE_ROWS = TILE_BLOCKS * BLOCK_SZ;
 constexpr int STAGES = 8;        // tiles in the ring, a power of two
-// The chunked decode's ring where every chunk fits in it: a chunk of a
-// sidecar's 16 groups is 32 blocks, 2 tiles, and a ring of half the shared
-// memory lets two CTAs share an SM (20% faster at the 8 MiB u8 walk's 512
-// chunks than STAGES, probes/sidecar_probe.py).
-constexpr int SHORT_STAGES = 4;
 constexpr int LOAD_BLOCKS = 4;   // blocks a loader warp loads at once
 constexpr int LOAD_DEPTH = LOAD_BLOCKS * BLOCK_SZ;  // independent loads a lane
 constexpr int TEAM_WARPS = TILE_BLOCKS / LOAD_BLOCKS;  // loader warps on a tile
@@ -145,11 +141,7 @@ constexpr int DATA_BYTES = TILE_BLOCKS * 2 * GROUP * 16;
 constexpr int AUX_BYTES = TILE_BLOCKS * GROUP * 16;
 constexpr int STAGE_BYTES = DATA_BYTES + AUX_BYTES;
 constexpr int BARRIER_BYTES = 256;  // 3 * STAGES mbarriers, padded
-template <int S>
-constexpr int smem_bytes() {
-  return BARRIER_BYTES + S * STAGE_BYTES;
-}
-constexpr int SMEM_BYTES = smem_bytes<STAGES>();
+constexpr int SMEM_BYTES = BARRIER_BYTES + STAGES * STAGE_BYTES;
 // row offsets inside a tile are 32-bit (TILE_ROWS * ndims must fit) and so
 // is the count of tiles
 constexpr int MAX_NDIMS = 1 << 24;
@@ -157,9 +149,6 @@ constexpr long long MAX_BLOCKS = 1LL << 34;
 
 static_assert((STAGES & (STAGES - 1)) == 0, "slot and parity by mask and shift");
 static_assert(STAGES >= LOAD_TEAMS + 2, "a tile each for chain and finishers");
-static_assert((SHORT_STAGES & (SHORT_STAGES - 1)) == 0 && SHORT_STAGES >= LOAD_TEAMS + 2 &&
-                  SHORT_STAGES <= STAGES,
-              "the short ring");
 static_assert(3 * STAGES * 8 <= BARRIER_BYTES, "barriers");
 static_assert(SMEM_BYTES <= 232448, "shared memory of one SM");
 
@@ -300,9 +289,8 @@ struct Fire {
 };
 
 // The ring's barriers and tiles in dynamic shared memory. Tile t lives in
-// slot t % S (S tiles in the ring); each role passes a slot once a round, so the parity to
-// wait for is the round's.
-template <int S = STAGES>
+// slot t % STAGES; each role passes a slot once a round, so the parity to wait
+// for is the round's.
 struct Ring {
   uint64_t* loaded;   // loaders -> chain
   uint64_t* chained;  // chain -> finishers
@@ -311,21 +299,21 @@ struct Ring {
 
   __device__ explicit Ring(unsigned char* smem)
       : loaded(reinterpret_cast<uint64_t*>(smem)),
-        chained(loaded + S),
-        free_(chained + S),
+        chained(loaded + STAGES),
+        free_(chained + STAGES),
         stages(smem + BARRIER_BYTES) {}
 
   __device__ void init() {
-    for (int s = 0; s < S; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(loaded + s, TEAM_WARPS * 32);
       mbar_init(chained + s, 32);
       mbar_init(free_ + s, FINISHERS * 32);
     }
     mbar_init_fence();
   }
-  __device__ static __forceinline__ int slot(int t) { return t & (S - 1); }
+  __device__ static __forceinline__ int slot(int t) { return t & (STAGES - 1); }
   __device__ static __forceinline__ uint32_t round_parity(int t) {
-    return (uint32_t)(t / S) & 1u;
+    return (uint32_t)(t / STAGES) & 1u;
   }
   // this lane's first cell of slot s: cell (block b, half h) is at
   // [(2 * b + h) * GROUP], the block's aux cell at [b * GROUP]
@@ -397,7 +385,7 @@ __global__ void __launch_bounds__(32 * WARPS)
                        int32_t* __restrict__ states, long long nb, int ndims) {
   using F = Fire<EB>;
   extern __shared__ __align__(16) unsigned char fire_smem[];
-  Ring<> ring(fire_smem);
+  Ring ring(fire_smem);
   if (threadIdx.x == 0) ring.init();
   __syncthreads();
 
@@ -413,8 +401,8 @@ __global__ void __launch_bounds__(32 * WARPS)
     // counter -> coef -> the odd rows' gradient terms -> counter
     int32_t counter = 0;
     for (int t = 0; t < ntiles; ++t) {
-      const int s = Ring<>::slot(t);
-      mbar_wait(ring.loaded + s, Ring<>::round_parity(t));
+      const int s = Ring::slot(t);
+      mbar_wait(ring.loaded + s, Ring::round_parity(t));
       const uint4* cells = ring.data(s, lane);
       int32_t* coefs = reinterpret_cast<int32_t*>(ring.aux(s, lane));
       const int nblk = blocks_in_tile(nb, t);
@@ -447,8 +435,8 @@ __global__ void __launch_bounds__(32 * WARPS)
     const int b0 = (lw % TEAM_WARPS) * LOAD_BLOCKS;
     const int dsafe = active ? d : ndims - 1;  // loads stay in bounds
     for (int t = lw / TEAM_WARPS; t < ntiles; t += LOAD_TEAMS) {
-      const int s = Ring<>::slot(t);
-      mbar_wait(ring.free_ + s, Ring<>::round_parity(t) ^ 1u);
+      const int s = Ring::slot(t);
+      mbar_wait(ring.free_ + s, Ring::round_parity(t) ^ 1u);
       const long long row0 = (long long)t * TILE_ROWS + b0 * BLOCK_SZ;
       const int32_t* p = in + (row0 * ndims + dsafe);
       if ((long long)(t + 1) * TILE_ROWS <= nrows)
@@ -465,8 +453,8 @@ __global__ void __launch_bounds__(32 * WARPS)
     const int f = helper;
     uint32_t halo = 0;  // the delta of the row above the tile
     for (int t = 0; t < ntiles; ++t) {
-      const int s = Ring<>::slot(t);
-      mbar_wait(ring.chained + s, Ring<>::round_parity(t));
+      const int s = Ring::slot(t);
+      mbar_wait(ring.chained + s, Ring::round_parity(t));
       const uint4* cells = ring.data(s, lane);
       const int32_t* coefs = reinterpret_cast<const int32_t*>(ring.aux(s, lane));
       const int nblk = blocks_in_tile(nb, t);
@@ -571,8 +559,7 @@ struct ChunkLane {
   }
 };
 
-// S: the tiles in the ring, STAGES or SHORT_STAGES
-template <int EB, bool TRUNC, int S>
+template <int EB, bool TRUNC>
 __global__ void __launch_bounds__(32 * WARPS)
     fire_decode_kernel(const typename Fire<EB>::errs_t* __restrict__ in,
                        const int32_t* __restrict__ state,
@@ -581,7 +568,7 @@ __global__ void __launch_bounds__(32 * WARPS)
                        int ndims) {
   using F = Fire<EB>;
   extern __shared__ __align__(16) unsigned char fire_smem[];
-  Ring<S> ring(fire_smem);
+  Ring ring(fire_smem);
   if (threadIdx.x == 0) ring.init();
   __syncthreads();
 
@@ -615,8 +602,8 @@ __global__ void __launch_bounds__(32 * WARPS)
                (uint32_t)F::template coef<TRUNC>(counter);
     }
     for (int t = 0; t < ntiles; ++t) {
-      const int s = Ring<S>::slot(t);
-      mbar_wait(ring.loaded + s, Ring<S>::round_parity(t));
+      const int s = Ring::slot(t);
+      mbar_wait(ring.loaded + s, Ring::round_parity(t));
       uint4* cells = ring.data(s, lane);
       if (t == 0) cells[0].x += beyond;
       uint4* signs = ring.aux(s, lane);
@@ -648,8 +635,8 @@ __global__ void __launch_bounds__(32 * WARPS)
     const int lw = helper - FINISHERS;
     const int b0 = (lw % TEAM_WARPS) * LOAD_BLOCKS;
     for (int t = lw / TEAM_WARPS; t < ntiles; t += LOAD_TEAMS) {
-      const int s = Ring<S>::slot(t);
-      mbar_wait(ring.free_ + s, Ring<S>::round_parity(t) ^ 1u);
+      const int s = Ring::slot(t);
+      mbar_wait(ring.free_ + s, Ring::round_parity(t) ^ 1u);
       // rows from the chunk's start; past its end the loads read zeros
       const long long row0 = (long long)t * TILE_ROWS + b0 * BLOCK_SZ;
       const typename F::errs_t* p = in + ((row_base + row0) * ndims + d);
@@ -666,8 +653,8 @@ __global__ void __launch_bounds__(32 * WARPS)
     // mod 2^EB, every FINISHERS-th block
     const int f = helper;
     for (int t = 0; t < ntiles; ++t) {
-      const int s = Ring<S>::slot(t);
-      mbar_wait(ring.chained + s, Ring<S>::round_parity(t));
+      const int s = Ring::slot(t);
+      mbar_wait(ring.chained + s, Ring::round_parity(t));
       const uint4* cells = ring.data(s, lane);
       const uint4* above = ring.aux(s, lane);
       // this lane's blocks in the tile: those of its own chunk
@@ -692,6 +679,277 @@ __global__ void __launch_bounds__(32 * WARPS)
         }
       }
       mbar_arrive(ring.free_ + s);
+    }
+  }
+}
+
+// ------------------------------------------------- decode in short chunks
+
+// fire_decode_short_kernel<EB, TRUNC>: the chunked decode where a chunk's
+// values fit in shared memory whole: a sidecar's default chunk (16 groups,
+// 32 blocks) is 16 KB of u8 values at D 64 and 1 KB at D 4, and the 8 MiB
+// u8 walk's 512 such chunks are 64 KB an SM, so every chunk of the stream
+// is resident in one wave. The ring kernel exists to hide a long chain
+// behind its loads; a short chain needs no ring. Its CTAs (512 threads, a
+// ring of 98 KB, two a SM) filled and drained their ring around 32 blocks
+// and ran about four waves at the 8 MiB u8 walk (0.0455 ms on an H100,
+// bound 0.0051).
+//   Work unit: a CTA of SHORT_THREADS threads takes `cpc` whole chunks over
+//   all D dims (D <= SHORT_MAX_DIMS, so a chunk's errors are one contiguous
+//   byte range): one chunk at D >= 32, 32 / D chunks below (a warp of 8
+//   chunks at D 4). The CTA's chunk starts go to shared memory first, with
+//   a prefix of the 16-byte units each chunk's image takes, so that the
+//   stage and the store run over the CTA's units as one list and not chunk
+//   by chunk.
+//   1. Stage: all threads copy the chunks' errors into shared memory in
+//      16-byte loads, STAGE_DEPTH units a thread in flight before the first
+//      is used (a first form loaded a chunk's units one round trip after
+//      another, chunk after chunk: 0.026 ms at the 8 MiB u8 walk and
+//      0.029-0.040 at the 4 MiB walks on an H100, probes/sidecar_probe.py,
+//      slower than the ring there), zigzag-decoded on the way (at EB 8 four
+//      bytes in a few word operations; at EB 16 the i32 errors narrowed to
+//      u16, half the bytes). A chunk's image keeps its bytes' alignment to
+//      16 (image byte 0 is the unit of the chunk's first byte); units at the
+//      ends of the errors are read a byte at a time.
+//   2. Chain: a lane is a (chunk, dim) pair and runs the ring's chain warp
+//      recurrence (Fire::advance, one dot product a row at EB 8, a shift and
+//      a multiply-add at EB 16; the counter once a block) on its column of
+//      the image, the next block's errors loaded while it chains the
+//      current one, and writes the values in place. No ring, no mbarrier:
+//      the data is resident. A lane chains only its own chunk's blocks;
+//      chunks of other lengths in its warp diverge (a sidecar's chunks are
+//      of one length but where runs lengthen them, so the lanes are not
+//      sorted by length).
+//   3. Store: each chunk's values are one byte range of the output; all
+//      threads store its whole 16-byte units, the units at its two ends
+//      (which a neighbouring chunk shares) a byte at a time.
+//   What bounds it: the chain. Its lanes are C x D (1024 warps at the 8
+//   MiB u8 walk, about two a scheduler; 512 at the 4 MiB d4 one), each
+//   about 100 instructions a block, so they issue and wait more than they
+//   compute:
+//   about 10k of the 21k cycles a CTA at the 8 MiB u8 walk, beside 8.5k of
+//   stage and 1.2k of store (clock64 counters, probes/sidecar_probe.py
+//   --variants, on an H100). A pipeline that staged and stored pieces of
+//   the chunks beside the chain gained nothing there (the chain took the
+//   time the pieces saved).
+//   Banks: at D < 32 a warp's lanes read several chunks, a row apart in
+//   each. Chunk images step 16 bytes past a multiple of 128, so the 8
+//   chunks of a warp at u8 D 4 fall in 8 different bank groups; at a row of
+//   4 bytes or less (u8 D <= 2, u16 D 1) 2 or 4 chunks share one. An odd
+//   number of words between chunks would free those too, but the stage's
+//   16-byte stores need images on 16 bytes.
+constexpr int SHORT_MAX_DIMS = 256;           // a chunk's lanes, one a dim
+constexpr int SHORT_CHUNK_BYTES = 48 * 1024;  // a chunk's values in shared memory, at most
+constexpr int SHORT_LANES = 32;               // a CTA's lanes where chunks are narrow
+constexpr int SHORT_MAX_CHUNKS = 32;          // a CTA's chunks: a warp's scan, two a lane
+constexpr int SHORT_THREADS = 256;
+constexpr int STAGE_DEPTH = 8;                // units a thread loads at once
+constexpr int SHORT_BUDGET = 56 * 1024;       // a CTA's shared memory: four a SM
+static_assert(SHORT_MAX_DIMS <= SHORT_THREADS, "a lane a dim");
+static_assert(SHORT_LANES <= 2 * SHORT_MAX_CHUNKS, "the scan's two chunks a lane");
+
+// The short decode's launch: chunks a CTA, bytes a chunk's image, shared
+// memory a CTA (the images, then the chunk starts and unit prefix); cpc 0
+// where the longest chunk does not fit.
+struct ShortPlan {
+  int cpc, slot, smem;
+};
+
+ShortPlan short_plan(long long most, int ndims, int elem_bits) {
+  ShortPlan p{};
+  const long long bytes = most * BLOCK_SZ * ndims * (elem_bits / 8);
+  if (ndims > SHORT_MAX_DIMS || bytes > SHORT_CHUNK_BYTES) return p;
+  // 15 bytes before the first (its unit's start) and 15 after the last
+  p.slot = (int)((bytes + 30 + 127) / 128 * 128 + 16);
+  p.cpc = ndims < SHORT_LANES ? SHORT_LANES / ndims : 1;
+  if (p.cpc * p.slot > SHORT_BUDGET) p.cpc = SHORT_BUDGET / p.slot;
+  p.smem = p.cpc * p.slot + 8 * (SHORT_MAX_CHUNKS + 1) + 4 * (SHORT_MAX_CHUNKS + 1);
+  return p;
+}
+
+// A word of four zigzag bytes -> their four signed errors, bytewise.
+__device__ __forceinline__ uint32_t unzigzag4(uint32_t x) {
+  return ((x >> 1) & 0x7f7f7f7fu) ^ ((x & 0x01010101u) * 0xffu);
+}
+
+__device__ __forceinline__ uint32_t unzigzag16(uint32_t u) {
+  return ((u >> 1) ^ (0u - (u & 1u))) & 0xffffu;
+}
+
+template <int EB, bool TRUNC>
+__global__ void __launch_bounds__(SHORT_THREADS)
+    fire_decode_short_kernel(const typename Fire<EB>::errs_t* __restrict__ in,
+                             const int32_t* __restrict__ states,
+                             typename Fire<EB>::narrow_t* __restrict__ out,
+                             const long long* __restrict__ first, int nchunks, long long nb,
+                             int ndims, int cpc, int slot) {
+  using F = Fire<EB>;
+  using T = typename F::narrow_t;
+  constexpr int ES = (int)sizeof(T);
+  // values are elements of the (nb * 8, ndims) stream; a unit of the image
+  // is 16 bytes: 16 u8 values, or 8 u16 values from 8 i32 errors
+  constexpr int PER_UNIT = EB == 8 ? 16 : 8;
+  extern __shared__ __align__(16) unsigned char fire_smem[];
+  long long* s_e0 = reinterpret_cast<long long*>(fire_smem + cpc * slot);  // [nc + 1]
+  int* s_units = reinterpret_cast<int*>(s_e0 + SHORT_MAX_CHUNKS + 1);       // [nc + 1]
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int c0 = blockIdx.x * cpc;
+  const int nc = nchunks - c0 < cpc ? nchunks - c0 : cpc;
+  const long long total = nb * BLOCK_SZ * ndims;
+  const long long row = (long long)BLOCK_SZ * ndims;  // elements a block
+
+  // 0. The chunks' first elements, and the units of the images before each:
+  // image byte 0 of chunk cl is unit a(cl) = its first element rounded
+  // down to PER_UNIT elements (EB 16: the first element itself, which lies
+  // on a unit: first * 8 * ndims * 2 bytes).
+  if (tid <= nc) s_e0[tid] = first[c0 + tid] * row;
+  __syncthreads();
+  if (tid < 32) {  // a warp's scan, two chunks a lane
+    auto units = [&](int cl) {
+      return cl < nc ? (int)((s_e0[cl + 1] - s_e0[cl] / PER_UNIT * PER_UNIT + PER_UNIT - 1) /
+                             PER_UNIT)
+                     : 0;
+    };
+    const int a = units(2 * tid), b = units(2 * tid + 1);
+    int incl = a + b;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (tid >= o) incl += t;
+    }
+    const int excl = incl - a - b;
+    if (2 * tid <= nc) s_units[2 * tid] = excl;
+    if (2 * tid + 1 <= nc) s_units[2 * tid + 1] = excl + a;
+  }
+  __syncthreads();
+  const int nunits = s_units[nc];
+  // the chunk of the CTA's unit u
+  auto chunk_of = [&](int u) {
+    int lo = 0, hi = nc;  // s_units[lo] <= u < s_units[hi]
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (s_units[mid] <= u) lo = mid; else hi = mid;
+    }
+    return lo;
+  };
+
+  // 1. Stage, STAGE_DEPTH units a thread in flight.
+  for (int u0 = tid; u0 < nunits; u0 += STAGE_DEPTH * nt) {
+    uint4 v[STAGE_DEPTH][EB == 8 ? 1 : 2];
+    int at[STAGE_DEPTH];  // the unit's byte in shared memory, or -1
+#pragma unroll
+    for (int k = 0; k < STAGE_DEPTH; ++k) {
+      const int u = u0 + k * nt;
+      at[k] = -1;
+      if (u < nunits) {
+        const int cl = chunk_of(u);
+        const int ul = u - s_units[cl];
+        const long long g = s_e0[cl] / PER_UNIT * PER_UNIT + (long long)ul * PER_UNIT;
+        at[k] = cl * slot + 16 * ul;
+        if constexpr (EB == 8) {
+          if (g + 16 <= total) {
+            v[k][0] = *reinterpret_cast<const uint4*>(in + g);
+          } else {  // the stream's last unit: bytes past its end read as 0
+            uint32_t w[4] = {0, 0, 0, 0};
+            for (int b = 0; g + b < total; ++b) w[b >> 2] |= (uint32_t)in[g + b] << (8 * (b & 3));
+            v[k][0] = make_uint4(w[0], w[1], w[2], w[3]);
+          }
+        } else {
+          v[k][0] = *reinterpret_cast<const uint4*>(in + g);
+          v[k][1] = *reinterpret_cast<const uint4*>(in + g + 4);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < STAGE_DEPTH; ++k) {
+      if (at[k] < 0) continue;
+      uint4* dst = reinterpret_cast<uint4*>(fire_smem + at[k]);
+      if constexpr (EB == 8) {
+        *dst = make_uint4(unzigzag4(v[k][0].x), unzigzag4(v[k][0].y), unzigzag4(v[k][0].z),
+                          unzigzag4(v[k][0].w));
+      } else {
+        const uint4 lo = v[k][0], hi = v[k][1];
+        *dst = make_uint4(unzigzag16(lo.x) | unzigzag16(lo.y) << 16,
+                          unzigzag16(lo.z) | unzigzag16(lo.w) << 16,
+                          unzigzag16(hi.x) | unzigzag16(hi.y) << 16,
+                          unzigzag16(hi.z) | unzigzag16(hi.w) << 16);
+      }
+    }
+  }
+  __syncthreads();
+
+  // 2. Chain: lane (chunk cl, dim d) over its chunk's blocks, two buffers of
+  // errors in turn.
+  if (tid < nc * ndims) {
+    const int cl = tid / ndims, d = tid - cl * ndims;
+    const long long e0 = s_e0[cl];
+    const long long nblk = (s_e0[cl + 1] - e0) / row;
+    T* p = reinterpret_cast<T*>(fire_smem + cl * slot) + (e0 % PER_UNIT) + d;
+    const int32_t* st = states + (long long)(c0 + cl) * 3 * ndims + d;
+    const int32_t prev_delta = st[ndims];
+    uint32_t val = (uint32_t)st[0];
+    int32_t counter = st[2 * ndims];
+    uint32_t word = (uint32_t)prev_delta << EB;
+    // a carried delta wider than EB bits (no encoder leaves one): what the
+    // word cannot hold, times the first coefficient, joins the first addend
+    uint32_t extra =
+        (uint32_t)(prev_delta - F::delta_of(word)) * (uint32_t)F::template coef<TRUNC>(counter);
+    // a block's rows' offsets, warp-uniform: each access is a register
+    // plus a uniform register, with no address arithmetic of its own
+    uint32_t row_off[BLOCK_SZ];
+#pragma unroll
+    for (int r = 0; r < BLOCK_SZ; ++r) row_off[r] = (uint32_t)(r * ndims);
+    const uint32_t step = (uint32_t)ndims;
+    auto load_block = [&](uint32_t (&e)[BLOCK_SZ], const T* q) {
+#pragma unroll
+      for (int r = 0; r < BLOCK_SZ; ++r) e[r] = q[row_off[r]];
+    };
+    // one block from its errors e, the values in place at q
+    auto chain_block = [&](const uint32_t (&e)[BLOCK_SZ], T* q) {
+      const int32_t cm = F::multiplier(F::template coef<TRUNC>(counter));
+      uint32_t grad_sum = 0;
+#pragma unroll
+      for (int r = 0; r < BLOCK_SZ; ++r) {
+        if (r & 1) {  // icopysign(err, prev_delta): the error's sign times prev_delta
+          const int32_t err = sext<EB>(e[r]);
+          const int32_t m = err == 0 ? 0 : (err < 0 ? (int32_t)0xffff0000u : 0x00010000);
+          grad_sum = F::advance(word, m, grad_sum);
+        }
+        word = F::advance(word, cm, r == 0 ? (e[0] << EB) + extra : e[r] << EB);
+        val = F::advance(word, F::multiplier(1), val);  // val += the delta
+        q[row_off[r]] = (T)val;
+      }
+      extra = 0;
+      counter = F::next_counter(counter, F::grad_shifted(grad_sum));
+    };
+    uint32_t ea[BLOCK_SZ], eb[BLOCK_SZ];
+    if (nblk > 0) load_block(ea, p);
+    for (long long b = 0; b < nblk; b += 2) {
+      T* q = p + b * BLOCK_SZ * step;
+      if (b + 1 < nblk) load_block(eb, q + BLOCK_SZ * step);
+      chain_block(ea, q);
+      if (b + 1 >= nblk) break;
+      if (b + 2 < nblk) load_block(ea, q + 2 * BLOCK_SZ * step);
+      chain_block(eb, q + BLOCK_SZ * step);
+    }
+  }
+  __syncthreads();
+
+  // 3. Store: unit u of chunk cl's image is out's bytes from its image's
+  // first byte, lo & ~15 (its values are out's bytes [lo, hi)).
+  unsigned char* out8 = reinterpret_cast<unsigned char*>(out);
+  for (int u = tid; u < nunits; u += nt) {
+    const int cl = chunk_of(u);
+    const int ul = u - s_units[cl];
+    const long long lo = s_e0[cl] * ES, hi = s_e0[cl + 1] * ES;
+    const long long g = (lo & ~15LL) + 16LL * ul;
+    const unsigned char* img = fire_smem + cl * slot + 16 * ul;
+    if (g >= lo && g + 16 <= hi) {
+      *reinterpret_cast<uint4*>(out8 + g) = *reinterpret_cast<const uint4*>(img);
+    } else {
+      for (int k = 0; k < 16; ++k) {
+        if (g + k >= lo && g + k < hi) out8[g + k] = img[k];
+      }
     }
   }
 }
@@ -742,7 +1000,7 @@ cudaError_t launch_encode(const void* in, void* out, int32_t* states, long long 
   return cudaGetLastError();
 }
 
-template <int EB, bool TRUNC, int S>
+template <int EB, bool TRUNC>
 cudaError_t launch_decode(const void* in, const int32_t* state, void* out,
                           const long long* first, int nchunks, long long nb, int ndims,
                           cudaStream_t s) {
@@ -751,34 +1009,35 @@ cudaError_t launch_decode(const void* in, const int32_t* state, void* out,
   const long long ctas =
       (long long)((nchunks + GROUP / per - 1) / (GROUP / per)) * ((ndims + per - 1) / per);
   if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const cudaError_t err = allow_ring(fire_decode_kernel<EB, TRUNC, S>, smem_bytes<S>());
+  const cudaError_t err = allow_ring(fire_decode_kernel<EB, TRUNC>);
   if (err != cudaSuccess) return err;
-  fire_decode_kernel<EB, TRUNC, S><<<(unsigned)ctas, 32 * WARPS, smem_bytes<S>(), s>>>(
+  fire_decode_kernel<EB, TRUNC><<<(unsigned)ctas, 32 * WARPS, SMEM_BYTES, s>>>(
       static_cast<const typename F::errs_t*>(in), state,
       static_cast<typename F::narrow_t*>(out), first, nchunks, nb, ndims);
   return cudaGetLastError();
 }
 
-// the ring's depth: the short one where the longest chunk fits in it
 template <int EB, bool TRUNC>
-cudaError_t launch_decode(const void* in, const int32_t* state, void* out,
-                          const long long* first, int nchunks, long long most, long long nb,
-                          int ndims, cudaStream_t s) {
-  return most <= (long long)SHORT_STAGES * TILE_BLOCKS
-             ? launch_decode<EB, TRUNC, SHORT_STAGES>(in, state, out, first, nchunks, nb,
-                                                      ndims, s)
-             : launch_decode<EB, TRUNC, STAGES>(in, state, out, first, nchunks, nb, ndims, s);
+cudaError_t launch_short(const void* in, const int32_t* states, void* out,
+                         const long long* first, int nchunks, const ShortPlan& p, long long nb,
+                         int ndims, cudaStream_t s) {
+  using F = Fire<EB>;
+  const cudaError_t err = allow_ring(fire_decode_short_kernel<EB, TRUNC>, p.smem);
+  if (err != cudaSuccess) return err;
+  const unsigned ctas = (unsigned)((nchunks + p.cpc - 1) / p.cpc);
+  fire_decode_short_kernel<EB, TRUNC><<<ctas, SHORT_THREADS, p.smem, s>>>(
+      static_cast<const typename F::errs_t*>(in), states, static_cast<typename F::narrow_t*>(out),
+      first, nchunks, nb, ndims, p.cpc, p.slot);
+  return cudaGetLastError();
 }
 
-// most: the blocks of the longest chunk
 template <int EB>
 cudaError_t launch(const void* in, const int32_t* state, void* out, int32_t* states,
-                   const long long* first, int nchunks, long long most, long long nb,
-                   int ndims, int decode, int trunc, cudaStream_t s) {
+                   const long long* first, int nchunks, long long nb, int ndims, int decode,
+                   int trunc, cudaStream_t s) {
   if (decode)
-    return trunc ? launch_decode<EB, true>(in, state, out, first, nchunks, most, nb, ndims, s)
-                 : launch_decode<EB, false>(in, state, out, first, nchunks, most, nb, ndims,
-                                            s);
+    return trunc ? launch_decode<EB, true>(in, state, out, first, nchunks, nb, ndims, s)
+                 : launch_decode<EB, false>(in, state, out, first, nchunks, nb, ndims, s);
   if (states)
     return trunc ? launch_encode<EB, true, true>(in, out, states, nb, ndims, s)
                  : launch_encode<EB, false, true>(in, out, states, nb, ndims, s);
@@ -804,30 +1063,53 @@ int sprintz_fire_scan(void* in, void* state, void* out, long long nb, int ndims,
     return (int)cudaErrorInvalidValue;
   int32_t* enc_states = decode ? nullptr : st;
   if (elem_bits == 8)
-    return (int)launch<8>(in, st, out, enc_states, nullptr, 1, nb, nb, ndims, decode, trunc, s);
+    return (int)launch<8>(in, st, out, enc_states, nullptr, 1, nb, ndims, decode, trunc, s);
   if (elem_bits == 16)
-    return (int)launch<16>(in, st, out, enc_states, nullptr, 1, nb, nb, ndims, decode, trunc,
-                           s);
+    return (int)launch<16>(in, st, out, enc_states, nullptr, 1, nb, ndims, decode, trunc, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The chunked decode: in and out as sprintz_fire_scan's decode; first
-// (nchunks + 1) i64 block indices on the device, first[0] = 0, rising, and
-// first[nchunks] = nb; most: the blocks of the longest chunk; states
-// (nchunks, 3, ndims) i32, chunk c's state before its first block.
-int sprintz_fire_decode_chunks(void* in, void* states, void* first, int nchunks,
-                               long long most, void* out, long long nb, int ndims,
-                               int elem_bits, int trunc, void* stream) {
+// The chunked decode on the ring kernel: in and out as sprintz_fire_scan's
+// decode; first (nchunks + 1) i64 block indices on the device, first[0] =
+// 0, rising, and first[nchunks] = nb; states (nchunks, 3, ndims) i32,
+// chunk c's state before its first block.
+int sprintz_fire_decode_chunks(void* in, void* states, void* first, int nchunks, void* out,
+                               long long nb, int ndims, int elem_bits, int trunc,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* st = static_cast<const int32_t*>(states);
   const long long* f = static_cast<const long long*>(first);
   if (nb < 1 || nb > MAX_BLOCKS || ndims < 1 || ndims > MAX_NDIMS || nchunks < 1 ||
-      most < 0 || most > nb || st == nullptr || f == nullptr)
+      st == nullptr || f == nullptr)
     return (int)cudaErrorInvalidValue;
   if (elem_bits == 8)
-    return (int)launch<8>(in, st, out, nullptr, f, nchunks, most, nb, ndims, 1, trunc, s);
+    return (int)launch<8>(in, st, out, nullptr, f, nchunks, nb, ndims, 1, trunc, s);
   if (elem_bits == 16)
-    return (int)launch<16>(in, st, out, nullptr, f, nchunks, most, nb, ndims, 1, trunc, s);
+    return (int)launch<16>(in, st, out, nullptr, f, nchunks, nb, ndims, 1, trunc, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The chunked decode on the short-chunk kernel, with sprintz_fire_decode_chunks'
+// arguments and most, the blocks of the longest chunk: most * 8 * ndims
+// values of elem_bits must fit in SHORT_CHUNK_BYTES and ndims in
+// SHORT_MAX_DIMS (else cudaErrorInvalidValue: the ring kernel's case). in,
+// out and first 16-byte aligned.
+int sprintz_fire_decode_short(void* in, void* states, void* first, int nchunks, long long most,
+                              void* out, long long nb, int ndims, int elem_bits, int trunc,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* st = static_cast<const int32_t*>(states);
+  const long long* f = static_cast<const long long*>(first);
+  const ShortPlan p = short_plan(most, ndims, elem_bits);
+  if (nb < 1 || nb > MAX_BLOCKS || ndims < 1 || nchunks < 1 || most < 0 || most > nb ||
+      st == nullptr || f == nullptr || p.cpc < 1 || ((uintptr_t)in | (uintptr_t)out) & 15)
+    return (int)cudaErrorInvalidValue;
+  if (elem_bits == 8)
+    return (int)(trunc ? launch_short<8, true>(in, st, out, f, nchunks, p, nb, ndims, s)
+                       : launch_short<8, false>(in, st, out, f, nchunks, p, nb, ndims, s));
+  if (elem_bits == 16)
+    return (int)(trunc ? launch_short<16, true>(in, st, out, f, nchunks, p, nb, ndims, s)
+                       : launch_short<16, false>(in, st, out, f, nchunks, p, nb, ndims, s));
   return (int)cudaErrorInvalidValue;
 }
 

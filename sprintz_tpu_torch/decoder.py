@@ -26,8 +26,9 @@ The values come back narrow and the verbatim tail is appended on the host.
 A checkpoint sidecar (``checkpoint.py``) splits the same pass into chunks:
 ``walk_headers_parallel`` walks the sidecar's segments on threads, and
 ``decode_device(chunks=...)`` decodes the whole timeline at once with each
-chunk from its recorded state (``fire_decode_chunks``; delta's
-``delta_chunk_seed`` after its decode), so the values come out in order.
+chunk from its recorded state (``fire_decode_chunks``; delta's kernels with
+``chunks=``, in the serial decode's launches), so the values come out in
+order.
 ``decode_indexed`` is the serial decode of a walk that starts mid-stream,
 from a checkpoint's state (``checkpoint.decode_range``).
 """
@@ -55,7 +56,7 @@ from .ops.bitmath import header_to_width
 from .ops.decode_kernels import (
     decode_delta_contiguous,
     decode_delta_lowdim,
-    delta_chunk_seed,
+    delta_chunks,
     unpack_dims_lowdim,
 )
 from .ops.pack_kernels import unpack_rows
@@ -307,14 +308,11 @@ def decode_device(dense: torch.Tensor, widths: torch.Tensor,
             return fire_decode_chunks(errs, 8 * elem_sz, first, states,
                                       truncate_coeffs=not lowdim)
         return fire_decode(errs, 8 * elem_sz, truncate_coeffs=not lowdim)
+    ck = None if chunks is None else delta_chunks(
+        first, states[:, 0], total_rows // BLOCK_SZ, ndims, dense.device)
     if lowdim:
-        vals = decode_delta_lowdim(dense, widths, 8 * elem_sz)
-    else:
-        vals = decode_delta_contiguous(dense, widths, 8 * elem_sz)
-    if chunks is not None:
-        vals = delta_chunk_seed(vals, first * BLOCK_SZ, states[:, 0],
-                                8 * elem_sz)
-    return vals
+        return decode_delta_lowdim(dense, widths, 8 * elem_sz, ck)
+    return decode_delta_contiguous(dense, widths, 8 * elem_sz, ck)
 
 
 def decompress(buf: bytes, codec: str = "delta", elem_sz: int = 1,

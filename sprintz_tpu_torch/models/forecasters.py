@@ -39,10 +39,13 @@ the same pass (the JAX package's ``fire_encode_with_states`` runs a second
 scan for it), and ``fire_decode_chunks`` decodes a stream cut into chunks
 of whole blocks, each from its own carry (a checkpoint sidecar's): the
 vmapped decode of the JAX package's ``decoder._decode_pass_chunks``, with
-C·D lanes where the serial decode has D. Both launch the same two kernels;
-the chunked decode counts its launches in ``fire_decode_chunks.launches``
-(``full_launches``), the states' encode in ``fire_encode.states_launches``
-(``states_full_launches``).
+C·D lanes where the serial decode has D. Where every chunk's values fit in
+shared memory (``fire_short_fits``: a sidecar's default chunks) it launches
+``fire_decode_short_kernel``, which stages whole chunks and chains them
+there, and counts in ``fire_decode_chunks.short_launches``
+(``short_full_launches``); longer chunks take the serial decode's ring
+kernel (``launches``, ``full_launches``). The states' encode counts in
+``fire_encode.states_launches`` (``states_full_launches``).
 """
 
 from __future__ import annotations
@@ -59,7 +62,8 @@ from ..constants import (
 )
 from ..ops import _build
 from ..ops.bitmath import sign_extend, zigzag_decode, zigzag_encode
-from ..ops.decode_kernels import check_args, narrow, narrow_dtype, to_device
+from ..ops.decode_kernels import (aligned16, check_args, chunk_args, narrow,
+                                  narrow_dtype)
 
 
 def delta_encode(rows: torch.Tensor, elem_bits: int) -> torch.Tensor:
@@ -240,11 +244,9 @@ def _check_fire(name: str, x: torch.Tensor, elem_bits: int,
                          f"N a multiple of {BLOCK_SZ}")
 
 
-def _count_launch(wrapper, truncate_coeffs: bool) -> None:
-    if truncate_coeffs:
-        wrapper.launches += 1
-    else:
-        wrapper.full_launches += 1
+def _count_launch(wrapper, truncate_coeffs: bool, kind: str = "") -> None:
+    attr = kind + ("launches" if truncate_coeffs else "full_launches")
+    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def fire_encode_plain(rows: torch.Tensor, elem_bits: int,
@@ -353,15 +355,17 @@ fire_decode.launches = 0
 fire_decode.full_launches = 0
 
 
-def _chunk_bounds(first, nb: int) -> np.ndarray:
-    """A chunked decode's chunk starts as an int64 array of C + 1 block
-    indices: 0 first, then rising, ``nb`` last. Raises otherwise."""
-    f = np.asarray(first, dtype=np.int64).reshape(-1)
-    if f.size < 2 or f[0] != 0 or f[-1] != nb or np.any(np.diff(f) < 0):
-        raise ValueError(f"fire_decode_chunks: chunk_first_block must rise "
-                         f"from 0 to {nb} (C + 1 block indices), got "
-                         f"{f[:4].tolist()}...{f[-2:].tolist()}")
-    return f
+# csrc/fire.cu's SHORT_MAX_DIMS and SHORT_CHUNK_BYTES: the short-chunk
+# decode takes chunks of at most this many values' bytes and dims
+SHORT_MAX_DIMS = 256
+SHORT_CHUNK_BYTES = 48 * 1024
+
+
+def fire_short_fits(most_blocks: int, ndims: int, elem_bits: int) -> bool:
+    """Whether a chunked decode whose longest chunk has ``most_blocks``
+    blocks goes to the short-chunk kernel (else the ring kernel)."""
+    return (ndims <= SHORT_MAX_DIMS and most_blocks * BLOCK_SZ * ndims
+            * (elem_bits // 8) <= SHORT_CHUNK_BYTES)
 
 
 def fire_decode_chunks_plain(errs_zz: torch.Tensor, elem_bits: int,
@@ -371,14 +375,12 @@ def fire_decode_chunks_plain(errs_zz: torch.Tensor, elem_bits: int,
     the longest chunk with all C·D lanes at once, each chunk's blocks
     padded with zero errors past its end."""
     n, ndims = errs_zz.shape
-    first = _chunk_bounds(chunk_first_block, n // BLOCK_SZ)
+    ck = chunk_args("fire_decode_chunks", chunk_first_block, states,
+                    n // BLOCK_SZ, (3, ndims), errs_zz.device)
+    first, st = ck.first, ck.states.to(torch.int64)
     nchunks = first.size - 1
     lens = np.diff(first)
     longest = int(lens.max())
-    st = _state_tensor(states, errs_zz.device, torch.int64)
-    if tuple(st.shape) != (nchunks, 3, ndims):
-        raise ValueError(f"fire_decode_chunks: states {tuple(st.shape)} is "
-                         f"not {(nchunks, 3, ndims)}")
     if longest == 0 or ndims == 0:
         return narrow(errs_zz.to(torch.int32), elem_bits)
     dev = errs_zz.device
@@ -411,33 +413,40 @@ def fire_decode_chunks(errs_zz: torch.Tensor, elem_bits: int,
     its (3, D) carry (``states`` (C, 3, D) int32, numpy or torch), as
     the JAX package's chunk-parallel decode does from a sidecar. With the
     sidecar's states equal to the stream's carries the values are
-    ``fire_decode``'s; with other states each chunk follows its own."""
+    ``fire_decode``'s; with other states each chunk follows its own. On
+    CUDA the chunk starts and numpy states go up in one pinned copy, and
+    the longest chunk picks the kernel (``fire_short_fits``)."""
     _check_fire("fire_decode_chunks", errs_zz, elem_bits,
                 torch.uint8 if elem_bits == 8 else torch.int32)
     n, ndims = errs_zz.shape
     if errs_zz.device.type == "cpu":
         return fire_decode_chunks_plain(errs_zz, elem_bits, chunk_first_block,
                                         states, truncate_coeffs)
-    first = _chunk_bounds(chunk_first_block, n // BLOCK_SZ)
-    nchunks = first.size - 1
-    st = (_state_tensor(states, errs_zz.device, torch.int32)
-          if torch.is_tensor(states) else to_device(
-              np.ascontiguousarray(states, dtype=np.int32), errs_zz.device))
-    if tuple(st.shape) != (nchunks, 3, ndims):
-        raise ValueError(f"fire_decode_chunks: states {tuple(st.shape)} is "
-                         f"not {(nchunks, 3, ndims)}")
+    ck = chunk_args("fire_decode_chunks", chunk_first_block, states,
+                    n // BLOCK_SZ, (3, ndims), errs_zz.device)
+    nchunks = ck.first.size - 1
     vals = torch.empty((n, ndims), dtype=narrow_dtype(elem_bits),
                        device=errs_zz.device)
     if n == 0 or ndims == 0:
         return vals
-    first_d = to_device(first, errs_zz.device)
-    _build.launch("sprintz_fire_decode_chunks", errs_zz, errs_zz.data_ptr(),
-                  st.data_ptr(), first_d.data_ptr(), nchunks,
-                  int(np.diff(first).max()), vals.data_ptr(), n // BLOCK_SZ,
-                  ndims, elem_bits, int(truncate_coeffs))
-    _count_launch(fire_decode_chunks, truncate_coeffs)
+    most = int(np.diff(ck.first).max())
+    if fire_short_fits(most, ndims, elem_bits):
+        errs_zz = aligned16(errs_zz)
+        _build.launch("sprintz_fire_decode_short", errs_zz, errs_zz.data_ptr(),
+                      ck.states.data_ptr(), ck.first_d.data_ptr(), nchunks,
+                      most, vals.data_ptr(), n // BLOCK_SZ, ndims, elem_bits,
+                      int(truncate_coeffs))
+        _count_launch(fire_decode_chunks, truncate_coeffs, "short_")
+    else:
+        _build.launch("sprintz_fire_decode_chunks", errs_zz,
+                      errs_zz.data_ptr(), ck.states.data_ptr(),
+                      ck.first_d.data_ptr(), nchunks, vals.data_ptr(),
+                      n // BLOCK_SZ, ndims, elem_bits, int(truncate_coeffs))
+        _count_launch(fire_decode_chunks, truncate_coeffs)
     return vals
 
 
 fire_decode_chunks.launches = 0
 fire_decode_chunks.full_launches = 0
+fire_decode_chunks.short_launches = 0
+fire_decode_chunks.short_full_launches = 0

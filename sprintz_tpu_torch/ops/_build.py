@@ -37,18 +37,19 @@ NVCC_TOOLKIT_PATH = "/usr/local/cuda/bin/nvcc"  # the toolkit's default
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "sprintz_unpack_zz": ("decode", (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
-                                     _P)),
-    "sprintz_prefix_finish": ("decode", (_P, _P, _P, _L, _I, _I, _P)),
-    "sprintz_decode_lowdim": ("decode", (_P, _P, _P, _P, _L, _I, _I, _I,
+                                     _P, _I, _P, _P)),
+    "sprintz_prefix_finish": ("decode", (_P, _P, _P, _L, _I, _I, _P, _I, _P,
                                          _P)),
-    "sprintz_delta_chunk_seed": ("decode", (_P, _P, _P, _P, _I, _L, _I, _I,
-                                            _P)),
+    "sprintz_decode_lowdim": ("decode", (_P, _P, _P, _P, _L, _I, _I, _I, _P,
+                                         _I, _P, _P)),
     "sprintz_pack_rows": ("pack", (_P, _P, _P, _L, _I, _I, _I, _P)),
     "sprintz_encode_lowdim": ("pack", (_P, _P, _P, _P, _P, _L, _I, _I, _I,
                                        _P)),
     "sprintz_fire_scan": ("fire", (_P, _P, _P, _L, _I, _I, _I, _I, _P)),
-    "sprintz_fire_decode_chunks": ("fire", (_P, _P, _P, _I, _L, _P, _L, _I,
-                                            _I, _I, _P)),
+    "sprintz_fire_decode_chunks": ("fire", (_P, _P, _P, _I, _P, _L, _I, _I,
+                                            _I, _P)),
+    "sprintz_fire_decode_short": ("fire", (_P, _P, _P, _I, _L, _P, _L, _I,
+                                           _I, _I, _P)),
     "sprintz_fire_chain_probe": ("fire", (_P, _L, _I, _P)),
     "sprintz_huff_decode": ("huffman", (_P, _L, _P, _P, _P, _P, _P, _P, _L,
                                         _I, _L, _P)),

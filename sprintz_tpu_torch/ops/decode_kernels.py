@@ -15,21 +15,26 @@ The lowdim layout (u8 ndims <= 4, u16 ndims <= 2) has one kernel for the
 whole delta decode, ``decode_delta_lowdim`` (``decode_lowdim_kernel``:
 sections to values, the unpack, zigzag and prefix of K1 and K2 in one
 pass); its raw mode ``unpack_dims_lowdim`` feeds the FIRE decode.
-A decode from a checkpoint sidecar adds ``delta_chunk_seed`` after either:
-each chunk's values then start from the chunk's recorded state.
+A decode from a checkpoint sidecar, or of a batch's streams, is cut into
+chunks that each start from a state of their own (``Chunks``, made by
+``chunk_args``): K1, K2 and the lowdim decode take them (``chunks=``) and
+fold each chunk's state into their look-back and prefix, in the same
+launches; ``delta_chunk_seed_plain`` is what a chunked decode adds to the
+serial one.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 PyTorch version (``*_plain``, computed in int32, narrowed at the end) for a
 CPU tensor; the plain versions are what the CPU tests run and what the
 kernels are held against on the card. A wrapper's ``launches`` attribute
-counts its kernel launches.
+counts its kernel launches, and ``chunk_launches`` its chunked ones.
 """
 
 from __future__ import annotations
 
-import torch
+from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from ..constants import BLOCK_SZ
 from . import _build
@@ -112,10 +117,84 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     pinned staging buffer (PyTorch caches them), so the copy is queued on
     the stream and the host does not wait for the work before it, as a
     copy from pageable memory does."""
-    staged = torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype,
-                         pin_memory=True)
-    staged.numpy()[...] = a
-    return staged.to(device, non_blocking=True)
+    return to_device_together([a], device)[0]
+
+
+def to_device_together(arrays: list[np.ndarray],
+                       device: torch.device) -> list[torch.Tensor]:
+    """Small host arrays -> tensors on the CUDA ``device`` in one copy, as
+    ``to_device``: back to back in one pinned buffer, each from 16 bytes."""
+    offs, n = [], 0
+    for a in arrays:
+        offs.append(n)
+        n += -(-a.nbytes // 16) * 16
+    staged = torch.empty(max(n, 16), dtype=torch.uint8, pin_memory=True)
+    host = staged.numpy()
+    for a, o in zip(arrays, offs):
+        host[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    dev = staged.to(device, non_blocking=True)
+    return [dev[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype).reshape(a.shape)
+            for a, o in zip(arrays, offs)]
+
+
+class Chunks(NamedTuple):
+    """A decode cut into C chunks of whole blocks, chunk c blocks
+    ``first[c]`` to ``first[c + 1]`` from its own state: ``first`` (C + 1,)
+    int64 from 0 to the decode's blocks, on the host and (``first_d``) on
+    the decode's device, and ``states`` there, (C, ...) int32."""
+
+    first: np.ndarray
+    first_d: torch.Tensor
+    states: torch.Tensor
+
+
+def chunk_args(name: str, first, states, nb: int, state_shape: tuple,
+               device: torch.device) -> Chunks:
+    """A chunked decode's chunks, checked (``first`` rises from 0 to ``nb``;
+    ``states`` is (C,) + ``state_shape``, numpy or torch) and on ``device``:
+    on CUDA the chunk starts and numpy states go up in one pinned copy."""
+    f = np.asarray(first, dtype=np.int64).reshape(-1)
+    if f.size < 2 or f[0] != 0 or f[-1] != nb or np.any(np.diff(f) < 0):
+        raise ValueError(f"{name}: chunk_first_block must rise from 0 to {nb} "
+                         f"(C + 1 block indices), got {f[:4].tolist()}..."
+                         f"{f[-2:].tolist()}")
+    want = (f.size - 1,) + tuple(state_shape)
+    if tuple(np.shape(states)) != want:
+        raise ValueError(f"{name}: states {tuple(np.shape(states))} is not "
+                         f"{want}")
+    if torch.is_tensor(states):
+        st = states.to(device, torch.int32).contiguous()
+        fd = to_device(f, device) if device.type == "cuda" else torch.from_numpy(f)
+    elif device.type == "cuda":
+        fd, st = to_device_together(
+            [f, np.ascontiguousarray(states, dtype=np.int32)], device)
+    else:
+        fd, st = torch.from_numpy(f), torch.from_numpy(
+            np.array(states, dtype=np.int32))
+    return Chunks(f, fd, st)
+
+
+def delta_chunks(first, states, nb: int, ndims: int,
+                 device: torch.device) -> Chunks:
+    """``chunk_args`` of a delta decode: states (C, D), each chunk's value
+    before its first row."""
+    return chunk_args("delta decode", first, states, nb, (ndims,), device)
+
+
+def _chunk_launch_args(chunks: Chunks | None, nb: int, ndims: int,
+                       device: torch.device, name: str):
+    """(first, nchunks, states) pointers of a launch; raises where the
+    chunks are not of this decode."""
+    if chunks is None:
+        return None, 0, None
+    if (chunks.first[-1] != nb or tuple(chunks.states.shape)
+            != (chunks.first.size - 1, ndims)
+            or chunks.states.device != device or chunks.first_d.device != device):
+        raise ValueError(f"{name}: chunks of {chunks.first[-1]} blocks and "
+                         f"states {tuple(chunks.states.shape)} are not those "
+                         f"of {nb} blocks of {ndims} dims on {device}")
+    return (chunks.first_d.data_ptr(), chunks.first.size - 1,
+            chunks.states.data_ptr())
 
 
 def aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -138,37 +217,64 @@ def tiled(deltas: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_zz_plain(dense: torch.Tensor, widths: torch.Tensor,
-                    elem_bits: int):
+                    elem_bits: int, chunks: Chunks | None = None):
     """Plain version of ``unpack_zz``."""
-    return zz_and_offsets(extract_fields(dense, widths), elem_bits)
+    return zz_and_offsets(extract_fields(dense, widths), elem_bits, chunks)
 
 
-def zz_and_offsets(u: torch.Tensor, elem_bits: int):
+def zz_and_offsets(u: torch.Tensor, elem_bits: int,
+                   chunks: Chunks | None = None):
     """Zigzag fields (nb, 8, D) int32 -> (biased narrow deltas, the tiles'
-    exclusive offsets): K1's output from its fields."""
+    exclusive offsets): K1's output from its fields (with ``chunks``, the
+    value entering each tile, ``chunk_bases``)."""
     delta = (u >> 1) ^ -(u & 1)
     nb, _, ndims = u.shape
     bz = narrow(delta + (1 << (elem_bits - 1)), elem_bits)
+    if chunks is not None:
+        rows = torch.arange(0, nb * BLOCK_SZ, TILE_ROWS, device=u.device)
+        return bz, chunk_bases(delta.reshape(-1, ndims), chunks, rows)[:, None]
     tots = tiled(delta.reshape(nb * BLOCK_SZ, ndims)).sum(
         dim=1, keepdim=True, dtype=torch.int32)
     return bz, exclusive_offsets(tots)
 
 
-def unpack_zz(dense: torch.Tensor, widths: torch.Tensor, elem_bits: int):
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32, wrapping as the kernels' 32-bit sums do."""
+    return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def chunk_bases(deltas: torch.Tensor, chunks: Chunks,
+                rows: torch.Tensor) -> torch.Tensor:
+    """The value before each row of ``rows`` in a chunked delta decode of
+    ``deltas`` (nb * 8, D) int32: its chunk's state plus the chunk's deltas
+    above the row, in wrapping int32 -> (len(rows), D)."""
+    starts = torch.from_numpy(chunks.first[:-1]).to(deltas.device)
+    owner = torch.searchsorted(starts, rows // BLOCK_SZ, right=True) - 1
+    above = torch.cat([deltas.new_zeros((1, deltas.shape[1]), dtype=torch.int64),
+                       torch.cumsum(deltas, dim=0, dtype=torch.int64)])
+    st = chunks.states.to(deltas.device, torch.int64)
+    return _wrap32(st[owner] + above[rows] - above[starts[owner] * BLOCK_SZ])
+
+
+def unpack_zz(dense: torch.Tensor, widths: torch.Tensor, elem_bits: int,
+              chunks: Chunks | None = None):
     """dense (nb, 8, MAXB) uint8, widths (nb, D) uint8 ->
     (biased deltas (nb, 8, D) u8/u16, tile offsets
     (ceil(nb / TILE_BLOCKS), 1, D) i32: the wrapping sum of the deltas of
     every tile before each).
 
     MAXB is ``dense.shape[2]``, which may be less than D * elem_sz: bytes
-    at or past it read as zero.
+    at or past it read as zero. With ``chunks`` (``delta_chunks``: states
+    (C, D)) a tile's offset is the value entering it in the chunked decode
+    (``chunk_bases``): its chunk's state plus the chunk's deltas before it.
     """
     odt = narrow_dtype(elem_bits)
     check_payload("unpack_zz", dense, widths)
-    if dense.device.type == "cpu":
-        return unpack_zz_plain(dense, widths, elem_bits)
     nb, _, maxb = dense.shape
     ndims = widths.shape[1]
+    ck = _chunk_launch_args(chunks, nb, ndims, dense.device, "unpack_zz")
+    if dense.device.type == "cpu":
+        return unpack_zz_plain(dense, widths, elem_bits, chunks)
     ntiles = -(-nb // TILE_BLOCKS)
     bz = torch.empty((nb, BLOCK_SZ, ndims), dtype=odt, device=dense.device)
     toff = torch.empty((ntiles, 1, ndims), dtype=torch.int32,
@@ -181,32 +287,60 @@ def unpack_zz(dense: torch.Tensor, widths: torch.Tensor, elem_bits: int):
                          device=dense.device)
     _build.launch("sprintz_unpack_zz", dense, dense.data_ptr(),
                   widths.data_ptr(), bz.data_ptr(), toff.data_ptr(),
-                  status.data_ptr(), nb, ndims, maxb, elem_bits, 0)
-    unpack_zz.launches += 1
+                  status.data_ptr(), nb, ndims, maxb, elem_bits, 0, *ck)
+    if chunks is None:
+        unpack_zz.launches += 1
+    else:
+        unpack_zz.chunk_launches += 1
     return bz, toff
 
 
 unpack_zz.launches = 0
+unpack_zz.chunk_launches = 0
 
 
 # ------------------------------------------------------------------ K2
 
 
 def prefix_finish_plain(bz: torch.Tensor, tile_offsets: torch.Tensor,
-                        elem_bits: int) -> torch.Tensor:
+                        elem_bits: int,
+                        chunks: Chunks | None = None) -> torch.Tensor:
     """Plain version of ``prefix_finish``."""
     rows, ndims = bz.shape
     deltas = widen(bz) - (1 << (elem_bits - 1))
-    inner = torch.cumsum(tiled(deltas), dim=1, dtype=torch.int32)
-    vals = (inner + tile_offsets) & ((1 << elem_bits) - 1)
-    return narrow(vals.reshape(-1, ndims)[:rows], elem_bits)
+    mask = (1 << elem_bits) - 1
+    if chunks is None:
+        inner = torch.cumsum(tiled(deltas), dim=1, dtype=torch.int32)
+        vals = (inner + tile_offsets) & mask
+        return narrow(vals.reshape(-1, ndims)[:rows], elem_bits)
+    # segments start at each tile (from its offset) and at each chunk start
+    # (from the chunk's state, which wins where both start)
+    f = chunks.first
+    live = np.flatnonzero(f[:-1] < f[1:])  # a start's chunk: the non-empty one
+    base = torch.zeros((rows, ndims), dtype=torch.int64, device=bz.device)
+    start = torch.zeros(rows, dtype=torch.bool, device=bz.device)
+    base[::TILE_ROWS] = tile_offsets[:, 0].to(torch.int64)
+    start[::TILE_ROWS] = True
+    at = torch.from_numpy(f[live] * BLOCK_SZ).to(bz.device)
+    base[at] = chunks.states[torch.from_numpy(live).to(bz.device)].to(
+        bz.device, torch.int64)
+    start[at] = True
+    seg = torch.cumsum(start, dim=0) - 1
+    seg_row = torch.nonzero(start)[:, 0]
+    above = torch.cat([deltas.new_zeros((1, ndims), dtype=torch.int64),
+                       torch.cumsum(deltas, dim=0, dtype=torch.int64)])
+    vals = (base[seg_row][seg] + above[1:] - above[seg_row][seg]) & mask
+    return narrow(vals.to(torch.int32), elem_bits)
 
 
 def prefix_finish(bz: torch.Tensor, tile_offsets: torch.Tensor,
-                  elem_bits: int) -> torch.Tensor:
+                  elem_bits: int,
+                  chunks: Chunks | None = None) -> torch.Tensor:
     """bz (rows, D) biased narrow deltas; tile_offsets (ntiles, 1, D) i32,
     the exclusive prefix entering each TILE_ROWS-row tile -> values
-    (rows, D) narrow. The last tile may be short."""
+    (rows, D) narrow. The last tile may be short. With ``chunks``
+    (``delta_chunks``, rows = 8 x their blocks) the rows from a chunk start
+    on take the chunk's state in place of the tile's offset."""
     odt = narrow_dtype(elem_bits)
     check_args("prefix_finish", bz.device, bz=(bz, odt),
                tile_offsets=(tile_offsets, torch.int32))
@@ -215,20 +349,28 @@ def prefix_finish(bz: torch.Tensor, tile_offsets: torch.Tensor,
     if tuple(tile_offsets.shape) != (ntiles, 1, ndims):
         raise ValueError(f"prefix_finish: tile_offsets {tuple(tile_offsets.shape)}"
                          f" != {(ntiles, 1, ndims)}")
+    if chunks is not None and rows % BLOCK_SZ:
+        raise ValueError(f"prefix_finish: {rows} rows are not whole blocks")
+    ck = _chunk_launch_args(chunks, rows // BLOCK_SZ, ndims, bz.device,
+                            "prefix_finish")
     if bz.device.type == "cpu":
-        return prefix_finish_plain(bz, tile_offsets, elem_bits)
+        return prefix_finish_plain(bz, tile_offsets, elem_bits, chunks)
     out = torch.empty_like(bz)
     if rows == 0 or ndims == 0:
         return out
     bz, tile_offsets = aligned16(bz), aligned16(tile_offsets)
     _build.launch("sprintz_prefix_finish", bz, bz.data_ptr(),
                   tile_offsets.data_ptr(), out.data_ptr(), rows, ndims,
-                  elem_bits)
-    prefix_finish.launches += 1
+                  elem_bits, *ck)
+    if chunks is None:
+        prefix_finish.launches += 1
+    else:
+        prefix_finish.chunk_launches += 1
     return out
 
 
 prefix_finish.launches = 0
+prefix_finish.chunk_launches = 0
 
 
 # ------------------------------------------------------- lowdim decode
@@ -283,13 +425,15 @@ def extract_fields_lowdim(dense: torch.Tensor,
 
 
 def decode_delta_lowdim_plain(dense: torch.Tensor, widths: torch.Tensor,
-                              elem_bits: int) -> torch.Tensor:
+                              elem_bits: int,
+                              chunks: Chunks | None = None) -> torch.Tensor:
     """Plain version of ``decode_delta_lowdim``: K1's contract on the
     lowdim fields (biased deltas, tile offsets), then K2's plain version."""
     nb, ndims, _ = dense.shape
-    bz, toff = zz_and_offsets(extract_fields_lowdim(dense, widths), elem_bits)
+    bz, toff = zz_and_offsets(extract_fields_lowdim(dense, widths), elem_bits,
+                              chunks)
     return prefix_finish_plain(bz.reshape(nb * BLOCK_SZ, ndims), toff,
-                               elem_bits)
+                               elem_bits, chunks)
 
 
 # The lowdim decode's status words, one zeroed buffer a (device, stream):
@@ -310,18 +454,22 @@ def lowdim_status(device: torch.device, nwords: int) -> torch.Tensor:
 
 
 def decode_delta_lowdim(dense: torch.Tensor, widths: torch.Tensor,
-                        elem_bits: int) -> torch.Tensor:
+                        elem_bits: int,
+                        chunks: Chunks | None = None) -> torch.Tensor:
     """Run-free lowdim delta decode: dense (nb, D, EB = elem_bits) uint8
     sections, widths (nb, D) uint8 -> values (nb*8, D) u8/u16, the running
     sum of the zigzag-decoded fields down each dim modulo 2^elem_bits, in
-    one kernel."""
+    one kernel; with ``chunks`` (``delta_chunks``) each chunk's from its
+    state."""
     odt = narrow_dtype(elem_bits)
     if check_lowdim_payload("decode_delta_lowdim", dense, widths) != elem_bits:
         raise ValueError(f"decode_delta_lowdim: sections of {dense.shape[2]} "
                          f"bytes are not those of elem_bits {elem_bits}")
-    if dense.device.type == "cpu":
-        return decode_delta_lowdim_plain(dense, widths, elem_bits)
     nb, ndims, _ = dense.shape
+    ck = _chunk_launch_args(chunks, nb, ndims, dense.device,
+                            "decode_delta_lowdim")
+    if dense.device.type == "cpu":
+        return decode_delta_lowdim_plain(dense, widths, elem_bits, chunks)
     out = torch.empty((nb * BLOCK_SZ, ndims), dtype=odt, device=dense.device)
     if nb == 0:
         return out
@@ -330,12 +478,16 @@ def decode_delta_lowdim(dense: torch.Tensor, widths: torch.Tensor,
     status = lowdim_status(dense.device, nspans + 1)
     _build.launch("sprintz_decode_lowdim", dense, dense.data_ptr(),
                   widths.data_ptr(), out.data_ptr(), status.data_ptr(), nb,
-                  ndims, elem_bits, 0)
-    decode_delta_lowdim.launches += 1
+                  ndims, elem_bits, 0, *ck)
+    if chunks is None:
+        decode_delta_lowdim.launches += 1
+    else:
+        decode_delta_lowdim.chunk_launches += 1
     return out
 
 
 decode_delta_lowdim.launches = 0
+decode_delta_lowdim.chunk_launches = 0
 
 
 def unpack_dims_lowdim_plain(dense: torch.Tensor,
@@ -363,7 +515,8 @@ def unpack_dims_lowdim(dense: torch.Tensor,
         return out
     dense, widths = aligned16(dense), aligned16(widths)
     _build.launch("sprintz_decode_lowdim", dense, dense.data_ptr(),
-                  widths.data_ptr(), out.data_ptr(), None, nb, ndims, eb, 1)
+                  widths.data_ptr(), out.data_ptr(), None, nb, ndims, eb, 1,
+                  None, 0, None)
     unpack_dims_lowdim.launches += 1
     return out
 
@@ -381,45 +534,43 @@ def exclusive_offsets(tots: torch.Tensor) -> torch.Tensor:
 
 
 def decode_delta_contiguous(dense: torch.Tensor, widths: torch.Tensor,
-                            elem_bits: int) -> torch.Tensor:
+                            elem_bits: int,
+                            chunks: Chunks | None = None) -> torch.Tensor:
     """Run-free delta decode: payload -> values (nb*8, D) u8/u16.
 
-    dense (nb, 8, MAXB) uint8; widths (nb, D) uint8.
+    dense (nb, 8, MAXB) uint8; widths (nb, D) uint8; ``chunks``
+    (``delta_chunks``): each chunk from its state, in the same two
+    launches.
     """
     nb = dense.shape[0]
     ndims = widths.shape[1]
-    bz, toff = unpack_zz(dense, widths, elem_bits)
-    return prefix_finish(bz.reshape(nb * BLOCK_SZ, ndims), toff, elem_bits)
+    bz, toff = unpack_zz(dense, widths, elem_bits, chunks)
+    return prefix_finish(bz.reshape(nb * BLOCK_SZ, ndims), toff, elem_bits,
+                         chunks)
 
 
 # ------------------------------------------------------- the chunk seed
 
 
-def _seed_args(vals: torch.Tensor, chunk_first_row, states):
-    """The chunk seed's bounds (C + 1 rows, numpy int64, checked) and
-    states ((C, D) int32 on the values' device)."""
+def delta_chunk_seed_plain(vals: torch.Tensor, chunk_first_row, states,
+                           elem_bits: int) -> torch.Tensor:
+    """Values (rows, D) u8/u16 of a whole delta timeline, the prefix from
+    its start -> the values of a decode cut into C chunks, chunk c from its
+    own state: rows ``chunk_first_row[c]`` to ``chunk_first_row[c + 1]``
+    (C + 1 rows from 0 to ``rows``) become ``states[c]`` + their prefix
+    within the chunk, mod 2^elem_bits, as the JAX package's chunk-parallel
+    delta decode gives them (a new tensor). ``states`` (C, D) int32, numpy
+    or torch. The serial plain decode followed by this is the plain
+    version of a chunked decode."""
     rows, ndims = vals.shape
     f = np.asarray(chunk_first_row, dtype=np.int64).reshape(-1)
     if f.size < 2 or f[0] != 0 or f[-1] != rows or np.any(np.diff(f) < 0):
-        raise ValueError(f"delta_chunk_seed: chunk_first_row must rise from 0 "
-                         f"to {rows} (C + 1 rows)")
-    if torch.is_tensor(states):
-        st = states.to(vals.device, torch.int32).contiguous()
-    elif vals.device.type == "cuda":
-        st = to_device(np.ascontiguousarray(states, dtype=np.int32),
-                       vals.device)
-    else:
-        st = torch.from_numpy(np.array(states, dtype=np.int32))
+        raise ValueError(f"delta_chunk_seed_plain: chunk_first_row must rise "
+                         f"from 0 to {rows} (C + 1 rows)")
+    st = torch.as_tensor(states).to(vals.device, torch.int32)
     if tuple(st.shape) != (f.size - 1, ndims):
-        raise ValueError(f"delta_chunk_seed: states {tuple(st.shape)} is not "
-                         f"{(f.size - 1, ndims)}")
-    return f, st
-
-
-def delta_chunk_seed_plain(vals: torch.Tensor, chunk_first_row, states,
-                           elem_bits: int) -> torch.Tensor:
-    """Plain version of ``delta_chunk_seed`` (a new tensor)."""
-    f, st = _seed_args(vals, chunk_first_row, states)
+        raise ValueError(f"delta_chunk_seed_plain: states {tuple(st.shape)} "
+                         f"is not {(f.size - 1, ndims)}")
     v = widen(vals)
     mask = (1 << elem_bits) - 1
     starts = torch.from_numpy(f[:-1]).to(vals.device)
@@ -428,38 +579,3 @@ def delta_chunk_seed_plain(vals: torch.Tensor, chunk_first_row, states,
     lens = torch.from_numpy(np.diff(f)).to(vals.device)
     return narrow((v + torch.repeat_interleave(corr, lens, dim=0)) & mask,
                   elem_bits)
-
-
-def delta_chunk_seed(vals: torch.Tensor, chunk_first_row, states,
-                     elem_bits: int) -> torch.Tensor:
-    """Values (rows, D) u8/u16 of a whole delta timeline, the prefix from
-    its start -> the values of a decode cut into C chunks, chunk c from its
-    own state: rows ``chunk_first_row[c]`` to ``chunk_first_row[c + 1]``
-    (C + 1 rows from 0 to ``rows``, on the host) become
-    ``states[c] + their prefix within the chunk``, mod 2^elem_bits, as the
-    JAX package's chunk-parallel delta decode gives them. ``states``
-    (C, D) int32, numpy or torch. On CUDA the values change in place and
-    are returned."""
-    check_args("delta_chunk_seed", vals.device,
-               vals=(vals, narrow_dtype(elem_bits)))
-    if vals.dim() != 2:
-        raise ValueError(f"delta_chunk_seed: values {tuple(vals.shape)} are "
-                         f"not (rows, D)")
-    if vals.device.type == "cpu":
-        return delta_chunk_seed_plain(vals, chunk_first_row, states,
-                                      elem_bits)
-    f, st = _seed_args(vals, chunk_first_row, states)
-    nchunks, ndims = st.shape
-    if vals.numel() == 0:
-        return vals
-    first = to_device(f, vals.device)
-    scratch = torch.empty(nchunks * (ndims + 1), dtype=torch.int32,
-                          device=vals.device)
-    _build.launch("sprintz_delta_chunk_seed", vals, vals.data_ptr(),
-                  first.data_ptr(), st.data_ptr(), scratch.data_ptr(),
-                  nchunks, int(np.diff(f).max()), ndims, elem_bits)
-    delta_chunk_seed.launches += 1
-    return vals
-
-
-delta_chunk_seed.launches = 0

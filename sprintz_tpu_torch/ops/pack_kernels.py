@@ -244,7 +244,7 @@ def unpack_rows(dense: torch.Tensor, widths: torch.Tensor,
     dense, widths = aligned16(dense), aligned16(widths)
     _build.launch("sprintz_unpack_zz", dense, dense.data_ptr(),
                   widths.data_ptr(), out.data_ptr(), None, None, nb, ndims,
-                  maxb, 8 if narrow else 16, 1)
+                  maxb, 8 if narrow else 16, 1, None, 0, None)
     if narrow:
         unpack_rows.narrow_launches += 1
     else:

@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Build the delta decode's kernels (``csrc/decode.cu``: K1/K4/K5
-``unpack_zz_kernel``, K2 ``prefix_finish_kernel``, the lowdim decode
-``decode_lowdim_kernel`` and the chunk seed's two kernels), the encode
-kernels (``csrc/pack.cu``: K3 ``pack_rows_kernel`` and the lowdim
+``unpack_zz_kernel``, K2 ``prefix_finish_kernel`` and the lowdim decode
+``decode_lowdim_kernel``, serial and in chunks), the encode kernels
+(``csrc/pack.cu``: K3 ``pack_rows_kernel`` and the lowdim
 ``encode_lowdim_kernel``) and the FIRE kernels (``csrc/fire.cu``: the
-encode with and without its states, the decode serial and in chunks) on
-the host with g++, and the query pushdown's reduce (``csrc/query.cu``:
+encode with and without its states, the decode serial, in long chunks on
+the ring kernel and in short ones on ``fire_decode_short_kernel``) on the
+host with g++, and the query pushdown's reduce (``csrc/query.cu``:
 ``reduce_cols_kernel``), and hold them to their plain versions at the cases
 of ``probes/unpack_cases.py`` (``UNPACK_CASES``, ``LOWDIM_CASES``,
-``SEED_CASES``), ``probes/encode_cases.py`` (``PACK_CASES``,
-``LOWDIM_PACK_CASES``) and ``FIRE_CASES`` and ``QUERY_CASES`` below, with
-no card and no nvcc.
+``SEED_CASES``, ``CHUNK_CASES``), ``probes/encode_cases.py``
+(``PACK_CASES``, ``LOWDIM_PACK_CASES``) and ``FIRE_CASES`` and
+``QUERY_CASES`` below, with no card and no nvcc.
 
     python3 sprintz_tpu_torch/probes/host_build.py [--resident 1 3] [--src FILE]
 
@@ -113,24 +114,38 @@ extern "C" int sprintz_shim_fault() { return g_fault.exchange(0); }
 # the C entry points' argtypes, as ops/_build.py binds them
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 ENTRIES = {
-    "sprintz_unpack_zz": [P, P, P, P, P, L, I, I, I, I, P],
-    "sprintz_prefix_finish": [P, P, P, L, I, I, P],
-    "sprintz_decode_lowdim": [P, P, P, P, L, I, I, I, P],
+    "sprintz_unpack_zz": [P, P, P, P, P, L, I, I, I, I, P, I, P, P],
+    "sprintz_prefix_finish": [P, P, P, L, I, I, P, I, P, P],
+    "sprintz_decode_lowdim": [P, P, P, P, L, I, I, I, P, I, P, P],
     "sprintz_pack_rows": [P, P, P, L, I, I, I, P],
     "sprintz_encode_lowdim": [P, P, P, P, P, L, I, I, I, P],
-    "sprintz_delta_chunk_seed": [P, P, P, P, I, L, I, I, P],
     "sprintz_fire_scan": [P, P, P, L, I, I, I, I, P],
-    "sprintz_fire_decode_chunks": [P, P, P, I, L, P, L, I, I, I, P],
+    "sprintz_fire_decode_chunks": [P, P, P, I, P, L, I, I, I, P],
+    "sprintz_fire_decode_short": [P, P, P, I, L, P, L, I, I, I, P],
     "sprintz_reduce_cols": [P, P, P, L, I, I, I, I, P],
 }
 # (elem_bits, ndims, blocks, chunks, truncated coefficient): FIRE's chunked
 # decode at chunk counts 1, 2, 7 and 33 of unequal lengths (empty ones
 # too), a CTA of 32 / D chunks at D <= 4 (3: two lanes shadow), chunks
 # that span CTAs of dims at D 33 and 64, and rings that wrap (more than 8
-# tiles of 16 blocks in a chunk)
+# tiles of 16 blocks in a chunk). Each case runs both chunked kernels where
+# its chunks fit the short one (the ring's on the same chunks), and the
+# ring's alone where they do not (u16 D 64 nb 150, u8 D 64 nb 150 at 3
+# chunks of up to 150 blocks)
 FIRE_CASES = [(8, 4, 40, 7, False), (8, 3, 33, 33, False), (16, 2, 300, 2, False),
               (8, 1, 17, 1, False), (16, 1, 60, 33, False), (8, 33, 40, 7, True),
               (16, 31, 35, 2, True), (8, 64, 150, 3, True), (16, 5, 9, 1, True)]
+# FIRE's chunked decode at explicit chunk shapes: (elem_bits, ndims, blocks,
+# chunks: a count of chunk_cuts' or the chunk starts, truncated
+# coefficient). u8 D 1: 64 chunks a CTA of the short kernel, ragged and some
+# empty; D 3: 21 chunks a CTA whose images start 8 bytes into a unit, more
+# chunks than blocks; u16 D 2: 32 a CTA; D 33: 64 threads, 31 idle; D 256:
+# the widest CTA; u16 D 64 at a sidecar's 32-block chunks (32 KB a chunk);
+# u16 D 7; u8 D 64 past the short kernel's budget (the ring kernel's alone)
+SHORT_CASES = [(8, 1, 300, 150, False), (8, 3, 50, 70, False),
+               (16, 2, 200, 40, False), (8, 33, 48, 5, True),
+               (8, 256, 6, 3, True), (16, 64, 96, [0, 32, 64, 96], True),
+               (16, 7, 64, 9, True), (8, 64, 120, [0, 100, 120], True)]
 # (elem_bits, ndims, rows): the reduce at column tiles of 1, 4, 8 and 32
 # lanes (D 33 and 129 leave a ragged tile), one row, rows that end inside a
 # strip or a block, and u16 sums that wrap past 2^31 (40000 rows near 65535)
@@ -159,7 +174,7 @@ def host_source(src: str, kernels: int, helpers: re.Pattern | None = HELPERS,
     return out + ENTRY
 
 
-def build(src: pathlib.Path = SRC, out: pathlib.Path = OUT, kernels: int = 5,
+def build(src: pathlib.Path = SRC, out: pathlib.Path = OUT, kernels: int = 3,
           helpers: re.Pattern | None = HELPERS,
           host_helpers: str = HOST_HELPERS) -> ctypes.CDLL:
     """Compile ``src`` for the shim into ``out`` (reused while the source
@@ -188,9 +203,9 @@ def build_pack(src: pathlib.Path = PACK_SRC, out: pathlib.Path = OUT) -> ctypes.
 
 
 def build_fire(src: pathlib.Path = FIRE_SRC, out: pathlib.Path = OUT) -> ctypes.CDLL:
-    """``build`` for fire.cu: the encode, the decode and the chain probe,
-    with its mbarriers."""
-    return build(src, out, kernels=3, helpers=FIRE_HELPERS, host_helpers=FIRE_HOST_HELPERS)
+    """``build`` for fire.cu: the encode, the two decodes and the chain
+    probe, with its mbarriers."""
+    return build(src, out, kernels=4, helpers=FIRE_HELPERS, host_helpers=FIRE_HOST_HELPERS)
 
 
 def build_query(src: pathlib.Path = QUERY_SRC, out: pathlib.Path = OUT) -> ctypes.CDLL:
@@ -218,7 +233,18 @@ class HostKernels:
         if err or self.so.sprintz_shim_fault():
             raise RuntimeError(f"host kernel: error {err} or a shared-memory overrun")
 
-    def unpack(self, dense, widths, elem_bits: int, raw: int):
+    def chunk_ptrs(self, chunks):
+        """(first, nchunks, states) pointers of ``chunks`` = (first (C + 1,)
+        int64, states (C, D) int32), or nulls; the tensors are kept on self
+        while the call runs."""
+        if chunks is None:
+            return None, 0, None
+        t = self.torch
+        self._keep = (t.from_numpy(np.asarray(chunks[0], dtype=np.int64).copy()),
+                      t.as_tensor(chunks[1], dtype=t.int32).contiguous())
+        return self._keep[0].data_ptr(), self._keep[0].numel() - 1, self._keep[1].data_ptr()
+
+    def unpack(self, dense, widths, elem_bits: int, raw: int, chunks=None):
         from sprintz_tpu_torch.ops import decode_kernels as dk
 
         t = self.torch
@@ -236,10 +262,10 @@ class HostKernels:
         self.check(self.so.sprintz_unpack_zz(
             dense.data_ptr(), widths.data_ptr(), out.data_ptr(),
             None if raw else toff.data_ptr(), None if raw else status.data_ptr(),
-            nb, nd, maxb, elem_bits, raw, None))
+            nb, nd, maxb, elem_bits, raw, *self.chunk_ptrs(chunks), None))
         return out if raw else (out, toff)
 
-    def decode_lowdim(self, dense, widths, elem_bits: int, raw: int):
+    def decode_lowdim(self, dense, widths, elem_bits: int, raw: int, chunks=None):
         """The lowdim decode's values (raw: its fields), from a zeroed
         status buffer that the launch must leave zeroed."""
         from sprintz_tpu_torch.ops import decode_kernels as dk
@@ -255,7 +281,8 @@ class HostKernels:
         dense, widths = dk.aligned16(dense), dk.aligned16(widths)
         self.check(self.so.sprintz_decode_lowdim(
             dense.data_ptr(), widths.data_ptr(), out.data_ptr(),
-            None if raw else status.data_ptr(), nb, nd, elem_bits, raw, None))
+            None if raw else status.data_ptr(), nb, nd, elem_bits, raw,
+            *self.chunk_ptrs(chunks), None))
         if status.any():
             raise RuntimeError("host kernel: the lowdim decode left its status words set")
         return out
@@ -285,20 +312,6 @@ class HostKernels:
             wsums.data_ptr(), nb, nd, elem_sz, 0 if errors else 1, None))
         return widths, hdr, dense, wsums
 
-    def delta_chunk_seed(self, vals, first, states, elem_bits: int):
-        """The chunk seed on a copy of ``vals`` (the kernels work in place)."""
-        t = self.torch
-        out = vals.clone()
-        f = np.asarray(first, dtype=np.int64)
-        nchunks, nd = states.shape
-        st = t.as_tensor(states, dtype=t.int32).contiguous()
-        first_t = t.from_numpy(f.copy())
-        scratch = self.garbage((nchunks * (nd + 1),), t.int32)
-        self.check(self.so.sprintz_delta_chunk_seed(
-            out.data_ptr(), first_t.data_ptr(), st.data_ptr(), scratch.data_ptr(),
-            nchunks, int(np.diff(f).max()), nd, elem_bits, None))
-        return out
-
     def fire_encode(self, rows, elem_bits: int, trunc: bool, states: bool):
         t = self.torch
         n, nd = rows.shape
@@ -321,7 +334,10 @@ class HostKernels:
             n // 8, nd, elem_bits, 1, int(trunc), None))
         return out
 
-    def fire_decode_chunks(self, errs, elem_bits: int, first, states, trunc: bool):
+    def fire_decode_chunks(self, errs, elem_bits: int, first, states, trunc: bool,
+                           short: bool):
+        """The chunked decode on the short-chunk kernel (``short``) or the
+        ring kernel."""
         from sprintz_tpu_torch.ops import decode_kernels as dk
 
         t = self.torch
@@ -329,10 +345,17 @@ class HostKernels:
         out = self.garbage((n, nd), dk.narrow_dtype(elem_bits))
         f = t.from_numpy(np.asarray(first, dtype=np.int64).copy())
         st = states.to(t.int32).contiguous()
-        self.check(self.so.sprintz_fire_decode_chunks(
-            errs.data_ptr(), st.data_ptr(), f.data_ptr(), f.numel() - 1,
-            int(np.diff(f.numpy()).max()), out.data_ptr(), n // 8, nd, elem_bits,
-            int(trunc), None))
+        errs = dk.aligned16(errs)
+        if short:
+            err = self.so.sprintz_fire_decode_short(
+                errs.data_ptr(), st.data_ptr(), f.data_ptr(), f.numel() - 1,
+                int(np.diff(f.numpy()).max()), out.data_ptr(), n // 8, nd, elem_bits,
+                int(trunc), None)
+        else:
+            err = self.so.sprintz_fire_decode_chunks(
+                errs.data_ptr(), st.data_ptr(), f.data_ptr(), f.numel() - 1, out.data_ptr(),
+                n // 8, nd, elem_bits, int(trunc), None)
+        self.check(err)
         return out
 
     def reduce_cols(self, vals, op: str, gap_after, leading_gap: bool):
@@ -350,14 +373,14 @@ class HostKernels:
             rows, nd, 8 * vals.element_size(), qk.OPS.index(op), int(leading_gap), None))
         return out
 
-    def prefix_finish(self, bz, toff, elem_bits: int):
+    def prefix_finish(self, bz, toff, elem_bits: int, chunks=None):
         from sprintz_tpu_torch.ops import decode_kernels as dk
 
         out = self.garbage(tuple(bz.shape), bz.dtype)
         bz, toff = dk.aligned16(bz), dk.aligned16(toff)
         self.check(self.so.sprintz_prefix_finish(
             bz.data_ptr(), toff.data_ptr(), out.data_ptr(), bz.shape[0], bz.shape[1],
-            elem_bits, None))
+            elem_bits, *self.chunk_ptrs(chunks), None))
         return out
 
 
@@ -444,46 +467,118 @@ def check_fire_case(hk: HostKernels, eb: int, nd: int, nb: int, nchunks: int,
         rng.integers(0, 2 * half, nd), rng.integers(-(1 << 20), 1 << 20, nd),
         rng.integers(-(1 << 15), 1 << 15, nd)]).astype(np.int32))
     got_e, got_c = hk.fire_encode(rows, eb, trunc, True)
+    chunked = fc.fire_decode_chunks_plain(zz, eb, first, states, trunc)
     pairs = [("FIRE encode", hk.fire_encode(rows, eb, trunc, False), errs),
              ("FIRE encode with states: errors", got_e, errs),
              ("FIRE encode with states: carries", got_c, carries),
              ("FIRE serial decode", hk.fire_decode(zz, eb, states[k], trunc),
               fc.fire_decode_plain(zz, eb, states[k], trunc)),
-             ("FIRE chunked decode", hk.fire_decode_chunks(zz, eb, first, states, trunc),
-              fc.fire_decode_chunks_plain(zz, eb, first, states, trunc))]
+             ("FIRE chunked decode, ring kernel",
+              hk.fire_decode_chunks(zz, eb, first, states, trunc, False), chunked)]
+    if fc.fire_short_fits(int(np.diff(first).max()), nd, eb):
+        pairs.append(("FIRE chunked decode, short kernel",
+                      hk.fire_decode_chunks(zz, eb, first, states, trunc, True), chunked))
     for name, got, want in pairs:
         if got.dtype != want.dtype or not torch.equal(got, want):
             return name
     return None
 
 
-def check_seed_case(hk: HostKernels, eb: int, nd: int, nb: int,
-                    nchunks: int) -> str | None:
-    """The host-built chunk seed at a ``SEED_CASES`` case, from states that
-    continue the values (nothing moves) and from random ones, against its
-    plain version: the name of the first that differs, or None."""
+def chunk_states(rng, vals: np.ndarray, first: np.ndarray, eb: int, moved: bool):
+    """(C, D) int32 delta states at chunk starts ``first`` (blocks) of the
+    values ``vals`` (rows, D): the row before each start (0 before row 0),
+    so that nothing moves, or with ``moved`` one chunk's (and an empty
+    one's, where there is one) changed."""
+    st = np.where((first[:-1] > 0)[:, None], vals[np.maximum(first[:-1] * 8 - 1, 0)], 0)
+    st = st.astype(np.int64)
+    if moved:
+        st[rng.integers(0, st.shape[0])] += int(rng.integers(1, 1 << eb))
+        empty = np.flatnonzero(first[:-1] == first[1:])
+        if empty.size:
+            st[empty[0]] -= 7
+    return st.astype(np.int32)
+
+
+def check_chunk_case(hk: HostKernels, eb: int, nd: int, nb: int, first: np.ndarray,
+                     seed: int) -> str | None:
+    """The host-built chunked delta decode at chunk starts ``first`` (C + 1
+    blocks from 0 to nb), from states that continue the stream (nothing
+    moves) and from moved ones: K1 and K2 with chunks on a row-major
+    payload and, where D fits the lowdim layout, the lowdim decode with
+    chunks, against their plain versions and against the serial plain
+    decode followed by ``delta_chunk_seed_plain``. The name of the first
+    that differs, or None."""
     import torch
 
     from sprintz_tpu_torch.ops import decode_kernels as dk
+    from sprintz_tpu_torch.probes import unpack_cases as uc
 
-    rng = np.random.default_rng(eb * 13 + nd * 7 + nb + nchunks)
-    vals = dk.narrow(torch.from_numpy(rng.integers(0, 1 << eb, (nb * 8, nd)).astype(
-        np.int32)), eb)
-    first = chunk_cuts(rng, nb, nchunks) * 8
-    wide = dk.widen(vals)
-    same = torch.where(torch.from_numpy(first[:-1] > 0)[:, None],
-                       wide[torch.from_numpy(np.maximum(first[:-1] - 1, 0))], 0)
-    other = same.clone()
-    other[rng.integers(0, nchunks)] += int(rng.integers(1, 1 << eb))
-    for name, st in (("chunk seed, continuing states", same),
-                     ("chunk seed, a moved state", other)):
-        got = hk.delta_chunk_seed(vals, first, st, eb)
-        want = dk.delta_chunk_seed_plain(vals, first, st, eb)
-        if got.dtype != want.dtype or not torch.equal(got, want):
-            return name
-    if not torch.equal(hk.delta_chunk_seed(vals, first, same, eb), vals):
-        return "chunk seed moved values from their own states"
+    rng = np.random.default_rng(seed)
+    cpu = torch.device("cpu")
+    dense, widths, _ = uc.unpack_case(rng, eb, nd, nb, "random")
+    d, w = uc.to_device(dense, widths, "random", "cpu")
+    serial = dk.decode_delta_contiguous(d, w, eb)
+    layouts = [("K1 and K2", d, w, serial)]
+    if nd * eb <= 32:
+        ldense, lwidths, _ = uc.lowdim_case(rng, eb, nd, nb, "random")
+        ld, lw = uc.to_device(ldense, lwidths, "random", "cpu")
+        layouts.append(("the lowdim decode", ld, lw, dk.decode_delta_lowdim(ld, lw, eb)))
+    for what, dd, ww, ser in layouts:
+        for moved in (False, True):
+            st = chunk_states(rng, dk.widen(ser).numpy(), first, eb, moved)
+            ck = dk.delta_chunks(first, st, nb, nd, cpu)
+            seeded = dk.delta_chunk_seed_plain(ser, first * 8, st, eb)
+            name = f"{what}, chunks {'moved' if moved else 'continuing'}"
+            if what == "K1 and K2":
+                bz, toff = dk.unpack_zz_plain(dd, ww, eb, ck)
+                got_bz, got_toff = hk.unpack(dd, ww, eb, 0, (first, st))
+                bz2 = bz.reshape(-1, nd)
+                pairs = [(name + ": K1 deltas", got_bz, bz),
+                         (name + ": K1 tile offsets", got_toff, toff),
+                         (name + ": K2", hk.prefix_finish(bz2, toff, eb, (first, st)),
+                          dk.prefix_finish_plain(bz2, toff, eb, ck))]
+                plain = dk.decode_delta_contiguous(dd, ww, eb, ck)
+            else:
+                plain = dk.decode_delta_lowdim(dd, ww, eb, ck)
+                pairs = [(name, hk.decode_lowdim(dd, ww, eb, 0, (first, st)), plain)]
+            pairs.append((name + ": plain against serial + seed", plain, seeded))
+            if not moved:
+                pairs.append((name + ": values from continuing states", plain, ser))
+            for n_, got, want in pairs:
+                if got.dtype != want.dtype or not torch.equal(got, want):
+                    return n_
     return None
+
+
+def check_seed_case(hk: HostKernels, eb: int, nd: int, nb: int,
+                    nchunks: int) -> str | None:
+    """``check_chunk_case`` at a ``SEED_CASES`` case: chunks of unequal
+    lengths (empty ones too) from ``chunk_cuts``."""
+    rng = np.random.default_rng(eb * 13 + nd * 7 + nb + nchunks)
+    return check_chunk_case(hk, eb, nd, nb, chunk_cuts(rng, nb, nchunks),
+                            eb * 17 + nd + nb * 5 + nchunks)
+
+
+def short_case(eb: int, nd: int, nb: int, chunks, trunc: bool):
+    """A ``SHORT_CASES`` case's errors (of a walk, on the CPU), chunk starts
+    and random states (deltas wider than an element in one chunk)."""
+    import torch
+
+    from sprintz_tpu_torch.models import forecasters as fc
+
+    rng = np.random.default_rng([eb, nd, nb])
+    half = 1 << (eb - 1)
+    x = (np.cumsum(rng.integers(-9, 10, (nb * 8, nd)), 0) % (2 * half)).astype(np.int32)
+    errs = fc.fire_encode(torch.from_numpy(x), eb, trunc)
+    zz = errs.to(torch.uint8) if eb == 8 else errs
+    first = (chunk_cuts(rng, nb, chunks) if isinstance(chunks, int)
+             else np.asarray(chunks, dtype=np.int64))
+    c = first.size - 1
+    states = np.stack([rng.integers(0, 2 * half, (c, nd)),
+                       rng.integers(-half, half, (c, nd)),
+                       rng.integers(-(1 << 15), 1 << 15, (c, nd))], axis=1)
+    states[c // 2, 1] = rng.integers(-(1 << 20), 1 << 20, nd)
+    return zz, first, torch.from_numpy(states.astype(np.int32))
 
 
 def check_query_case(hk: HostKernels, eb: int, nd: int, rows: int) -> str | None:
@@ -577,8 +672,13 @@ def main() -> int:
                       "the lowdim decode (both modes) equals its plain versions"):
                 return 1
         for case in uc.SEED_CASES:
-            what = "chunk seed u{} D {} nb {} chunks {}, {} resident".format(*case, resident)
-            if report(what, check_seed_case(hk, *case), "equals its plain version"):
+            what = "chunked decode u{} D {} nb {} chunks {}, {} resident".format(*case, resident)
+            if report(what, check_seed_case(hk, *case), "equals its plain versions"):
+                return 1
+        for name, eb, nd, nb, first in uc.CHUNK_CASES:
+            what = f"chunked decode u{eb} D {nd} nb {nb}, {name}, {resident} resident"
+            if report(what, check_chunk_case(hk, eb, nd, nb, np.asarray(first), nb + nd),
+                      "equals its plain versions"):
                 return 1
         hf = HostKernels(so_fire, resident)
         for case in FIRE_CASES:

@@ -189,6 +189,7 @@ inline unsigned atomicMin(unsigned* p, unsigned v) {
   return old;
 }
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned s) {

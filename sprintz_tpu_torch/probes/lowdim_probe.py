@@ -159,7 +159,8 @@ def main() -> int:
                       [P, P, P, P, P, L, I, I, I, P])
     old_finish = bind(libs["old_decode"], "sprintz_prefix_finish", [P, P, P, L, I, I, P])
     old_pack = bind(libs["old_pack"], "sprintz_pack_dims_lowdim", [P, P, P, L, I, I, P])
-    variant_decode = {k: bind(libs[k], "sprintz_decode_lowdim", [P, P, P, P, L, I, I, I, P])
+    variant_decode = {k: bind(libs[k], "sprintz_decode_lowdim",
+                              [P, P, P, P, L, I, I, I, P, I, P, P])
                       for k in VARIANTS}
 
     smi = subprocess.run(
@@ -238,7 +239,7 @@ def main() -> int:
 
         def decode_variant(k):
             call(variant_decode[k], dense.data_ptr(), dw.data_ptr(), vals_var[k].data_ptr(),
-                 status[k].data_ptr(), nb, nd, eb, 0)
+                 status[k].data_ptr(), nb, nd, eb, 0, None, 0, None)
 
         def encode_old():
             r32 = pk.widen_rows(nrows)

@@ -176,9 +176,10 @@ VARIANTS = {
          "    __syncthreads();\n    PHASE(2);\n"),
         ("    extract(half, nbt);\n    __syncthreads();\n",
          "    extract(half, nbt);\n    __syncthreads();\n    PHASE(3);\n"),
-        ("    if (!RAW) {\n      for (int jj = tid; jj < dc; jj += THREADS) {\n        tile_off[",
-         "    PHASE(4);\n    if (!RAW) {\n      for (int jj = tid; jj < dc; jj += THREADS) {\n"
-         "        tile_off["),
+        ("    if (!RAW && !CHUNKED) {\n      for (int jj = tid; jj < dc; jj += THREADS) {\n"
+         "        tile_off[",
+         "    PHASE(4);\n    if (!RAW && !CHUNKED) {\n"
+         "      for (int jj = tid; jj < dc; jj += THREADS) {\n        tile_off["),
         ("    if (sl == 0 && sb < nbt) s_boff[sb] = carry;",
          "    __syncthreads();\n    PHASE(5);\n    if (sl == 0 && sb < nbt) s_boff[sb] = carry;"),
         ("}  // extern \"C\"\n", "}  // extern \"C\"\n" + PHASE_ENTRY)],
@@ -229,8 +230,8 @@ def main() -> int:
     libs["old"].sprintz_unpack_zz.argtypes = [P, P, P, P, P, L, I, I, I, I, I, P]
     libs["old"].sprintz_prefix_finish.argtypes = [P, P, P, L, I, I, I, P]
     for k in VARIANTS:
-        libs[k].sprintz_unpack_zz.argtypes = [P, P, P, P, P, L, I, I, I, I, P]
-        libs[k].sprintz_prefix_finish.argtypes = [P, P, P, L, I, I, P]
+        libs[k].sprintz_unpack_zz.argtypes = [P, P, P, P, P, L, I, I, I, I, P, I, P, P]
+        libs[k].sprintz_prefix_finish.argtypes = [P, P, P, L, I, I, P, I, P, P]
     counters = libs["K1 phase counters"]
     counters.sprintz_phase_read.argtypes = [P]
 
@@ -353,7 +354,7 @@ def main() -> int:
             toff = torch.empty((ntiles, 1, nd), dtype=torch.int32, device=dev)
             status = torch.empty(ntiles * nd + 1, dtype=torch.int64, device=dev)
             call(lib.sprintz_unpack_zz, dense.data_ptr(), w8.data_ptr(), bz.data_ptr(),
-                 toff.data_ptr(), status.data_ptr(), nb, nd, maxb, eb, 0)
+                 toff.data_ptr(), status.data_ptr(), nb, nd, maxb, eb, 0, None, 0, None)
             return bz, dk.exclusive_offsets(toff) if scan else toff
         return fn
 
@@ -452,7 +453,8 @@ def main() -> int:
         def k5_counted():
             out = torch.empty(dense.shape[:2] + (64,), dtype=torch.uint8, device=dev)
             call(counters.sprintz_unpack_zz, dense.data_ptr(), w8.data_ptr(),
-                 out.data_ptr(), None, None, dense.shape[0], 64, dense.shape[2], 8, 1)
+                 out.data_ptr(), None, None, dense.shape[0], 64, dense.shape[2], 8, 1,
+                 None, 0, None)
         if es == 1:
             result[f"phases K5 {key}"] = phases(f"K5 {key}", k5_counted)
 
@@ -465,7 +467,7 @@ def main() -> int:
             def fn():
                 out = torch.empty_like(bz)
                 call(lib.sprintz_prefix_finish, bz.data_ptr(), toff.data_ptr(),
-                     out.data_ptr(), bz.shape[0], bz.shape[1], eb)
+                     out.data_ptr(), bz.shape[0], bz.shape[1], eb, None, 0, None)
                 return out
             return fn
         for k in VARIANTS:

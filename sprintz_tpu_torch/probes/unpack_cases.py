@@ -174,3 +174,18 @@ def to_device(dense: np.ndarray, widths: np.ndarray, kind: str, device):
 # unequal lengths (empty ones too) at chunk counts 1, 2, 7 and 33
 SEED_CASES = [(8, 64, 40, 7), (16, 3, 33, 33), (8, 1, 5, 1), (16, 130, 12, 2),
               (8, 4, 300, 33)]
+
+# the chunked delta decode where its chunk starts fall on the tiles (K1 and
+# K2: 32 blocks) and spans (the lowdim decode: 256, 512 or 1024 blocks) in
+# every way: (what, elem_bits, ndims, blocks, chunk starts as C + 1 blocks)
+CHUNK_CASES = [
+    ("starts mid-tile", 8, 5, 100, [0, 13, 45, 77, 100]),
+    ("several starts in a tile", 16, 3, 90, [0, 3, 5, 6, 20, 31, 40, 41, 90]),
+    ("starts at a tile's last block", 8, 64, 97, [0, 31, 63, 95, 97]),
+    ("empty chunks", 16, 2, 70, [0, 0, 10, 10, 10, 32, 70, 70]),
+    ("one chunk over many tiles and spans", 8, 4, 3000, [0, 5, 2990, 3000]),
+    ("long and short chunks", 8, 1, 2500,
+     [0, 1, 2, 3, 1100, 1101, 1130, 2047, 2048, 2049, 2500]),
+    ("starts at span edges", 16, 1, 1300, [0, 511, 512, 513, 1024, 1300]),
+    ("rows wider than a tile's shared memory", 8, 600, 40, [0, 17, 33, 40]),
+]

@@ -10,8 +10,8 @@ decode and of the delta chunk seed (against the JAX package's
 ``fire_decode(init_state=)`` vmapped over chunks as its
 ``_decode_pass_chunks`` runs it, and its delta arithmetic there) at chunk
 counts 1, 2, 7 and 33, of unequal lengths. The host-built kernels are
-held to these plain versions by ``test_torch_host_fire.py`` and
-``test_torch_host_decode.py``."""
+held to these plain versions by ``test_torch_host_fire.py``,
+``test_torch_host_decode.py`` and ``test_torch_chunk_decode.py``."""
 
 import functools
 
@@ -205,7 +205,7 @@ def test_delta_chunk_seed_plain_equals_jax(nchunks, eb, nd, nb):
     vals = dk.narrow(fc.delta_decode(zz, eb), eb)
     rows = first * 8
     states = rng.integers(-(1 << 20), 1 << 20, (nchunks, nd)).astype(np.int32)
-    got = dk.widen(dk.delta_chunk_seed(vals, rows, states, eb)).numpy()
+    got = dk.widen(dk.delta_chunk_seed_plain(vals, rows, states, eb)).numpy()
     for c in range(nchunks):
         chunk = jnp.asarray(zz.numpy()[rows[c]: rows[c + 1]])
         want = (jf.delta_decode(chunk, eb) + states[c][None, :]) & (
@@ -215,7 +215,7 @@ def test_delta_chunk_seed_plain_equals_jax(nchunks, eb, nd, nb):
     same = np.where((rows[:-1] > 0)[:, None], x[np.maximum(rows[:-1] - 1, 0)],
                     0).astype(np.int32)
     np.testing.assert_array_equal(
-        dk.widen(dk.delta_chunk_seed(vals, rows, same, eb)).numpy(), x)
+        dk.widen(dk.delta_chunk_seed_plain(vals, rows, same, eb)).numpy(), x)
 
 
 def test_chunk_wrappers_check_their_bounds():
@@ -226,6 +226,19 @@ def test_chunk_wrappers_check_their_bounds():
             fc.fire_decode_chunks(errs, 8, first, st[: len(first) - 1])
     with pytest.raises(ValueError, match="states"):
         fc.fire_decode_chunks(errs, 8, [0, 5, 10], st[:1])
+    cpu = torch.device("cpu")
+    for first in ([0, 5, 9], [1, 5, 10], [0, 7, 5, 10]):
+        with pytest.raises(ValueError, match="chunk_first_block"):
+            dk.delta_chunks(first, np.zeros((len(first) - 1, 3), np.int32), 10,
+                            3, cpu)
+    with pytest.raises(ValueError, match="states"):
+        dk.delta_chunks([0, 5, 10], np.zeros((1, 3), np.int32), 10, 3, cpu)
+    dense = torch.zeros((10, 8, 3), dtype=torch.uint8)
+    widths = torch.zeros((10, 3), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="chunks"):  # chunks of another decode
+        dk.decode_delta_contiguous(dense[:9], widths[:9], 8, dk.delta_chunks(
+            [0, 5, 10], np.zeros((2, 3), np.int32), 10, 3, cpu))
     vals = torch.zeros((80, 3), dtype=torch.uint8)
     with pytest.raises(ValueError, match="chunk_first_row"):
-        dk.delta_chunk_seed(vals, [0, 40, 79], np.zeros((2, 3), np.int32), 8)
+        dk.delta_chunk_seed_plain(vals, [0, 40, 79],
+                                  np.zeros((2, 3), np.int32), 8)

@@ -1,13 +1,14 @@
-"""The delta decode's CUDA kernels (``csrc/decode.cu``: K1/K4/K5, K2, the
-lowdim decode and the chunk seed's two kernels) built on the host with g++ against a shim of CUDA's
-names (``sprintz_tpu_torch/probes/host_build.py``: one std::thread a CUDA
-thread, three CTAs at a time so that a look-back waits on tiles or spans
-beside it, shared memory and outputs filled with garbage first) and held
-to their plain versions at ``probes/unpack_cases.py``'s cases
-(``UNPACK_CASES``; ``LOWDIM_CASES`` for both modes of the lowdim
+"""The delta decode's CUDA kernels (``csrc/decode.cu``: K1/K4/K5, K2 and the
+lowdim decode, serial and in chunks) built on the host with g++ against a
+shim of CUDA's names (``sprintz_tpu_torch/probes/host_build.py``: one
+std::thread a CUDA thread, three CTAs at a time so that a look-back waits
+on tiles or spans beside it, shared memory and outputs filled with garbage
+first) and held to their plain versions at ``probes/unpack_cases.py``'s
+cases (``UNPACK_CASES``; ``LOWDIM_CASES`` for both modes of the lowdim
 decode, whose status words must come back zeroed; ``SEED_CASES`` for the
-chunk seed, from states that move nothing and from a moved one),
-bit-exact. The plain
+chunked decode, K1 then K2 and the lowdim decode with chunks, from states
+that move nothing and from moved ones, also against the serial decode
+followed by the plain chunk seed), bit-exact. The plain
 versions are held to the JAX package at the same cases by
 ``test_torch_unpack_shapes.py``, ``test_torch_lowdim_pack.py`` and
 ``test_torch_lowdim_pass.py``; on the card, ``chip_smoke.py`` holds the
