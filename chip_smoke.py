@@ -127,6 +127,22 @@ Phases, each of which raises (exit code != 0) when it fails:
    query in subprocesses on the 8 MiB u8 walk, delta and xff (with its
    sidecar): containers equal the API's bytes, the decoded files the raw
    one, info valid, sums numpy's;
+3h. distribution (``sprintz_tpu_torch.parallel``), its counts set to 0
+   before it and read after it: on meshes of 1, 2, 4 and 8 shards on the
+   card (a shard a card, in turn, where there are several), over the 8 MiB
+   u8 and u16 walks and the runs stream, ``dp_compress`` must write
+   ``compress``'s bytes (delta and xff: the boundary row and FIRE's chain
+   of carries across shards), and over those and the 4 MiB u8 d4 and u16
+   d2 walks ``dp_decompress`` must give the input (delta's cross-shard
+   prefix from K1's totals, FIRE's chain), and with each stream's sidecar
+   (FIRE's shards from their checkpoints' states); ``dp_compress`` must
+   raise at the lowdim ndims; ``dryrun_multichip(4, ["cuda:0"] * 4)``; every
+   kernel of the path must have launched, and the host library's walks,
+   gathers, plan and assembly been called. Then two processes over gloo
+   sharing the card (``parallel/mp_check.py --large``, a timeout of their
+   own): ``mp_compress`` from each one's slice equals ``compress`` and
+   ``mp_decompress`` gives the input, delta and xff, u8 and u16, runs
+   across the process boundary, the 8 MiB u8 walk;
 4. timings: each kernel's wrapper, the time inside its kernel launches
    alone, its plain version and, where one exists, one PyTorch call of the
    same function, by CUDA events (median of 25 after warm-up, L2 flushed
@@ -158,7 +174,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    reduce kernel at each query stream and op (beside torch.sum / amax /
    amin); ``compress_batch`` and ``decompress_batch`` beside S single
    calls, with their host / H2D / device / D2H splits; ``query`` (sum,
-   not materialized) beside ``decompress`` and numpy's sum, in turns.
+   not materialized) beside ``decompress`` and numpy's sum, in turns;
+   ``dp_compress`` and ``dp_decompress`` at 1, 4 and 8 shards beside
+   ``compress`` and ``decompress``, in turns, with their host / H2D /
+   device / D2H splits (L2 flushed, medians); FIRE's serial scans with
+   their init and final carries beside the scans without, in turns.
 
 The last two lines of standard output are the card's name and power limit
 followed by ``{"ok": true, "device": {...}}``; the line before them is
@@ -170,7 +190,9 @@ script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
+import socket
 import statistics
 import subprocess
 import sys
@@ -311,6 +333,19 @@ BATCH_PATH = {"unpack_zz", "prefix_finish", "pack_rows", "unpack_rows",
 # (u8: K5 and FIRE's serial decode), the reduce on each
 QUERY_PATH = {"unpack_zz", "prefix_finish", "decode_lowdim",
               "unpack_rows_narrow", "fire_decode", "reduce_cols"}
+# distribution: the sharded encode (delta's boundary row, FIRE's chain of
+# carries, K3), the sharded decode (K1's totals and K2, the lowdim decode;
+# K4/K5 or the lowdim raw mode and FIRE's serial decode a shard; a
+# sidecar's chunks on the short-chunk kernel) and the dry run's +Huf
+DIST_PATH = {"unpack_zz", "prefix_finish", "pack_rows", "unpack_rows",
+             "unpack_rows_narrow", "fire_encode", "fire_decode",
+             "decode_lowdim", "unpack_lowdim_raw", "fire_decode_full",
+             "fire_decode_short", "fire_decode_short_full", "huff_encode",
+             "huff_decode"}
+HOST_DIST_PATH = {"walk_headers", "walk_headers_parallel", "gather_blocks",
+                  "gather_dims", "build_plan", "assemble_stream"}
+DIST_SHARDS = (1, 2, 4, 8)
+MP_TIMEOUT_S = 600  # the two-rank phase's own limit
 BATCH_REPS = 3
 EVERY_GROUPS = 16  # the sidecar's default: a checkpoint every 16 groups
 LOWDIM_ROWS = 1 << 20  # bench.py's extra_lowdim: 1M rows (bench.py:451-479)
@@ -373,6 +408,8 @@ def main() -> int:
         from sprintz_tpu_torch import query as tquery
         from sprintz_tpu_torch.constants import LOWDIM_MAX_NDIMS
         from sprintz_tpu_torch.ops.bitmath import block_widths_rowmajor
+        from sprintz_tpu_torch.parallel import dryrun as pdry
+        from sprintz_tpu_torch.parallel import shard as pshard
         from sprintz_tpu_torch.planner import build_plan
         from sprintz_tpu_torch.errors import CorruptStreamError
         from sprintz_tpu_torch.probes import decode_cases as dc
@@ -430,7 +467,7 @@ def main() -> int:
     }
     assert set(counters) == set(KERNELS) == (LOWDIM_PATH | ROWMAJOR_PATH
                                              | SEEKABLE_PATH | BATCH_PATH
-                                             | QUERY_PATH)
+                                             | QUERY_PATH | DIST_PATH)
 
     # ---------------------------------------------------------- 1. build
     t0 = time.perf_counter()
@@ -547,16 +584,25 @@ def main() -> int:
         # coefficient's wraps far into a stream are held too; its plain
         # version loops over blocks in Python, so it runs once, and that
         # run is its plain_ms.
+        # The plain runs also give the final carry, which the kernels' init
+        # and final pointers are held to (the sharded scans' chain).
         r, fe = a["rows"], a["ferrs"]
-        want_e, ms_e = once_ms(lambda: fc.fire_encode_plain(r, eb))
-        check("fire_encode", fc.fire_encode(r, eb), want_e, what)
-        want_d, ms_d = once_ms(lambda: fc.fire_decode_plain(fe, eb))
-        check("fire_decode", fc.fire_decode(fe, eb), want_d, what)
+        want_e, ms_e = once_ms(lambda: fc.fire_encode_plain(r, eb,
+                                                            final=True))
+        check("fire_encode", fc.fire_encode(r, eb), want_e[0], what)
+        check("fire_encode", fc.fire_encode(r, eb, final=True), want_e,
+              what + ", its final carry")
+        want_d, ms_d = once_ms(lambda: fc.fire_decode_plain(fe, eb,
+                                                            final=True))
+        check("fire_decode", fc.fire_decode(fe, eb), want_d[0], what)
+        check("fire_decode", fc.fire_decode(fe, eb, final=True), want_d,
+              what + ", its final carry")
         half = 1 << (eb - 1)  # a carried state: a value, a delta, a counter
         state = torch.stack([r[1], ((r[1] - r[0] + half) & (2 * half - 1))
                              - half, r[2] * 37]).contiguous()
-        check("fire_decode", fc.fire_decode(fe, eb, state),
-              fc.fire_decode_plain(fe, eb, state), what + ", a carried state")
+        check("fire_decode", fc.fire_decode(fe, eb, state, final=True),
+              fc.fire_decode_plain(fe, eb, state, final=True),
+              what + ", a carried state in and out")
         a["fire_plain_ms"] = {"fire_encode": ms_e, "fire_decode": ms_d}
         # the stream's data blocks: an odd last block goes to the verbatim
         # tail, since blocks are coded in groups of two
@@ -571,8 +617,9 @@ def main() -> int:
             f"blocks; its plain encode {ms_e:.1f} ms, decode {ms_d:.1f} ms)")
 
     def check_fire(what, vals, eb, state=None, errs=None, trunc=True):
-        """FIRE encode (from the zero state) and decode (from the zero state
-        and from `state`) against their plain versions on the (N, D) int32
+        """FIRE encode (from the zero state, and from `state` with its final
+        carry) and decode (from the zero state and from `state`, with its
+        final carry) against their plain versions on the (N, D) int32
         values `vals`; `errs`: the errors to decode, else the encoder's.
         trunc: the truncated coefficient (row-major) or the full one
         (lowdim, the kernels' `_full` rows)."""
@@ -581,12 +628,20 @@ def main() -> int:
         got = fc.fire_encode(t, eb, truncate_coeffs=trunc)
         check("fire_encode" + sfx, got,
               fc.fire_encode_plain(t, eb, truncate_coeffs=trunc), what)
+        if state is not None:
+            check("fire_encode" + sfx,
+                  fc.fire_encode(t, eb, trunc, init_state=state, final=True),
+                  fc.fire_encode_plain(t, eb, trunc, init_state=state,
+                                       final=True),
+                  what + ", carried in and out")
         zz = got if errs is None else errs
         zz = zz.to(torch.uint8) if eb == 8 else zz
         for st in (None, state):
             check("fire_decode" + sfx,
-                  fc.fire_decode(zz, eb, st, truncate_coeffs=trunc),
-                  fc.fire_decode_plain(zz, eb, st, truncate_coeffs=trunc),
+                  fc.fire_decode(zz, eb, st, truncate_coeffs=trunc,
+                                 final=True),
+                  fc.fire_decode_plain(zz, eb, st, truncate_coeffs=trunc,
+                                       final=True),
                   what)
         return fc.fire_decode(zz, eb, state, truncate_coeffs=trunc)
 
@@ -1731,6 +1786,94 @@ def main() -> int:
         f"{cli_s:.1f} s; containers == the API's bytes, files, info and sums "
         f"right; the phase {time.perf_counter() - t_phase:.1f} s")
 
+    # -------------------------------------------------- 3h. distribution
+    # sprintz_tpu_torch.parallel at the full width of the repo's streams:
+    # meshes of 1, 2, 4 and 8 shards on the card (shard k on card k modulo
+    # the cards), every count set to 0 just before and read just after.
+    t_phase = time.perf_counter()
+    ncards = torch.cuda.device_count()
+    meshes = {n: pshard.make_mesh(devices=[f"cuda:{k % ncards}"
+                                           for k in range(n)])
+              for n in DIST_SHARDS}
+    d_rowmajor = ("u8 walk 8 MiB", "u16 walk 8 MiB", "u8 runs 8 MiB")
+    d_lowdim = ("u8 d4 walk 4 MiB", "u16 d2 walk 4 MiB")
+    zero_counts()
+    nchecked = 0
+    for n, mesh in meshes.items():
+        for w in d_rowmajor + d_lowdim:
+            x = streams[w]
+            es, nd = x.dtype.itemsize, x.shape[1]
+            for c in ("delta", "xff"):
+                what = f"{w} {c}, {n} shards"
+                if w in d_rowmajor:
+                    if pshard.dp_compress(mesh, x.reshape(-1), nd, c) != \
+                            bufs[(w, c, "none")]:
+                        raise AssertionError(f"dp_compress {what}: bytes "
+                                             f"differ from compress's")
+                if not np.array_equal(pshard.dp_decompress(
+                        mesh, bufs[(w, c, "none")], c, es), x.reshape(-1)):
+                    raise AssertionError(f"dp_decompress {what}: values "
+                                         f"differ from the input")
+                sc = sidecars[(w, c, "none")]
+                if not np.array_equal(pshard.dp_decompress(
+                        mesh, sk_bufs[(w, c, "none")], c, es, sidecar=sc),
+                        x.reshape(-1)):
+                    raise AssertionError(f"dp_decompress {what}, sidecar: "
+                                         f"values differ from the input")
+                nchecked += 1
+        for w in d_lowdim:
+            try:
+                pshard.dp_compress(mesh, streams[w].reshape(-1),
+                                   streams[w].shape[1])
+            except ValueError:
+                continue
+            raise AssertionError(f"dp_compress {w}: wrote a lowdim stream")
+    pdry.dryrun_multichip(4, ["cuda:0"] * 4)
+    d_launches = {k: getattr(obj, attr) for k, (obj, attr) in
+                  counters.items()}
+    host_calls("distribution", HOST_DIST_PATH)
+    log(f"[dist] launches: {json.dumps(d_launches)}")
+    missing = [k for k in DIST_PATH if d_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"distribution path never launched: {missing}")
+    launches = {k: launches[k] + d_launches[k] for k in KERNELS}
+    log(f"[dist] {nchecked} (stream, codec, mesh) cases at {DIST_SHARDS} "
+        f"shards on {ncards} card(s): dp_compress == compress's bytes "
+        f"(row-major), dp_decompress exact without and with the sidecar, "
+        f"dp_compress refuses the lowdim ndims; dryrun_multichip(4) passed; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    # two processes over gloo sharing the card; the kernels and the host
+    # library were built above, so the ranks do not build them again
+    t0 = time.perf_counter()
+    mp_dir = here / "build" / "mp_smoke"
+    mp_dir.mkdir(parents=True, exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        mp_port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "sprintz_tpu_torch.parallel.mp_check",
+         "--backend", "gloo", "--device", "cuda:0", "--out", str(mp_dir),
+         "--large"], cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env={**os.environ, "MASTER_ADDR": "127.0.0.1",
+                        "MASTER_PORT": str(mp_port), "WORLD_SIZE": "2",
+                        "RANK": str(r)}) for r in range(2)]
+    try:
+        mp_logs = [proc.communicate(timeout=MP_TIMEOUT_S)[0] for proc in procs]
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    for r, proc in enumerate(procs):
+        ok = (mp_dir / f"rank{r}.out")
+        if proc.returncode or not ok.exists() or \
+                not ok.read_text().startswith("OK "):
+            raise AssertionError(f"two-rank gloo: rank {r} rc "
+                                 f"{proc.returncode}:\n{mp_logs[r][-4000:]}")
+    log(f"[dist] two ranks over gloo on cuda:0: mp_compress == compress and "
+        f"mp_decompress exact on {ok.read_text().split()[1:]} in "
+        f"{time.perf_counter() - t0:.1f} s; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
     # -------------------------------------------------------- 4. timings
     flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
 
@@ -2570,6 +2713,117 @@ def main() -> int:
             f"numpy {r['decompress_numpy_s'] * 1e3:.3f} ms")
     log("[e2e query] " + json.dumps({"card": smi, "streams": q_e2e}))
     log(f"[timing] the batch and query rows took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # The sharded paths beside the single-device ones, in turns (single,
+    # sharded, sharded, single), the L2 flushed before each, with splits:
+    # host (walk and gather, or the shards' rows), H2D, the device pass
+    # (its collectives' copies inside it; kernels: inside the launches),
+    # D2H (values; or header fields and the compact payload), and the
+    # encode's plan and assembly.
+    t_phase = time.perf_counter()
+
+    def split_dp_decode(sp: Split, mesh, buf: bytes, es: int, c: str):
+        job = sp.host("host", lambda: pshard.index_stream(mesh, buf, c, es))
+        up = sp.sync("h2d", lambda: pshard.upload_stream(mesh, job))
+        vals = sp.device("device", lambda: pshard.decode_shards(mesh, job, up))
+        sp.host("d2h", lambda: pshard.download_values(mesh, vals, job))
+
+    def split_dp_encode(sp: Split, mesh, x: np.ndarray, c: str):
+        flat, nd, es = x.reshape(-1), x.shape[1], x.dtype.itemsize
+        rows, nb_max = sp.host("host", lambda: pshard.shard_rows(
+            flat, nd, mesh.size, list(range(mesh.size))))
+        up = sp.sync("h2d", lambda: pshard.upload_shards(mesh, rows))
+        enc = sp.device("device", lambda: pshard.encode_shards(mesh, up, es, c))
+        got = sp.host("d2h", lambda: pshard.download_encoded(mesh, enc, es))
+        return sp.host("assemble", lambda: pshard.assemble(
+            *got, lambda r: flat[flat.size - r:], flat.size, nd, es, c,
+            nb_max))
+
+    def dist_e2e(w: str, c: str, n: int) -> dict:
+        x, buf = streams[w], bufs[(w, c, "none")]
+        es, nd = x.dtype.itemsize, x.shape[1]
+        mesh = meshes[n]
+        cd = SprintzCodec(c, es, device="cuda")
+        rowmajor = nd > LOWDIM_MAX_NDIMS[es]
+        fns = {"decompress": lambda: cd.decompress(buf),
+               "dp_decompress": lambda: pshard.dp_decompress(mesh, buf, c, es)}
+        if rowmajor:
+            fns.update({"compress": lambda: cd.compress(x),
+                        "dp_compress": lambda: pshard.dp_compress(
+                            mesh, x.reshape(-1), nd, c)})
+        t = {k: [] for k in fns}
+        for _ in range(E2E_REPS):
+            for pair in (("decompress", "dp_decompress"),
+                         ("compress", "dp_compress")):
+                if pair[0] not in fns:
+                    continue
+                for key in (pair[0], pair[1], pair[1], pair[0]):
+                    flush.zero_()
+                    torch.cuda.synchronize()
+                    c0 = time.perf_counter()
+                    fns[key]()
+                    t[key].append(time.perf_counter() - c0)
+
+        def dec_split():
+            flush.zero_()
+            sp = Split()
+            split_dp_decode(sp, mesh, buf, es, c)
+            return sp.t
+
+        def enc_split():
+            flush.zero_()
+            sp = Split()
+            if split_dp_encode(sp, mesh, x, c) != buf:
+                raise AssertionError(f"dp_compress {w} {c}: bytes differ")
+            return sp.t
+
+        out = {"bytes": x.nbytes, **{k + "_s": statistics.median(v)
+                                     for k, v in t.items()},
+               "dp_decompress_split_s": med(dec_split, E2E_REPS)}
+        if rowmajor:
+            out["dp_compress_split_s"] = med(enc_split, E2E_REPS)
+        return out
+
+    d_e2e = {}
+    for w, c in (("u8 walk 8 MiB", "delta"), ("u8 walk 8 MiB", "xff"),
+                 ("u16 walk 8 MiB", "delta"), ("u8 runs 8 MiB", "delta"),
+                 ("u8 d4 walk 4 MiB", "delta")):
+        for n in (1, 4, 8):
+            key = f"{w} {c} {n} shards"
+            r = d_e2e[key] = dist_e2e(w, c, n)
+            log(f"[e2e dist] {key}: " + ", ".join(
+                f"{k[:-2]} {v * 1e3:.3f} ms" for k, v in r.items()
+                if k.endswith("_s") and not isinstance(v, dict)) + "; "
+                + "; ".join(f"{k[:-2]}: " + ", ".join(
+                    f"{kk} {vv * 1e3:.3f} ms" for kk, vv in v.items())
+                    for k, v in r.items() if isinstance(v, dict)))
+    log("[e2e dist] " + json.dumps({"card": smi, "streams": d_e2e}))
+
+    # FIRE's serial scans with their carries (init and final pointers, the
+    # chain's launch) beside the scans without, in turns, at the 8 MiB
+    # walks; the same instantiations, so this is the carries' own cost
+    carry_t = {}
+    for what in ("u8 main (nb 16384, D 64)", "u16 main (nb 8192, D 64)"):
+        a = inputs[what]
+        eb, r, fe = a["eb"], a["rows"], a["ferrs"]
+        st = torch.zeros((3, r.shape[1]), dtype=torch.int32, device=dev)
+        fns = {
+            "encode": lambda: fc.fire_encode(r, eb),
+            "encode_carries": lambda: fc.fire_encode(r, eb, init_state=st,
+                                                     final=True),
+            "decode": lambda: fc.fire_decode(fe, eb),
+            "decode_carries": lambda: fc.fire_decode(fe, eb, st, final=True)}
+        ms = {k: [] for k in fns}
+        for _ in range(3):
+            for k in ("encode", "encode_carries", "encode_carries", "encode",
+                      "decode", "decode_carries", "decode_carries", "decode"):
+                ms[k].append(time_ms(fns[k]))
+        carry_t[what] = {k: statistics.median(v) for k, v in ms.items()}
+        log(f"[timing] FIRE carries {what}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in carry_t[what].items()))
+    log("[timing] FIRE carries " + json.dumps({"card": smi, **carry_t}))
+    log(f"[timing] the distribution rows took "
         f"{time.perf_counter() - t_phase:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

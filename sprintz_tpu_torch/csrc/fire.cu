@@ -13,6 +13,18 @@
 //   delta, learning counter), _fire_scan(return_states=True)'s output
 //   (as (nb, D, 4) words), which a checkpoint sidecar takes its states
 //   from.
+//   Carries across calls (the serial scans, encode and decode): an
+//   optional (3, D) i32 `init`, the carry entering the first block, and an
+//   optional (3, D) i32 `fin`, which receives the carry after the last
+//   block: _fire_scan(init_state=, return_final=True), the state that a
+//   sharded scan hands from one shard to the next
+//   (sprintz_tpu/parallel/shard.py:_fire_chain). The lanes hold the carry
+//   in registers at the end of their chain; the chain warp stores the
+//   counter after its last tile (and, at decode, the value and delta
+//   beside it), and at encode the first finisher, after its last tile,
+//   the last row's value (from the input) and delta (from the ring). All
+//   of it is outside the loops over blocks: a per-block test in the
+//   finishers made the encode with STATES 12-17% slower on an H100.
 //   Decode: zigzag errors (N, D), u8 at EB 8 (K4's narrow mode) or i32 at
 //   EB 16 -> values (N, D) u8/u16, split into C chunks of whole blocks
 //   (chunk c is blocks [first[c], first[c + 1])), chunk c from its own
@@ -347,15 +359,16 @@ __device__ __forceinline__ void write_block(uint4* cells, int b,
 
 // LOAD_DEPTH rows at p (row stride ndims) and the row above them -> their
 // deltas, in LOAD_BLOCKS blocks from block b0 of `cells`. FULL: all of
-// them exist; else `left` of them do (none above when has_above is false).
+// them exist; else `left` of them do. Where has_above is false (the
+// stream's first row) the value above is `above0`, the carried one.
 // STATES: also the value above each block, in word 1 of its aux cell.
 template <int EB, bool FULL, bool STATES>
 __device__ __forceinline__ void load_deltas(const int32_t* __restrict__ p,
                                             uint32_t ndims, bool has_above,
-                                            long long left, uint4* cells, uint4* aux,
-                                            int b0) {
+                                            int32_t above0, long long left, uint4* cells,
+                                            uint4* aux, int b0) {
   int32_t v[LOAD_DEPTH + 1];
-  v[0] = has_above && (FULL || left >= 0) ? *(p - ndims) : 0;
+  v[0] = has_above ? (FULL || left >= 0 ? *(p - ndims) : 0) : above0;
 #pragma unroll
   for (int j = 0; j < LOAD_DEPTH; ++j)
     v[j + 1] = FULL || j < left ? p[(uint32_t)j * ndims] : 0;
@@ -382,7 +395,8 @@ __device__ __forceinline__ void load_deltas(const int32_t* __restrict__ p,
 template <int EB, bool TRUNC, bool STATES>
 __global__ void __launch_bounds__(32 * WARPS)
     fire_encode_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
-                       int32_t* __restrict__ states, long long nb, int ndims) {
+                       int32_t* __restrict__ states, const int32_t* __restrict__ init,
+                       int32_t* __restrict__ fin, long long nb, int ndims) {
   using F = Fire<EB>;
   extern __shared__ __align__(16) unsigned char fire_smem[];
   Ring ring(fire_smem);
@@ -399,7 +413,7 @@ __global__ void __launch_bounds__(32 * WARPS)
 
   if (warp == 0) {
     // counter -> coef -> the odd rows' gradient terms -> counter
-    int32_t counter = 0;
+    int32_t counter = init != nullptr && active ? init[2 * ndims + d] : 0;
     for (int t = 0; t < ntiles; ++t) {
       const int s = Ring::slot(t);
       mbar_wait(ring.loaded + s, Ring::round_parity(t));
@@ -428,22 +442,24 @@ __global__ void __launch_bounds__(32 * WARPS)
       }
       mbar_arrive(ring.chained + s);
     }
+    if (fin != nullptr && active) fin[2 * ndims + d] = counter;
   } else if (helper >= FINISHERS) {
     // values -> deltas: a team of TEAM_WARPS warps loads every LOAD_TEAMS-th
     // tile, each warp LOAD_BLOCKS of its blocks
     const int lw = helper - FINISHERS;
     const int b0 = (lw % TEAM_WARPS) * LOAD_BLOCKS;
     const int dsafe = active ? d : ndims - 1;  // loads stay in bounds
+    const int32_t init_val = init != nullptr ? init[dsafe] : 0;
     for (int t = lw / TEAM_WARPS; t < ntiles; t += LOAD_TEAMS) {
       const int s = Ring::slot(t);
       mbar_wait(ring.free_ + s, Ring::round_parity(t) ^ 1u);
       const long long row0 = (long long)t * TILE_ROWS + b0 * BLOCK_SZ;
       const int32_t* p = in + (row0 * ndims + dsafe);
       if ((long long)(t + 1) * TILE_ROWS <= nrows)
-        load_deltas<EB, true, STATES>(p, (uint32_t)ndims, row0 > 0, 0, ring.data(s, lane),
-                                      ring.aux(s, lane), b0);
+        load_deltas<EB, true, STATES>(p, (uint32_t)ndims, row0 > 0, init_val, 0,
+                                      ring.data(s, lane), ring.aux(s, lane), b0);
       else
-        load_deltas<EB, false, STATES>(p, (uint32_t)ndims, row0 > 0, nrows - row0,
+        load_deltas<EB, false, STATES>(p, (uint32_t)ndims, row0 > 0, init_val, nrows - row0,
                                        ring.data(s, lane), ring.aux(s, lane), b0);
       mbar_arrive(ring.loaded + s);
     }
@@ -451,7 +467,8 @@ __global__ void __launch_bounds__(32 * WARPS)
     // deltas and the block's coefficient -> zigzag errors, every
     // FINISHERS-th block
     const int f = helper;
-    uint32_t halo = 0;  // the delta of the row above the tile
+    // the delta of the row above the tile
+    uint32_t halo = init != nullptr && active ? (uint32_t)init[ndims + d] : 0u;
     for (int t = 0; t < ntiles; ++t) {
       const int s = Ring::slot(t);
       mbar_wait(ring.chained + s, Ring::round_parity(t));
@@ -487,6 +504,13 @@ __global__ void __launch_bounds__(32 * WARPS)
       // a tile that has a successor is full
       halo = cells[(2 * TILE_BLOCKS - 1) * GROUP].w;
       mbar_arrive(ring.free_ + s);
+    }
+    // the carry after the last block: its last row's value and delta. No
+    // tile after the last reuses its slot, so its deltas are still there.
+    if (fin != nullptr && active && f == 0) {
+      const int nblk = blocks_in_tile(nb, ntiles - 1);
+      fin[d] = in[(nrows - 1) * ndims + d];
+      fin[ndims + d] = (int32_t)ring.data(Ring::slot(ntiles - 1), lane)[(2 * nblk - 1) * GROUP].w;
     }
   }
 }
@@ -562,7 +586,7 @@ struct ChunkLane {
 template <int EB, bool TRUNC>
 __global__ void __launch_bounds__(32 * WARPS)
     fire_decode_kernel(const typename Fire<EB>::errs_t* __restrict__ in,
-                       const int32_t* __restrict__ state,
+                       const int32_t* __restrict__ state, int32_t* __restrict__ fin,
                        typename Fire<EB>::narrow_t* __restrict__ out,
                        const long long* __restrict__ first, int nchunks, long long nb,
                        int ndims) {
@@ -628,6 +652,11 @@ __global__ void __launch_bounds__(32 * WARPS)
         counter = F::next_counter(counter, F::grad_shifted(grad_sum));
       }
       mbar_arrive(ring.chained + s);
+    }
+    if (fin != nullptr && active) {  // one chunk: the carry after it
+      fin[d] = (int32_t)(val & F::kMask);
+      fin[ndims + d] = F::delta_of(word);
+      fin[2 * ndims + d] = counter;
     }
   } else if (helper >= FINISHERS) {
     // a team of TEAM_WARPS warps loads every LOAD_TEAMS-th tile, each warp
@@ -990,18 +1019,19 @@ cudaError_t allow_ring(Kernel kernel, int bytes = SMEM_BYTES) {
 }
 
 template <int EB, bool TRUNC, bool STATES>
-cudaError_t launch_encode(const void* in, void* out, int32_t* states, long long nb,
-                          int ndims, cudaStream_t s) {
+cudaError_t launch_encode(const void* in, void* out, int32_t* states, const int32_t* init,
+                          int32_t* fin, long long nb, int ndims, cudaStream_t s) {
   const unsigned groups = (unsigned)((ndims + GROUP - 1) / GROUP);
   const cudaError_t err = allow_ring(fire_encode_kernel<EB, TRUNC, STATES>);
   if (err != cudaSuccess) return err;
   fire_encode_kernel<EB, TRUNC, STATES><<<groups, 32 * WARPS, SMEM_BYTES, s>>>(
-      static_cast<const int32_t*>(in), static_cast<int32_t*>(out), states, nb, ndims);
+      static_cast<const int32_t*>(in), static_cast<int32_t*>(out), states, init, fin, nb,
+      ndims);
   return cudaGetLastError();
 }
 
 template <int EB, bool TRUNC>
-cudaError_t launch_decode(const void* in, const int32_t* state, void* out,
+cudaError_t launch_decode(const void* in, const int32_t* state, int32_t* fin, void* out,
                           const long long* first, int nchunks, long long nb, int ndims,
                           cudaStream_t s) {
   using F = Fire<EB>;
@@ -1012,7 +1042,7 @@ cudaError_t launch_decode(const void* in, const int32_t* state, void* out,
   const cudaError_t err = allow_ring(fire_decode_kernel<EB, TRUNC>);
   if (err != cudaSuccess) return err;
   fire_decode_kernel<EB, TRUNC><<<(unsigned)ctas, 32 * WARPS, SMEM_BYTES, s>>>(
-      static_cast<const typename F::errs_t*>(in), state,
+      static_cast<const typename F::errs_t*>(in), state, fin,
       static_cast<typename F::narrow_t*>(out), first, nchunks, nb, ndims);
   return cudaGetLastError();
 }
@@ -1031,41 +1061,46 @@ cudaError_t launch_short(const void* in, const int32_t* states, void* out,
   return cudaGetLastError();
 }
 
+// state: decode's chunk states, or the serial scans' init carry (one chunk)
 template <int EB>
-cudaError_t launch(const void* in, const int32_t* state, void* out, int32_t* states,
-                   const long long* first, int nchunks, long long nb, int ndims, int decode,
-                   int trunc, cudaStream_t s) {
+cudaError_t launch(const void* in, const int32_t* state, int32_t* fin, void* out,
+                   int32_t* states, const long long* first, int nchunks, long long nb,
+                   int ndims, int decode, int trunc, cudaStream_t s) {
   if (decode)
-    return trunc ? launch_decode<EB, true>(in, state, out, first, nchunks, nb, ndims, s)
-                 : launch_decode<EB, false>(in, state, out, first, nchunks, nb, ndims, s);
+    return trunc ? launch_decode<EB, true>(in, state, fin, out, first, nchunks, nb, ndims, s)
+                 : launch_decode<EB, false>(in, state, fin, out, first, nchunks, nb, ndims, s);
   if (states)
-    return trunc ? launch_encode<EB, true, true>(in, out, states, nb, ndims, s)
-                 : launch_encode<EB, false, true>(in, out, states, nb, ndims, s);
-  return trunc ? launch_encode<EB, true, false>(in, out, nullptr, nb, ndims, s)
-               : launch_encode<EB, false, false>(in, out, nullptr, nb, ndims, s);
+    return trunc ? launch_encode<EB, true, true>(in, out, states, state, fin, nb, ndims, s)
+                 : launch_encode<EB, false, true>(in, out, states, state, fin, nb, ndims, s);
+  return trunc ? launch_encode<EB, true, false>(in, out, nullptr, state, fin, nb, ndims, s)
+               : launch_encode<EB, false, false>(in, out, nullptr, state, fin, nb, ndims, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// encode (decode == 0): in (nb * 8, ndims) i32 values, out i32 zigzag errors,
-// from the zero state; state null, or (nb, ndims, 4) i32, 16-byte aligned,
-// whose words 0-2 receive the carry before each block. decode (decode != 0): in (nb * 8, ndims) zigzag
-// errors, u8 at elem_bits 8 and i32 at 16, out u8/u16 values; state
-// (3, ndims) i32 or null (zeros). trunc != 0: the row-major layout's
-// truncated int16 coefficient; trunc == 0: the lowdim layout's full one.
-int sprintz_fire_scan(void* in, void* state, void* out, long long nb, int ndims,
-                      int elem_bits, int decode, int trunc, void* stream) {
+// The serial scans. encode (decode == 0): in (nb * 8, ndims) i32 values,
+// out i32 zigzag errors; states null, or (nb, ndims, 4) i32, 16-byte
+// aligned, whose words 0-2 receive the carry before each block. decode
+// (decode != 0): in (nb * 8, ndims) zigzag errors, u8 at elem_bits 8 and
+// i32 at 16, out u8/u16 values; states null. Both: init (3, ndims) i32,
+// the carry entering the first block (prev value, prev delta, counter), or
+// null (zeros); fin (3, ndims) i32, which receives the carry after the
+// last block, or null. trunc != 0: the row-major layout's truncated int16
+// coefficient; trunc == 0: the lowdim layout's full one.
+int sprintz_fire_scan(void* in, void* init, void* fin, void* states, void* out, long long nb,
+                      int ndims, int elem_bits, int decode, int trunc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int32_t* st = static_cast<int32_t*>(state);
-  if (nb < 1 || nb > MAX_BLOCKS || ndims < 1 || ndims > MAX_NDIMS)
+  const int32_t* ini = static_cast<const int32_t*>(init);
+  int32_t* f = static_cast<int32_t*>(fin);
+  int32_t* st = static_cast<int32_t*>(states);
+  if (nb < 1 || nb > MAX_BLOCKS || ndims < 1 || ndims > MAX_NDIMS || (decode && st))
     return (int)cudaErrorInvalidValue;
-  int32_t* enc_states = decode ? nullptr : st;
   if (elem_bits == 8)
-    return (int)launch<8>(in, st, out, enc_states, nullptr, 1, nb, ndims, decode, trunc, s);
+    return (int)launch<8>(in, ini, f, out, st, nullptr, 1, nb, ndims, decode, trunc, s);
   if (elem_bits == 16)
-    return (int)launch<16>(in, st, out, enc_states, nullptr, 1, nb, ndims, decode, trunc, s);
+    return (int)launch<16>(in, ini, f, out, st, nullptr, 1, nb, ndims, decode, trunc, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1083,9 +1118,9 @@ int sprintz_fire_decode_chunks(void* in, void* states, void* first, int nchunks,
       st == nullptr || f == nullptr)
     return (int)cudaErrorInvalidValue;
   if (elem_bits == 8)
-    return (int)launch<8>(in, st, out, nullptr, f, nchunks, nb, ndims, 1, trunc, s);
+    return (int)launch<8>(in, st, nullptr, out, nullptr, f, nchunks, nb, ndims, 1, trunc, s);
   if (elem_bits == 16)
-    return (int)launch<16>(in, st, out, nullptr, f, nchunks, nb, ndims, 1, trunc, s);
+    return (int)launch<16>(in, st, nullptr, out, nullptr, f, nchunks, nb, ndims, 1, trunc, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -262,6 +262,32 @@ def _gather_payloads_py(buf: bytes, idx: StreamIndex) -> np.ndarray:
     return dense
 
 
+def place_blocks(dense: torch.Tensor, widths: torch.Tensor,
+                 out_rows: torch.Tensor, total_rows: int):
+    """The data blocks' payload and widths placed on the block timeline of
+    ``total_rows`` rows: a run block gets width 0 and zero bytes. Returns
+    them as they are where there are no runs."""
+    ndata, ndims = widths.shape
+    if total_rows == ndata * BLOCK_SZ:
+        return dense, widths
+    src = torch.full((total_rows // BLOCK_SZ,), ndata, dtype=torch.int64,
+                     device=dense.device)
+    src[out_rows // BLOCK_SZ] = torch.arange(ndata, device=dense.device)
+    return (torch.cat([dense, dense.new_zeros((1,) + dense.shape[1:])])[src],
+            torch.cat([widths, widths.new_zeros((1, ndims))])[src])
+
+
+def fire_errors(dense: torch.Tensor, widths: torch.Tensor, elem_sz: int,
+                lowdim: bool) -> torch.Tensor:
+    """The timeline's zigzag errors (rows, D) in the FIRE decode's types:
+    K4 (K5, its narrow mode, at u8) or the lowdim decode's raw mode."""
+    if lowdim:
+        errs = unpack_dims_lowdim(dense, widths)
+    else:
+        errs = unpack_rows(dense, widths, narrow=elem_sz == 1)
+    return errs.reshape(-1, widths.shape[1])
+
+
 def decode_device(dense: torch.Tensor, widths: torch.Tensor,
                   out_rows: torch.Tensor, total_rows: int,
                   elem_sz: int, codec: str = "delta",
@@ -287,23 +313,14 @@ def decode_device(dense: torch.Tensor, widths: torch.Tensor,
     errors under the forecaster's state are all zero). Run-free streams
     and streams with runs then take the same kernels.
     """
-    ndata, ndims = widths.shape
-    if total_rows != ndata * BLOCK_SZ:
-        src = torch.full((total_rows // BLOCK_SZ,), ndata, dtype=torch.int64,
-                         device=dense.device)
-        src[out_rows // BLOCK_SZ] = torch.arange(ndata, device=dense.device)
-        dense = torch.cat([dense, dense.new_zeros((1,) + dense.shape[1:])])[src]
-        widths = torch.cat([widths, widths.new_zeros((1, ndims))])[src]
+    ndims = widths.shape[1]
+    dense, widths = place_blocks(dense, widths, out_rows, total_rows)
     if chunks is not None:
         first = np.append(np.asarray(chunks[0], dtype=np.int64),
                           total_rows // BLOCK_SZ)
         states = np.asarray(chunks[1], dtype=np.int32)
     if codec == "xff":
-        if lowdim:
-            errs = unpack_dims_lowdim(dense, widths)
-        else:
-            errs = unpack_rows(dense, widths, narrow=elem_sz == 1)
-        errs = errs.reshape(-1, ndims)
+        errs = fire_errors(dense, widths, elem_sz, lowdim)
         if chunks is not None:
             return fire_decode_chunks(errs, 8 * elem_sz, first, states,
                                       truncate_coeffs=not lowdim)

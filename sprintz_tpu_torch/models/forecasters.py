@@ -33,7 +33,11 @@ coefficient (up to 2^30) makes that product wrap.
 
 FIRE's state is the (3, D) int32 carry (prev value, prev delta, learning
 counter); ``fire_decode`` takes it as ``init_state`` to enter a stream
-mid-way, as the JAX package's ``fire_decode(init_state=...)`` does.
+mid-way, as the JAX package's ``fire_decode(init_state=...)`` does, and
+so does ``fire_encode``. With ``final=True`` either also returns the carry
+after its last block, which the same launch writes: the JAX package's
+``_fire_scan(init_state=..., return_final=True)``, the state that a
+sharded scan hands from one shard to the next (``parallel/shard.py``).
 ``fire_encode(states=True)`` also returns the carry before every block, in
 the same pass (the JAX package's ``fire_encode_with_states`` runs a second
 scan for it), and ``fire_decode_chunks`` decodes a stream cut into chunks
@@ -66,9 +70,15 @@ from ..ops.decode_kernels import (aligned16, check_args, chunk_args, narrow,
                                   narrow_dtype)
 
 
-def delta_encode(rows: torch.Tensor, elem_bits: int) -> torch.Tensor:
-    """rows: (N, D) int32 holding unsigned values -> zigzag errs (N, D) int32."""
-    prev = torch.cat([torch.zeros_like(rows[:1]), rows[:-1]], dim=0)
+def delta_encode(rows: torch.Tensor, elem_bits: int,
+                 prev_row: torch.Tensor | None = None) -> torch.Tensor:
+    """rows: (N, D) int32 holding unsigned values -> zigzag errs (N, D) int32.
+    ``prev_row``: the (D,) unsigned row before the first (a shard's
+    neighbour's last row), zeros when None; it is subtracted before the
+    sign extension, as every other row is."""
+    first = (torch.zeros_like(rows[:1]) if prev_row is None
+             else prev_row.to(rows.device, rows.dtype).reshape(1, -1))
+    prev = torch.cat([first, rows[:-1]], dim=0)
     deltas = sign_extend(rows - prev, elem_bits)
     return zigzag_encode(deltas, elem_bits)
 
@@ -168,23 +178,32 @@ def _fire_coef(counter: torch.Tensor, elem_bits: int,
     return _sext((counter >> (FIRE_LEARNING_SHIFT + shft)) << shft, 16)
 
 
+def _init_carry(init_state, ndims: int, device: torch.device) -> torch.Tensor:
+    """The (3, D) int64 carry entering a scan: ``init_state`` or zeros."""
+    if init_state is None:
+        return torch.zeros((3, ndims), dtype=torch.int64, device=device)
+    return _state_tensor(init_state, device, torch.int64)
+
+
 def _fire_encode_blocks(blocks: torch.Tensor, elem_bits: int,
-                        truncate_coeffs: bool, states: bool = False):
-    """(nb, 8, D) int64 values -> (nb, 8, D) int64 zigzag errors, from the
-    zero state, and with ``states`` the (nb, 3, D) int64 carry before each
-    block. The loop over blocks carries only the counter, through the
+                        truncate_coeffs: bool, states: bool = False,
+                        init_state=None):
+    """(nb, 8, D) int64 values -> ((nb, 8, D) int64 zigzag errors, with
+    ``states`` the (nb, 3, D) int64 carry before each block else None, the
+    (3, D) int64 carry after the last block), from ``init_state`` (zeros
+    when None). The loop over blocks carries only the counter, through the
     odd rows' errors; everything else is one pass over the stream."""
     nb, _, ndims = blocks.shape
     rows = blocks.reshape(-1, ndims)
-    zero = torch.zeros((1, ndims), dtype=torch.int64, device=blocks.device)
-    deltas = _sext(rows - torch.cat([zero, rows[:-1]]), elem_bits)
-    prev = torch.cat([zero, deltas[:-1]]).reshape(nb, BLOCK_SZ, ndims)
+    init = _init_carry(init_state, ndims, blocks.device)
+    deltas = _sext(rows - torch.cat([init[:1], rows[:-1]]), elem_bits)
+    prev = torch.cat([init[1:2], deltas[:-1]]).reshape(nb, BLOCK_SZ, ndims)
     deltas = deltas.reshape(nb, BLOCK_SZ, ndims)
     downsample = 1 << FIRE_LOG2_LEARNING_DOWNSAMPLE
     odd = slice(downsample - 1, None, downsample)
     coefs = torch.empty((nb, 1, ndims), dtype=torch.int64,
                         device=blocks.device)
-    counter = zero[0]
+    counter = init[2]
     counters = torch.empty((nb, ndims), dtype=torch.int64,
                            device=blocks.device)
     for b in range(nb):
@@ -196,26 +215,26 @@ def _fire_encode_blocks(blocks: torch.Tensor, elem_bits: int,
         counter = _fire_counter_step(counter, err_odd, prev_odd, elem_bits)
     errs = _sext(deltas - ((prev * coefs) >> elem_bits), elem_bits)
     zz = ((errs << 1) ^ (errs >> 63)) & ((1 << elem_bits) - 1)
+    final = (torch.stack([rows[-1], deltas[-1, -1], counter]) if nb
+             else init)
     if not states:
-        return zz
+        return zz, None, final
     # the carry before block b: the value and the delta of the row above
-    # it (zeros above the first), and the counter
-    above = torch.cat([zero, rows[BLOCK_SZ - 1:-1:BLOCK_SZ]])
-    return zz, torch.stack([above, prev[:, 0], counters], dim=1)
+    # it (the carried ones above the first), and the counter
+    above = torch.cat([init[:1], rows[BLOCK_SZ - 1:-1:BLOCK_SZ]])
+    return zz, torch.stack([above, prev[:, 0], counters], dim=1), final
 
 
 def _fire_decode_blocks(blocks: torch.Tensor, elem_bits: int,
-                        init_state, truncate_coeffs: bool) -> torch.Tensor:
-    """(nb, 8, D) int64 zigzag errors -> (nb, 8, D) int64 values. The loop
-    over rows carries only the delta, and the one over blocks the counter;
-    the zigzag decode runs before them and the values are a cumulative sum
+                        init_state, truncate_coeffs: bool,
+                        final: bool = False):
+    """(nb, 8, D) int64 zigzag errors -> (nb, 8, D) int64 values, and with
+    ``final`` the (3, D) int64 carry after the last block. The loop over
+    rows carries only the delta, and the one over blocks the counter; the
+    zigzag decode runs before them and the values are a cumulative sum
     after them."""
     nb, _, ndims = blocks.shape
-    if init_state is None:
-        state = torch.zeros((3, ndims), dtype=torch.int64,
-                            device=blocks.device)
-    else:
-        state = _state_tensor(init_state, blocks.device, torch.int64)
+    state = _init_carry(init_state, ndims, blocks.device)
     prev_val, prev_delta, counter = state[0], state[1], state[2]
     errs = _sext((blocks >> 1) ^ -(blocks & 1), elem_bits)
     downsample = 1 << FIRE_LOG2_LEARNING_DOWNSAMPLE
@@ -231,8 +250,12 @@ def _fire_decode_blocks(blocks: torch.Tensor, elem_bits: int,
                 errs[b, i] + ((prev_delta * coef) >> elem_bits), elem_bits)
         counter = _fire_counter_step(counter, errs[b, odd], prev[odd],
                                      elem_bits)
-    vals = prev_val + torch.cumsum(deltas.reshape(-1, ndims), dim=0)
-    return (vals & ((1 << elem_bits) - 1)).reshape(blocks.shape)
+    vals = ((prev_val + torch.cumsum(deltas.reshape(-1, ndims), dim=0))
+            & ((1 << elem_bits) - 1))
+    if not final:
+        return vals.reshape(blocks.shape)
+    carry = (torch.stack([vals[-1], prev_delta, counter]) if nb else state)
+    return vals.reshape(blocks.shape), carry
 
 
 def _check_fire(name: str, x: torch.Tensor, elem_bits: int,
@@ -249,55 +272,83 @@ def _count_launch(wrapper, truncate_coeffs: bool, kind: str = "") -> None:
     setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
+def _outputs(out, carries, fin, states: bool, final: bool):
+    """A scan's result as its caller asked for it: out, then the carries
+    before each block with ``states``, then the final carry with
+    ``final``."""
+    if not (states or final):
+        return out
+    return (out,) + ((carries,) if states else ()) + ((fin,) if final else ())
+
+
+def _check_init(name: str, init_state, ndims: int) -> None:
+    if init_state is not None and tuple(np.shape(init_state)) != (3, ndims):
+        raise ValueError(f"{name}: init_state {tuple(np.shape(init_state))}"
+                         f" is not (3, {ndims})")
+
+
 def fire_encode_plain(rows: torch.Tensor, elem_bits: int,
-                      truncate_coeffs: bool = True, states: bool = False):
+                      truncate_coeffs: bool = True, states: bool = False,
+                      init_state=None, final: bool = False):
     """Plain version of ``fire_encode``."""
     n, ndims = rows.shape
     if rows.numel() == 0:
         errs = rows.to(torch.int32)
-        return (errs, errs.new_zeros((0, 3, ndims))) if states else errs
-    out = _fire_encode_blocks(
+        fin = _init_carry(init_state, ndims, rows.device).to(torch.int32)
+        return _outputs(errs, errs.new_zeros((0, 3, ndims)), fin, states,
+                        final)
+    zz, carries, fin = _fire_encode_blocks(
         rows.to(torch.int64).reshape(-1, BLOCK_SZ, ndims), elem_bits,
-        truncate_coeffs, states)
-    if not states:
-        return out.reshape(n, ndims).to(torch.int32)
-    errs, carries = out
-    return errs.reshape(n, ndims).to(torch.int32), carries.to(torch.int32)
+        truncate_coeffs, states, init_state)
+    return _outputs(zz.reshape(n, ndims).to(torch.int32),
+                    None if carries is None else carries.to(torch.int32),
+                    fin.to(torch.int32), states, final)
 
 
 def fire_encode(rows: torch.Tensor, elem_bits: int,
-                truncate_coeffs: bool = True, states: bool = False):
+                truncate_coeffs: bool = True, states: bool = False,
+                init_state=None, final: bool = False):
     """rows (N, D) int32 unsigned values, N a multiple of 8 -> zigzag
-    errors (N, D) int32, from the zero state. ``truncate_coeffs``: the
-    row-major layout's int16 coefficient (True) or the lowdim layout's
-    full-precision one (False). With ``states``, returns (errors, carries):
-    carries (N / 8, 3, D) int32 is the state before each block (prev
-    value, prev delta, counter), written by the same launch (on CUDA a
-    view of (N / 8, D, 4) words, one a block and dim)."""
+    errors (N, D) int32. ``truncate_coeffs``: the row-major layout's int16
+    coefficient (True) or the lowdim layout's full-precision one (False).
+    ``init_state``: optional (3, D) int32 carry entering the first block
+    (prev value, prev delta, counter), numpy or torch; the zero state when
+    None. With ``states``, also returns carries (N / 8, 3, D) int32, the
+    state before each block, written by the same launch (on CUDA a view of
+    (N / 8, D, 4) words, one a block and dim); with ``final``, also the
+    (3, D) int32 carry after the last block (``init_state`` or zeros when
+    N is 0), in that order: (errors[, carries][, final])."""
     _check_fire("fire_encode", rows, elem_bits, torch.int32)
-    if rows.device.type == "cpu":
-        return fire_encode_plain(rows, elem_bits, truncate_coeffs, states)
     n, ndims = rows.shape
+    _check_init("fire_encode", init_state, ndims)
+    if rows.device.type == "cpu":
+        return fire_encode_plain(rows, elem_bits, truncate_coeffs, states,
+                                 init_state, final)
     errs = torch.empty_like(rows)
     # the kernel writes a carry as one 16-byte word (its 4th int unused):
     # the (nb, 3, D) carries are a view of (nb, D, 4)
     words = (torch.empty((n // BLOCK_SZ, ndims, 4), dtype=torch.int32,
                          device=rows.device) if states else None)
     carries = None if words is None else words[..., :3].transpose(1, 2)
+    init = (None if init_state is None
+            else _state_tensor(init_state, rows.device, torch.int32))
     if n == 0 or ndims == 0:
-        return (errs, carries) if states else errs
+        fin = (init if init is not None else torch.zeros(
+            (3, ndims), dtype=torch.int32, device=rows.device))
+        return _outputs(errs, carries, fin, states, final)
+    fin = (torch.empty((3, ndims), dtype=torch.int32, device=rows.device)
+           if final else None)
     _build.launch("sprintz_fire_scan", rows, rows.data_ptr(),
+                  None if init is None else init.data_ptr(),
+                  None if fin is None else fin.data_ptr(),
                   None if words is None else words.data_ptr(),
                   errs.data_ptr(), n // BLOCK_SZ, ndims, elem_bits, 0,
                   int(truncate_coeffs))
     if states:
-        if truncate_coeffs:
-            fire_encode.states_launches += 1
-        else:
-            fire_encode.states_full_launches += 1
-        return errs, carries
-    _count_launch(fire_encode, truncate_coeffs)
-    return errs
+        _count_launch(fire_encode, truncate_coeffs, "states_")
+    else:
+        _count_launch(fire_encode, truncate_coeffs)
+    return _outputs(errs, carries, fin, states, final)
 
 
 fire_encode.launches = 0
@@ -307,48 +358,57 @@ fire_encode.states_full_launches = 0
 
 
 def fire_decode_plain(errs_zz: torch.Tensor, elem_bits: int,
-                      init_state=None,
-                      truncate_coeffs: bool = True) -> torch.Tensor:
+                      init_state=None, truncate_coeffs: bool = True,
+                      final: bool = False):
     """Plain version of ``fire_decode``."""
     n, ndims = errs_zz.shape
     if errs_zz.numel() == 0:
-        return narrow(errs_zz.to(torch.int32), elem_bits)
-    vals = _fire_decode_blocks(
+        vals = narrow(errs_zz.to(torch.int32), elem_bits)
+        fin = _init_carry(init_state, ndims, errs_zz.device).to(torch.int32)
+        return (vals, fin) if final else vals
+    out = _fire_decode_blocks(
         errs_zz.to(torch.int64).reshape(-1, BLOCK_SZ, ndims), elem_bits,
-        init_state, truncate_coeffs)
-    return narrow(vals.reshape(n, ndims).to(torch.int32), elem_bits)
+        init_state, truncate_coeffs, final)
+    vals, fin = out if final else (out, None)
+    vals = narrow(vals.reshape(n, ndims).to(torch.int32), elem_bits)
+    return (vals, fin.to(torch.int32)) if final else vals
 
 
 def fire_decode(errs_zz: torch.Tensor, elem_bits: int, init_state=None,
-                truncate_coeffs: bool = True) -> torch.Tensor:
+                truncate_coeffs: bool = True, final: bool = False):
     """Zigzag errors (N, D), N a multiple of 8 -> values (N, D) u8/u16.
 
     The errors are uint8 at elem_bits 8 (``unpack_rows(narrow=True)``) and
     int32 at 16. ``init_state``: optional (3, D) int32 carry entering the
     first block (prev value, prev delta, counter), numpy or torch; the
-    zero state when None. ``truncate_coeffs`` as in ``fire_encode``.
+    zero state when None. ``truncate_coeffs`` as in ``fire_encode``. With
+    ``final``, returns (values, the (3, D) int32 carry after the last
+    block), from the same launch.
     """
     _check_fire("fire_decode", errs_zz, elem_bits,
                 torch.uint8 if elem_bits == 8 else torch.int32)
     n, ndims = errs_zz.shape
-    if init_state is not None and tuple(np.shape(init_state)) != (3, ndims):
-        raise ValueError(f"fire_decode: init_state {tuple(np.shape(init_state))}"
-                         f" is not (3, {ndims})")
+    _check_init("fire_decode", init_state, ndims)
     if errs_zz.device.type == "cpu":
         return fire_decode_plain(errs_zz, elem_bits, init_state,
-                                 truncate_coeffs)
+                                 truncate_coeffs, final)
     vals = torch.empty((n, ndims), dtype=narrow_dtype(elem_bits),
                        device=errs_zz.device)
-    if n == 0 or ndims == 0:
-        return vals
     state = (None if init_state is None
              else _state_tensor(init_state, errs_zz.device, torch.int32))
+    if n == 0 or ndims == 0:
+        fin = (state if state is not None else torch.zeros(
+            (3, ndims), dtype=torch.int32, device=errs_zz.device))
+        return (vals, fin) if final else vals
+    fin = (torch.empty((3, ndims), dtype=torch.int32, device=errs_zz.device)
+           if final else None)
     _build.launch("sprintz_fire_scan", errs_zz, errs_zz.data_ptr(),
                   None if state is None else state.data_ptr(),
+                  None if fin is None else fin.data_ptr(), None,
                   vals.data_ptr(), n // BLOCK_SZ, ndims, elem_bits, 1,
                   int(truncate_coeffs))
     _count_launch(fire_decode, truncate_coeffs)
-    return vals
+    return (vals, fin) if final else vals
 
 
 fire_decode.launches = 0

@@ -45,7 +45,8 @@ SIGNATURES = {
     "sprintz_pack_rows": ("pack", (_P, _P, _P, _L, _I, _I, _I, _P)),
     "sprintz_encode_lowdim": ("pack", (_P, _P, _P, _P, _P, _L, _I, _I, _I,
                                        _P)),
-    "sprintz_fire_scan": ("fire", (_P, _P, _P, _L, _I, _I, _I, _I, _P)),
+    "sprintz_fire_scan": ("fire", (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                                   _P)),
     "sprintz_fire_decode_chunks": ("fire", (_P, _P, _P, _I, _P, _L, _I, _I,
                                             _I, _P)),
     "sprintz_fire_decode_short": ("fire", (_P, _P, _P, _I, _L, _P, _L, _I,

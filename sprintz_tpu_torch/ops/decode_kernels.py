@@ -238,6 +238,13 @@ def zz_and_offsets(u: torch.Tensor, elem_bits: int,
     return bz, exclusive_offsets(tots)
 
 
+def extract_totals(bz: torch.Tensor, elem_bits: int) -> torch.Tensor:
+    """Biased narrow deltas (nb, 8, D) -> the (D,) int64 sum of the
+    deltas."""
+    rows = widen(bz.reshape(-1, bz.shape[-1])).to(torch.int64)
+    return (rows - (1 << (elem_bits - 1))).sum(dim=0)
+
+
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
     """int64 -> int32, wrapping as the kernels' 32-bit sums do."""
     return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
@@ -257,7 +264,7 @@ def chunk_bases(deltas: torch.Tensor, chunks: Chunks,
 
 
 def unpack_zz(dense: torch.Tensor, widths: torch.Tensor, elem_bits: int,
-              chunks: Chunks | None = None):
+              chunks: Chunks | None = None, total: bool = False):
     """dense (nb, 8, MAXB) uint8, widths (nb, D) uint8 ->
     (biased deltas (nb, 8, D) u8/u16, tile offsets
     (ceil(nb / TILE_BLOCKS), 1, D) i32: the wrapping sum of the deltas of
@@ -267,20 +274,30 @@ def unpack_zz(dense: torch.Tensor, widths: torch.Tensor, elem_bits: int,
     at or past it read as zero. With ``chunks`` (``delta_chunks``: states
     (C, D)) a tile's offset is the value entering it in the chunked decode
     (``chunk_bases``): its chunk's state plus the chunk's deltas before it.
+    With ``total`` (serial only), a third output: the (D,) i32 wrapping sum
+    of all the deltas, which the launch leaves in its last tile's status
+    words (the inclusive prefix its look-back publishes), so no pass reads
+    the deltas for it: a shard's total for the sharded decode's prefix.
     """
     odt = narrow_dtype(elem_bits)
     check_payload("unpack_zz", dense, widths)
     nb, _, maxb = dense.shape
     ndims = widths.shape[1]
+    if total and chunks is not None:
+        raise ValueError("unpack_zz: total is the serial decode's")
     ck = _chunk_launch_args(chunks, nb, ndims, dense.device, "unpack_zz")
     if dense.device.type == "cpu":
-        return unpack_zz_plain(dense, widths, elem_bits, chunks)
+        bz, toff = unpack_zz_plain(dense, widths, elem_bits, chunks)
+        if not total:
+            return bz, toff
+        return bz, toff, _wrap32(extract_totals(bz, elem_bits))
     ntiles = -(-nb // TILE_BLOCKS)
     bz = torch.empty((nb, BLOCK_SZ, ndims), dtype=odt, device=dense.device)
     toff = torch.empty((ntiles, 1, ndims), dtype=torch.int32,
                        device=dense.device)
     if nb == 0 or ndims == 0:
-        return bz, toff.zero_()
+        toff.zero_()
+        return (bz, toff, toff.new_zeros(ndims)) if total else (bz, toff)
     dense, widths = aligned16(dense), aligned16(widths)
     # the look-back's status words and its ticket, zeroed by the launch
     status = torch.empty(ntiles * ndims + 1, dtype=torch.int64,
@@ -292,6 +309,10 @@ def unpack_zz(dense: torch.Tensor, widths: torch.Tensor, elem_bits: int,
         unpack_zz.launches += 1
     else:
         unpack_zz.chunk_launches += 1
+    if total:
+        # a status word is flag << 32 | value: the value is its low int32
+        last = status[(ntiles - 1) * ndims:ntiles * ndims]
+        return bz, toff, last.view(torch.int32)[0::2]
     return bz, toff
 
 

@@ -169,11 +169,12 @@ def main() -> int:
     def scan_of(lib_path):
         lib = ctypes.CDLL(str(lib_path))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.sprintz_fire_scan.argtypes = [p, p, p, ll, i, i, i, i, p]
+        lib.sprintz_fire_scan.argtypes = [p, p, p, p, p, ll, i, i, i, i, p]
 
         def scan(src_t, dst_t, nb, ndims, eb, decode):
-            err = lib.sprintz_fire_scan(src_t.data_ptr(), None, dst_t.data_ptr(),
-                                        nb, ndims, eb, decode, 1, stream)
+            err = lib.sprintz_fire_scan(src_t.data_ptr(), None, None, None,
+                                        dst_t.data_ptr(), nb, ndims, eb, decode, 1,
+                                        stream)
             if err:
                 raise RuntimeError(f"{lib_path.name}: CUDA error {err}")
         return lib, scan

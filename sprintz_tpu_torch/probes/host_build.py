@@ -119,7 +119,7 @@ ENTRIES = {
     "sprintz_decode_lowdim": [P, P, P, P, L, I, I, I, P, I, P, P],
     "sprintz_pack_rows": [P, P, P, L, I, I, I, P],
     "sprintz_encode_lowdim": [P, P, P, P, P, L, I, I, I, P],
-    "sprintz_fire_scan": [P, P, P, L, I, I, I, I, P],
+    "sprintz_fire_scan": [P, P, P, P, P, L, I, I, I, I, P],
     "sprintz_fire_decode_chunks": [P, P, P, I, P, L, I, I, I, P],
     "sprintz_fire_decode_short": [P, P, P, I, L, P, L, I, I, I, P],
     "sprintz_reduce_cols": [P, P, P, L, I, I, I, I, P],
@@ -312,27 +312,41 @@ class HostKernels:
             wsums.data_ptr(), nb, nd, elem_sz, 0 if errors else 1, None))
         return widths, hdr, dense, wsums
 
-    def fire_encode(self, rows, elem_bits: int, trunc: bool, states: bool):
+    def fire_encode(self, rows, elem_bits: int, trunc: bool, states: bool,
+                    init=None, final: bool = False):
+        """The serial encode (sprintz_fire_scan), from ``init`` or zeros;
+        with ``final`` also the carry after it (into garbage)."""
         t = self.torch
         n, nd = rows.shape
         out = self.garbage((n, nd), t.int32)
         words = self.garbage((n // 8, nd, 4), t.int32) if states else None
+        ini = None if init is None else init.to(t.int32).contiguous()
+        fin = self.garbage((3, nd), t.int32) if final else None
         self.check(self.so.sprintz_fire_scan(
-            rows.data_ptr(), None if words is None else words.data_ptr(),
+            rows.data_ptr(), None if ini is None else ini.data_ptr(),
+            None if fin is None else fin.data_ptr(),
+            None if words is None else words.data_ptr(),
             out.data_ptr(), n // 8, nd, elem_bits, 0, int(trunc), None))
-        return (out, words[..., :3].transpose(1, 2)) if states else out
+        res = (out, words[..., :3].transpose(1, 2)) if states else (out,)
+        res += (fin,) if final else ()
+        return res if len(res) > 1 else out
 
-    def fire_decode(self, errs, elem_bits: int, state, trunc: bool):
-        """The serial decode (sprintz_fire_scan), from ``state`` or zeros."""
+    def fire_decode(self, errs, elem_bits: int, state, trunc: bool,
+                    final: bool = False):
+        """The serial decode (sprintz_fire_scan), from ``state`` or zeros;
+        with ``final`` also the carry after it (into garbage)."""
         from sprintz_tpu_torch.ops import decode_kernels as dk
 
+        t = self.torch
         n, nd = errs.shape
         out = self.garbage((n, nd), dk.narrow_dtype(elem_bits))
-        st = None if state is None else state.to(self.torch.int32).contiguous()
+        st = None if state is None else state.to(t.int32).contiguous()
+        fin = self.garbage((3, nd), t.int32) if final else None
         self.check(self.so.sprintz_fire_scan(
-            errs.data_ptr(), None if st is None else st.data_ptr(), out.data_ptr(),
+            errs.data_ptr(), None if st is None else st.data_ptr(),
+            None if fin is None else fin.data_ptr(), None, out.data_ptr(),
             n // 8, nd, elem_bits, 1, int(trunc), None))
-        return out
+        return (out, fin) if final else out
 
     def fire_decode_chunks(self, errs, elem_bits: int, first, states, trunc: bool,
                            short: bool):
@@ -447,7 +461,8 @@ def check_fire_case(hk: HostKernels, eb: int, nd: int, nb: int, nchunks: int,
     and without its states, the serial decode from a carried state and the
     chunked decode from the encode's states (one chunk's replaced by
     random ones, its delta wider than an element) against their plain
-    versions: the name of the first that differs, or None."""
+    versions, and the serial scans' carries (``check_fire_carries``): the
+    name of the first that differs, or None."""
     import torch
 
     from sprintz_tpu_torch.models import forecasters as fc
@@ -481,6 +496,62 @@ def check_fire_case(hk: HostKernels, eb: int, nd: int, nb: int, nchunks: int,
     for name, got, want in pairs:
         if got.dtype != want.dtype or not torch.equal(got, want):
             return name
+    return check_fire_carries(hk, eb, nd, nb, trunc, rows, zz, states[k])
+
+
+def fire_chain_states(rng, eb: int, nd: int, n: int) -> np.ndarray:
+    """``n`` random (3, D) int32 carries: a value, a delta that may be
+    wider than an element, and a counter near the wrap of its width
+    (int16 at u8, int32 at u16)."""
+    half = 1 << (eb - 1)
+    top = (1 << 15) - 1 if eb == 8 else (1 << 31) - 1
+    return np.stack([rng.integers(0, 2 * half, (n, nd)),
+                     rng.integers(-(1 << 20), 1 << 20, (n, nd)),
+                     top - rng.integers(0, 64, (n, nd))], axis=1).astype(np.int32)
+
+
+def check_fire_carries(hk: HostKernels, eb: int, nd: int, nb: int, trunc: bool,
+                       rows, zz, state) -> str | None:
+    """The serial scans with carries, as a sharded scan runs them: the
+    encode and decode from the zero state and from ``state`` and a
+    counter near its wrap, each with its final carry, and the stream
+    split in two whose halves, chained through the first half's final
+    carry, give the whole (with states too): the name of the first that
+    differs from the plain versions, or None."""
+    import torch
+
+    from sprintz_tpu_torch.models import forecasters as fc
+
+    rng = np.random.default_rng(eb * 131 + nd * 7 + nb)
+    wrap = torch.from_numpy(fire_chain_states(rng, eb, nd, 1)[0])
+    pairs = []
+    for what, init in (("zero", None), ("carried", state), ("wrapping", wrap)):
+        pairs += [
+            (f"FIRE encode from the {what} state, final carry",
+             hk.fire_encode(rows, eb, trunc, False, init, True),
+             fc.fire_encode_plain(rows, eb, trunc, init_state=init, final=True)),
+            (f"FIRE encode with states from the {what} state, final carry",
+             hk.fire_encode(rows, eb, trunc, True, init, True),
+             fc.fire_encode_plain(rows, eb, trunc, True, init, True)),
+            (f"FIRE decode from the {what} state, final carry",
+             hk.fire_decode(zz, eb, init, trunc, True),
+             fc.fire_decode_plain(zz, eb, init, trunc, True))]
+    cut = 8 * int(rng.integers(1, nb)) if nb > 1 else 0
+    whole_e, whole_f = fc.fire_encode_plain(rows, eb, trunc, final=True)
+    whole_v, whole_vf = fc.fire_decode_plain(zz, eb, None, trunc, True)
+    if cut:
+        e0, f0 = hk.fire_encode(rows[:cut], eb, trunc, False, None, True)
+        e1, f1 = hk.fire_encode(rows[cut:], eb, trunc, False, f0, True)
+        v0, g0 = hk.fire_decode(zz[:cut], eb, None, trunc, True)
+        v1, g1 = hk.fire_decode(zz[cut:], eb, g0, trunc, True)
+        pairs += [("FIRE encode chained over two halves",
+                   (torch.cat([e0, e1]), f1), (whole_e, whole_f)),
+                  ("FIRE decode chained over two halves",
+                   (torch.cat([v0, v1]), g1), (whole_v, whole_vf))]
+    for name, got, want in pairs:
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                return name
     return None
 
 
