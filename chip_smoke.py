@@ -120,9 +120,16 @@ Phases, each of which raises (exit code != 0) when it fails:
    (delta: the compact pass) and the 8 MiB u8 walk under xff (the fused
    pass), every op with ``materialize`` True and False: results equal
    numpy over the raw data (sums wrapped to int32 on the device's share),
-   paths as the JAX package picks them; then the reduce kernel
-   (``csrc/query.cu``) equals its plain version on each stream's values,
-   with and without the runs' gaps;
+   paths as the JAX package picks them; the delta queries reduce in the
+   epilogue of K2 or of the lowdim decode, and launch neither the plain K2
+   nor the plain lowdim decode nor ``reduce_cols``, which the xff queries
+   launch once an op and materialize flag (6); the NOOP queries (a decode)
+   are counted apart. Then the epilogue kernels (K2's and the lowdim
+   decode's REDUCE instantiations, ``csrc/decode.cu``) equal their plain
+   versions on each delta stream at every op, store flag and gap setting
+   (the data blocks with the runs' gaps and a leading run, the whole
+   timeline without), and the standalone reduce (``csrc/query.cu``) equals
+   its plain version on each stream's values, with and without the gaps;
 3g. cli: ``python -m sprintz_tpu_torch`` compress, decompress, info and
    query in subprocesses on the 8 MiB u8 walk, delta and xff (with its
    sidecar): containers equal the API's bytes, the decoded files the raw
@@ -172,7 +179,9 @@ Phases, each of which raises (exit code != 0) when it fails:
    the batch's FIRE encode at S * D lanes and its chunked (short-chunk)
    decode, the
    reduce kernel at each query stream and op (beside torch.sum / amax /
-   amin); ``compress_batch`` and ``decompress_batch`` beside S single
+   amin), the epilogue K2 and lowdim decode at each delta query stream and
+   op, with and without store, beside the plain K2 or lowdim decode
+   followed by the reduce kernel, in turns; ``compress_batch`` and ``decompress_batch`` beside S single
    calls, with their host / H2D / device / D2H splits; ``query`` (sum,
    not materialized) beside ``decompress`` and numpy's sum, in turns;
    ``dp_compress`` and ``dp_decompress`` at 1, 4 and 8 shards beside
@@ -216,6 +225,7 @@ OPS_PER_ELEM = {"unpack_zz": 12, "unpack_rows": 9, "unpack_rows_narrow": 9,
                 "prefix_finish": 3, "pack_rows": 6, "fire_encode": 18,
                 "fire_decode": 15, "huff_decode": 30, "huff_encode": 12,
                 "encode_lowdim": 12, "encode_lowdim_errs": 9, "decode_lowdim": 12,
+                "prefix_finish_reduce": 6, "decode_lowdim_reduce": 15,
                 "unpack_lowdim_raw": 5,
                 "fire_encode_full": 16, "fire_decode_full": 15}
 # FIRE's serial chain: dependent integer operations a block, by elem_bits
@@ -286,9 +296,15 @@ KERNELS = {  # name -> (source, the TPU pass it replaces: file:line)
     "decode_lowdim_chunks": ("sprintz_tpu_torch/csrc/decode.cu",
                              "sprintz_tpu/decoder.py:945"),
     # query pushdown: the reduce that JAX runs in XLA after its decode
-    # (jnp.sum in the fused pass)
+    # (jnp.sum in the fused pass), standalone (FIRE's fused pass) and as the
+    # epilogue of K2 and of the lowdim decode (the compact pass's jnp.sum,
+    # and the fused delta pass's)
     "reduce_cols": ("sprintz_tpu_torch/csrc/query.cu",
                     "sprintz_tpu/query/pushdown.py:84"),
+    "prefix_finish_reduce": ("sprintz_tpu_torch/csrc/decode.cu",
+                             "sprintz_tpu/query/pushdown.py:139"),
+    "decode_lowdim_reduce": ("sprintz_tpu_torch/csrc/decode.cu",
+                             "sprintz_tpu/query/pushdown.py:139"),
 }
 # the kernels each main path must launch: the row-major one and the lowdim
 # one (u8 ndims <= 4, u16 ndims <= 2)
@@ -329,10 +345,13 @@ BATCH_PATH = {"unpack_zz", "prefix_finish", "pack_rows", "unpack_rows",
               "fire_decode_short", "fire_decode_short_full",
               "unpack_zz_chunks", "prefix_finish_chunks",
               "decode_lowdim_chunks"}
-# query pushdown: the compact delta pass (both layouts), the fused xff pass
-# (u8: K5 and FIRE's serial decode), the reduce on each
-QUERY_PATH = {"unpack_zz", "prefix_finish", "decode_lowdim",
+# query pushdown: the compact delta pass (both layouts: K1 and K2 with the
+# reduce as its epilogue, or the lowdim decode with it), the fused xff pass
+# (u8: K5 and FIRE's serial decode, then the standalone reduce)
+QUERY_PATH = {"unpack_zz", "prefix_finish_reduce", "decode_lowdim_reduce",
               "unpack_rows_narrow", "fire_decode", "reduce_cols"}
+# the queries that must not launch these: every delta query with an op
+QUERY_NEVER = {"prefix_finish", "decode_lowdim"}
 # distribution: the sharded encode (delta's boundary row, FIRE's chain of
 # carries, K3), the sharded decode (K1's totals and K2, the lowdim decode;
 # K4/K5 or the lowdim raw mode and FIRE's serial decode a shard; a
@@ -464,6 +483,8 @@ def main() -> int:
         "prefix_finish_chunks": (dk.prefix_finish, "chunk_launches"),
         "decode_lowdim_chunks": (dk.decode_delta_lowdim, "chunk_launches"),
         "reduce_cols": (qk.reduce_cols, "launches"),
+        "prefix_finish_reduce": (qk.prefix_finish_reduce, "launches"),
+        "decode_lowdim_reduce": (qk.decode_lowdim_reduce, "launches"),
     }
     assert set(counters) == set(KERNELS) == (LOWDIM_PATH | ROWMAJOR_PATH
                                              | SEEKABLE_PATH | BATCH_PATH
@@ -1617,9 +1638,10 @@ def main() -> int:
     # 8 MiB u16 stream near 65535 whose sums wrap past 2^31, the 4 MiB u8
     # d4 walk (the lowdim compact pass) and the 8 MiB u8 walk under xff (the
     # fused pass), every op with materialize True and False; every count
-    # set to 0 just before and read just after. Results must equal numpy
-    # over the raw data, sums wrapped to int32 on the device's share; then
-    # reduce_cols equals its plain version on each stream's values.
+    # set to 0 just before and read just after (the NOOP queries, a decode,
+    # in a count of their own). Results must equal numpy over the raw data,
+    # sums wrapped to int32 on the device's share; then the epilogue
+    # kernels and reduce_cols equal their plain versions on each stream.
     t_phase = time.perf_counter()
     qrng = np.random.default_rng(SEED + 13)
     streams["u16 top 8 MiB"] = (65535 - np.cumsum(qrng.integers(
@@ -1650,32 +1672,49 @@ def main() -> int:
         return (rows.max(axis=0) if op == tquery.Operation.REDUCE_MAX
                 else rows.min(axis=0))
 
-    zero_counts()
     q_paths = {}
-    for case in q_cases:
-        x, buf = streams[case[0]], q_bufs[case]
-        for op in ops:
-            for mat in (False, True):
-                res = tquery.query(buf, tquery.QueryParams(op, mat), case[1],
-                                   x.dtype.itemsize, device="cuda")
-                q_paths[case, op, mat] = tquery.pushdown.last_path
-                if mat and not np.array_equal(res.data, x):
-                    raise AssertionError(f"query {case} {op} materialized "
-                                         f"data differs")
-                if op == tquery.Operation.NOOP:
-                    continue
-                got = getattr(res, op.name.split("_")[1].lower())
-                if not np.array_equal(np.asarray(got, np.int64),
-                                      expected(x, buf, op)):
-                    raise AssertionError(f"query {case} {op} materialize "
-                                         f"{mat}: {got} differs from numpy")
-    q_launches = {k: getattr(obj, attr) for k, (obj, attr) in
-                  counters.items()}
+
+    def run_queries(which):
+        for case in q_cases:
+            x, buf = streams[case[0]], q_bufs[case]
+            for op in which:
+                for mat in (False, True):
+                    res = tquery.query(buf, tquery.QueryParams(op, mat),
+                                       case[1], x.dtype.itemsize,
+                                       device="cuda")
+                    q_paths[case, op, mat] = tquery.pushdown.last_path
+                    if mat and not np.array_equal(res.data, x):
+                        raise AssertionError(f"query {case} {op} "
+                                             f"materialized data differs")
+                    if op == tquery.Operation.NOOP:
+                        continue
+                    got = getattr(res, op.name.split("_")[1].lower())
+                    if not np.array_equal(np.asarray(got, np.int64),
+                                          expected(x, buf, op)):
+                        raise AssertionError(
+                            f"query {case} {op} materialize {mat}: {got} "
+                            f"differs from numpy")
+        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+    zero_counts()
+    q_launches = run_queries(ops[1:])
     host_calls("query", {"walk_headers", "gather_blocks", "gather_dims"})
     log(f"[query] launches: {json.dumps(q_launches)}")
     missing = [k for k in QUERY_PATH if q_launches[k] == 0]
     if missing:
         raise AssertionError(f"query path never launched: {missing}")
+    stray = {k: q_launches[k] for k in QUERY_NEVER if q_launches[k]}
+    n_xff = sum(c[1] == "xff" for c in q_cases) * (len(ops) - 1) * 2
+    if stray or q_launches["reduce_cols"] != n_xff:
+        raise AssertionError(
+            f"query path: the delta queries launched {stray} (plain K2 / "
+            f"lowdim decode), reduce_cols {q_launches['reduce_cols']} times "
+            f"(the xff queries' {n_xff})")
+    zero_counts()
+    noop_launches = run_queries(ops[:1])
+    log(f"[query] NOOP queries (a decode) launches: "
+        f"{json.dumps({k: v for k, v in noop_launches.items() if v})}")
+    q_launches = {k: q_launches[k] + noop_launches[k] for k in KERNELS}
     for case in q_cases:
         paths = {q_paths[case, op, False] for op in ops[1:]}
         if paths != {case[2]}:
@@ -1705,7 +1744,48 @@ def main() -> int:
                 torch.from_numpy(gaps.astype(np.int32)).to(dev),
                 bool(idx.out_rows[0] > 0))
 
-    q_vals = {}
+    def epilogue_inputs(buf: bytes, es: int):
+        """A delta query stream's epilogue inputs: the data blocks' payload
+        with each one's gap and the leading run (the compact pass), and
+        the whole timeline's (the fused pass); K1's outputs of each for K2
+        (row-major), or the payload itself (lowdim)."""
+        ng, _, nd = read_metadata_rle(buf)
+        lowdim = nd <= LOWDIM_MAX_NDIMS[es]
+        idx = decoder.walk_headers(buf, ng, nd, es, lowdim)
+        dense, widths, out_rows = decoder.upload_payload(
+            decoder.gather_payloads(buf, idx), idx, dev)
+        gaps = np.diff(idx.out_rows, append=idx.total_rows) - 8
+        full = decoder.place_blocks(dense, widths, out_rows, idx.total_rows)
+        out = {"lowdim": lowdim, "eb": 8 * es, "nd": nd}
+        for what, (d, w), g, lead in (
+                ("data blocks", (dense, widths),
+                 torch.from_numpy(gaps.astype(np.int32)).to(dev),
+                 bool(idx.out_rows[0] > 0)),
+                ("timeline", full, None, False)):
+            if lowdim:
+                out[what] = ((d, w), g, lead)
+            else:
+                bz, toff = dk.unpack_zz(d, w, 8 * es)
+                out[what] = ((bz.reshape(-1, nd), toff), g, lead)
+        return out
+
+    def epilogue_calls(e):
+        """(what, kernel, plain, op, gaps, leading_gap, store) of a stream:
+        each op, store flag and gap setting."""
+        name = "decode_lowdim_reduce" if e["lowdim"] else "prefix_finish_reduce"
+        kern = qk.decode_lowdim_reduce if e["lowdim"] else qk.prefix_finish_reduce
+        plain = (qk.decode_lowdim_reduce_plain if e["lowdim"]
+                 else qk.prefix_finish_reduce_plain)
+        for what in ("data blocks", "timeline"):
+            args, g, lead = e[what]
+            for op in qk.OPS:
+                for store in (False, True):
+                    for gl in ((None, False), (g, lead)) if g is not None else (
+                            (None, False),):
+                        yield (name, what, args, kern, plain, op, *gl, store)
+
+    q_vals, q_epi = {}, {}
+    n_epi = 0
     for case in q_cases:
         es = streams[case[0]].dtype.itemsize
         vals, gaps, lead = q_vals[case] = query_values(
@@ -1717,12 +1797,35 @@ def main() -> int:
                       qk.reduce_cols_plain(vals, op, *g),
                       f"{case[0]} {case[1]} {op}"
                       + (" with gaps" if g[0] is not None else ""))
+        if case[1] != "delta":
+            continue
+        e = q_epi[case] = epilogue_inputs(q_bufs[case], es)
+        plain_vals = {}
+        for name, what, args, kern, plain, op, g, ld, store in epilogue_calls(e):
+            got = kern(*args, e["eb"], op, g, ld, store)
+            if what not in plain_vals:  # the plain decode, once a layout
+                plain_vals[what] = plain(*args, e["eb"], "max")[0]
+            want = (plain_vals[what] if store else None,
+                    qk.reduce_cols_plain(plain_vals[what], op,
+                                         g if op == "sum" else None, ld))
+            desc = (f"{case[0]} {what} {op}" + (" with gaps" if g is not None
+                                                 else "")
+                    + (" store" if store else ""))
+            if (got[0] is None) != (want[0] is None):
+                raise AssertionError(f"{name} {desc}: values returned "
+                                     f"{got[0] is not None}")
+            check(name, got if store else got[1],
+                  want if store else want[1], desc)
+            n_epi += 1
     log(f"[query] {len(q_cases)} streams x {len(ops)} ops x materialize: "
         f"results == numpy (sums wrapped to int32 on the device's share; the "
         f"u16 top stream's sums {wrap.tolist()[:3]}...), paths "
-        f"{sorted({c[2] for c in q_cases})}; reduce_cols == its plain version "
-        f"on every stream's values; the phase "
-        f"{time.perf_counter() - t_phase:.1f} s")
+        f"{sorted({c[2] for c in q_cases})}; the delta queries launched no "
+        f"plain K2, plain lowdim decode or reduce_cols, the xff queries "
+        f"reduce_cols {n_xff} times; {n_epi} epilogue launches == their "
+        f"plain versions (every op, store flag and gap setting) and "
+        f"reduce_cols == its plain version on every stream's values; the "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
 
     # ----------------------------------------------------------- 3g. cli
     # python -m sprintz_tpu_torch compress / decompress / info / query in a
@@ -2574,6 +2677,63 @@ def main() -> int:
         log_rows(what, table[what])
         log(f"[timing] {what} ops: "
             + ", ".join(f"{r_['op']} {r_['ms']:.4f} ms" for r_ in table[what]))
+
+    def in_turns(fns: dict, rounds: int = 3) -> dict:
+        """Median ms of each of two functions, timed in turns (a, b, b, a)
+        ``rounds`` times, each a time_ms."""
+        (ka, fa), (kb, fb) = fns.items()
+        ms = {ka: [], kb: []}
+        for _ in range(rounds):
+            for k, f in ((ka, fa), (kb, fb), (kb, fb), (ka, fa)):
+                ms[k].append(time_ms(f))
+        return {k: statistics.median(v) for k, v in ms.items()}
+
+    # The epilogue kernels at each delta query stream (the compact pass's
+    # data blocks, the sum with the runs' gaps), each op, with and without
+    # store, beside the plain K2 or lowdim decode followed by reduce_cols,
+    # in turns; the unfused pair inside its launches too
+    epi_json = {}
+    for case, e in q_epi.items():
+        what = f"query {case[0]} {case[1]} ({case[2]}) epilogue"
+        table[what] = []
+        args, g, lead = e["data blocks"]
+        eb, nd = e["eb"], e["nd"]
+        name = "decode_lowdim_reduce" if e["lowdim"] else "prefix_finish_reduce"
+        kern = qk.decode_lowdim_reduce if e["lowdim"] else qk.prefix_finish_reduce
+        plain = (qk.decode_lowdim_reduce_plain if e["lowdim"]
+                 else qk.prefix_finish_reduce_plain)
+        serial = ((lambda: dk.decode_delta_lowdim(*args, eb)) if e["lowdim"]
+                  else (lambda: dk.prefix_finish(*args, eb)))
+        v0 = serial()
+        for op in qk.OPS:
+            gg = g if op == "sum" else None
+            for store in (False, True):
+                def fused(op=op, gg=gg, store=store):
+                    return kern(*args, eb, op, gg, lead, store)
+
+                def unfused(op=op, gg=gg):
+                    return qk.reduce_cols(serial(), op, gg, lead)
+
+                pair = in_turns({"unfused_ms": unfused, "fused_ms": fused})
+                r_ = row(name, fused,
+                         lambda op=op, gg=gg, store=store: plain(
+                             *args, eb, op, gg, lead, store), None,
+                         nbytes(*args, gg) + (nbytes(v0) if store else 0)
+                         + 4 * nd,
+                         OPS_PER_ELEM[name] * v0.numel(),
+                         op=op + (" with gaps" if gg is not None else ""),
+                         store=store, **pair,
+                         unfused_kernel_ms=launch_ms(unfused))
+                table[what].append(r_)
+                if op == "sum" and not store and case[0] in (
+                        "u8 walk 8 MiB", "u8 d4 walk 4 MiB"):
+                    epi_json[name] = r_
+        log_rows(what, table[what])
+        log(f"[timing] {what}: " + ", ".join(
+            f"{r_['op']}{' store' if r_['store'] else ''} {r_['fused_ms']:.4f}"
+            f" ms (inside {r_['kernel_ms']:.4f}) against the plain "
+            f"kernel + reduce_cols {r_['unfused_ms']:.4f} ms (inside "
+            f"{r_['unfused_kernel_ms']:.4f})" for r_ in table[what]))
     log("[timing] batch and query kernels " + json.dumps(
         {k: v for k, v in table.items() if k.startswith(("batch", "query"))}))
 
@@ -2840,7 +3000,8 @@ def main() -> int:
                                 "fire_decode_chunks_full",
                                 "decode_lowdim_chunks")]
             + table["u8 d4 walk 32k rows (nb 4096, D 4) sidecar"]
-            + [reduce_json])
+            + [reduce_json, epi_json["prefix_finish_reduce"],
+               epi_json["decode_lowdim_reduce"]])
     assert sorted(r["name"] for r in line) == sorted(KERNELS)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in line]}),
           flush=True)

@@ -50,7 +50,7 @@
 //   inclusive prefix and writes the exclusive one. The C entry point zeroes
 //   the status words and the ticket on the launch's stream.
 //
-// prefix_finish_kernel<EB, CONTIG>  (K2)
+// prefix_finish_kernel<EB, CONTIG, CHUNKED, REDUCE>  (K2)
 //   Replaces sprintz_tpu/ops/pallas_decode.py:_prefix_finish_kernel
 //   (prefix_finish). For each tile of TILE_ROWS rows and each dim: the
 //   inclusive prefix of the biased deltas minus bias x rows, plus the tile's
@@ -65,7 +65,7 @@
 //   each thread walks its run again from its prefix, writing the values in
 //   place; the image leaves in 16-byte stores as in K1.
 //
-// decode_lowdim_kernel<EB, ND, RAW>  (the lowdim layout's delta decode)
+// decode_lowdim_kernel<EB, ND, RAW, CHUNKED, REDUCE>  (the lowdim layout's delta decode)
 //   Replaces the JAX package's fused lowdim delta pass,
 //   sprintz_tpu/decoder.py:_decode_lowdim_grouped (decoder.py:265): the
 //   unpack (sprintz_tpu/ops/pack.py:unpack_dims_lowdim, pack.py:683, an XLA
@@ -108,6 +108,39 @@
 //   launch leaves them as it found them, and the wrapper keeps one zeroed
 //   buffer a device and stream. RAW mode takes steps 1, 2 and 4, its span
 //   from blockIdx.
+//
+// The REDUCE instantiations of K2 and the lowdim decode  (query pushdown's
+// reduce as an epilogue)
+//   Replace the reduce of the JAX package's compact query pass
+//   (sprintz_tpu/query/pushdown.py:139-152: jnp.sum(dtype=int32) / max /
+//   min over the decoded data blocks, run rows counted through gaps) and of
+//   its fused delta pass (pushdown.py:76-86), which a standalone reduce
+//   (csrc/query.cu) ran after the decode: here the kernel that finishes the
+//   values folds them while they are in registers or shared memory, with
+//   no launch of its own. Per launch (runtime arguments, uniform, no more
+//   instantiations): the op (sum mod 2^32 / max / min down each dim), the
+//   gaps (block b's last row counts 1 + gap_after[b] times in the sum),
+//   leading_gap (min is 0 after a leading run of zeros) and store (write the
+//   values, or keep them on the chip: the compact pass needs only the
+//   (ndims,) result).
+//   - K2: each (run, dim) item folds the values it finishes into a sum and a
+//     max (of v ^ mask for min) in registers, the tile's 32 gap words staged
+//     with its other cp.async copies; the 4 runs of a dim fold in shared
+//     memory and the CTA adds its dims' partials to the accumulators with
+//     one atomic a dim. Without store the image never leaves shared memory.
+//   - the lowdim decode: once the exclusive prefix is added (step 4), each
+//     thread folds its rows' lanes (its K gap words read with its
+//     sections), a warp by shuffles, the 8 warps through shared memory, and
+//     warp 0 adds the span's partials to the accumulators.
+//   - across CTAs, with no memset and no launch: kept accumulators (ndims
+//     words and, for K2, a count after them; zero between launches, one
+//     buffer a device and stream, kept by the wrapper). The last CTA to
+//     count itself in (K2: the count after the accumulators; the lowdim
+//     decode: its own finishing count) writes the (ndims,) result and sets
+//     the accumulators back to zero: min is kept as the max of v ^ mask, so
+//     0 is every op's identity (csrc/query.cu's reduce keeps the same words).
+//   The serial instantiations (REDUCE false) are the kernels above,
+//   unchanged.
 //
 // The CHUNKED instantiations of K1, K2 and the lowdim decode  (a decode in
 // chunks, each from its own state)
@@ -180,6 +213,23 @@ struct Plan {
   int window;  // bytes a row's chunk may need from its first field's byte
   int in_stride, out_stride, w_stride;
   int out_off, w_off, aux_off, smem;  // w_off: K1's widths, K2's tile offsets
+  int red_off, gap_off;  // K2's REDUCE: the runs' partials, the tile's gap words
+};
+
+// The REDUCE epilogue's arguments, uniform across a launch: op (RED_*),
+// gap_after (null, or a gap word a block), leading_gap, store (write the
+// values), the accumulators (ndims words, then K2's count; zero on entry,
+// left zero) and the (ndims,) u32 result.
+enum ReduceOp { RED_SUM = 0, RED_MAX = 1, RED_MIN = 2 };
+template <bool B>
+struct Flag {  // a compile-time flag, for a generic lambda's loop
+  static constexpr bool value = B;
+};
+struct ReduceArgs {
+  const int32_t* gap_after;
+  uint32_t* acc;
+  uint32_t* out;
+  int op, leading_gap, store;
 };
 
 __host__ __device__ constexpr int round16(long long n) { return (int)((n + 15) / 16 * 16); }
@@ -290,6 +340,31 @@ __device__ __forceinline__ uint32_t look_back(unsigned long long* status, int64_
   const uint32_t excl = look_back_sum(status, tile, ndims, d);
   st_status(status + tile * ndims + d, FLAG_PREFIX | (excl + agg));
   return excl;
+}
+
+// The REDUCE epilogue's last step, by every thread of the CTA once its
+// partials are in ra.acc: the last CTA of the launch to count itself in
+// (ra.acc[ndims]) writes the result and clears the accumulators and the
+// count. s_flag: a word of shared memory. The twin of csrc/query.cu's
+// publish.
+template <int EB>
+__device__ __forceinline__ void reduce_publish(const ReduceArgs& ra, int ndims,
+                                               unsigned* s_flag) {
+  constexpr uint32_t kMask = (1u << EB) - 1u;
+  __syncthreads();  // the CTA's atomics, then (the barrier and the fence) its count
+  if (threadIdx.x == 0) {
+    __threadfence();
+    *s_flag = atomicAdd(ra.acc + ndims, 1u) == gridDim.x - 1u;
+  }
+  __syncthreads();
+  if (*s_flag) {
+    __threadfence();
+    for (int d = threadIdx.x; d < ndims; d += blockDim.x) {
+      const uint32_t a = atomicExch(ra.acc + d, 0u);
+      ra.out[d] = ra.op == RED_MIN ? (ra.leading_gap ? 0u : a ^ kMask) : a;
+    }
+    if (threadIdx.x == 0) ra.acc[ndims] = 0u;
+  }
 }
 
 // ---- chunks: a decode cut at a sidecar's checkpoints (or a batch's streams)
@@ -625,13 +700,13 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int EB, bool CONTIG, bool CHUNKED>
+template <int EB, bool CONTIG, bool CHUNKED, bool REDUCE>
 __global__ void __launch_bounds__(THREADS)
     prefix_finish_kernel(const typename Narrow<EB>::type* __restrict__ bz,
                          const int32_t* __restrict__ tile_off,
                          typename Narrow<EB>::type* __restrict__ out, int64_t nrows,
                          int ndims, Plan p, const long long* __restrict__ first, int nchunks,
-                         const int32_t* __restrict__ cstate) {
+                         const int32_t* __restrict__ cstate, ReduceArgs ra) {
   using T = typename Narrow<EB>::type;
   constexpr int ES = sizeof(T);
   constexpr uint32_t kBias = 1u << (EB - 1);
@@ -642,6 +717,9 @@ __global__ void __launch_bounds__(THREADS)
   unsigned* s_runs_last = s_run + RUNS * p.dc;
   const ChunkMarks cm{s_runs_last + RUNS, s_runs_last + RUNS + TILE_BLOCKS,
                       reinterpret_cast<int*>(s_runs_last + RUNS + TILE_BLOCKS + 1)};
+  // REDUCE: the (run, dim) items' partials [RUNS][dc], the tile's gap words
+  uint32_t* s_red = reinterpret_cast<uint32_t*>(smem + p.red_off);
+  const uint32_t* s_gap = reinterpret_cast<const uint32_t*>(smem + p.gap_off);
   const int64_t ntiles = (nrows + TILE_ROWS - 1) / TILE_ROWS;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -668,6 +746,11 @@ __global__ void __launch_bounds__(THREADS)
     stage_range(smem + p.w_off, reinterpret_cast<const uint8_t*>(tile_off), to0, dc * 4,
                 ntiles * ndims * 4, tid, THREADS);
     const uint32_t* s_toff = reinterpret_cast<const uint32_t*>(smem + p.w_off + (to0 & 15));
+    if (REDUCE && ra.gap_after && d0 == 0) {  // the tile's blocks' gap words (rows are whole blocks)
+      stage_range(smem + p.gap_off, reinterpret_cast<const uint8_t*>(ra.gap_after),
+                  tile * TILE_BLOCKS * 4, rows / BLOCK_SZ * 4, nrows / BLOCK_SZ * 4, tid,
+                  THREADS);
+    }
     if (CHUNKED && d0 == 0) {
       mark_chunks(first, nchunks, row0 / BLOCK_SZ, (rows + BLOCK_SZ - 1) / BLOCK_SZ,
                   TILE_BLOCKS, cm, tid, THREADS);
@@ -732,6 +815,39 @@ __global__ void __launch_bounds__(THREADS)
             *v = (T)(acc & kMask);
           }
         }
+      } else if constexpr (REDUCE) {  // the values folded as they are finished
+        for (int kk = 0; kk < k; ++kk) acc += s_run[kk * p.dc + j];
+        // a loop for each op and store flag (uniform across the launch):
+        // the sum weighs a block's last row by 1 + its gap, max and min
+        // take the max of x ^ flip
+        auto run = [&](auto sum, auto store) {
+          constexpr bool kSum = decltype(sum)::value, kStore = decltype(store)::value;
+          const uint32_t flip = ra.op == RED_MIN ? kMask : 0u;
+          uint32_t red = 0;
+          auto step = [&](int r, uint32_t w) {
+            T* v = elem(r, j);
+            acc += (uint32_t)*v - kBias;
+            const uint32_t x = acc & kMask;
+            if constexpr (kStore) *v = (T)x;
+            if constexpr (kSum) {
+              red += x * w;
+            } else {
+              red = red > (x ^ flip) ? red : x ^ flip;
+            }
+          };
+          int r0 = k * RUN_ROWS;
+          for (; r0 + BLOCK_SZ <= r1; r0 += BLOCK_SZ) {
+            const uint32_t w7 = kSum && ra.gap_after ? 1u + s_gap[r0 / BLOCK_SZ] : 1u;
+#pragma unroll
+            for (int r8 = 0; r8 < BLOCK_SZ; ++r8) step(r0 + r8, r8 == BLOCK_SZ - 1 ? w7 : 1u);
+          }
+          for (int r = r0; r < r1; ++r) step(r, 1u);  // a short last block: no gaps then
+          return red;
+        };
+        const bool sum = ra.op == RED_SUM;
+        s_red[k * p.dc + j] =
+            ra.store ? (sum ? run(Flag<true>{}, Flag<true>{}) : run(Flag<false>{}, Flag<true>{}))
+                     : (sum ? run(Flag<true>{}, Flag<false>{}) : run(Flag<false>{}, Flag<false>{}));
       } else {
         for (int kk = 0; kk < k; ++kk) acc += s_run[kk * p.dc + j];
 #pragma unroll 8
@@ -743,16 +859,34 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
     __syncthreads();
-    if constexpr (CONTIG) {
-      store_range(dst, g0, rows * ndims * ES, smem, tid, THREADS);
-    } else {
-      for (int r = warp; r < rows; r += WARPS) {
-        store_range(dst, ((row0 + r) * ndims + d0) * ES, dc * ES, smem + r * p.in_stride, lane,
-                    32);
+    if constexpr (REDUCE) {  // the tile's partial of each dim, into the accumulators
+      for (int j = tid; j < dc; j += THREADS) {
+        uint32_t v = s_red[j];
+#pragma unroll
+        for (int k = 1; k < RUNS; ++k) {
+          const uint32_t y = s_red[k * p.dc + j];
+          v = ra.op == RED_SUM ? v + y : (v > y ? v : y);
+        }
+        if (ra.op == RED_SUM) {
+          atomicAdd(ra.acc + d0 + j, v);
+        } else {
+          atomicMax(ra.acc + d0 + j, v);
+        }
+      }
+    }
+    if (!REDUCE || ra.store) {
+      if constexpr (CONTIG) {
+        store_range(dst, g0, rows * ndims * ES, smem, tid, THREADS);
+      } else {
+        for (int r = warp; r < rows; r += WARPS) {
+          store_range(dst, ((row0 + r) * ndims + d0) * ES, dc * ES, smem + r * p.in_stride,
+                      lane, 32);
+        }
       }
     }
     __syncthreads();
   }
+  if constexpr (REDUCE) reduce_publish<EB>(ra, ndims, s_red);
 }
 
 // ---- the lowdim layout: u8 ND <= 4, u16 ND <= 2, so a row is ND * EB <= 32 bits
@@ -837,8 +971,9 @@ __device__ __forceinline__ uint32_t lowdim_look_back(unsigned long long* status,
 // ticket. A thread's part of the image is kOutWords 8-byte words (3, 4 or
 // 8), kept kPadWords apart, an odd number, so that the 8-byte stores of a
 // half-warp's threads fall in 16 different banks.
-// CHUNKED: also the span's chunk starts (ChunkMarks) and each warp's flag.
-template <int EB, int ND, bool RAW, bool CHUNKED>
+// CHUNKED: also the span's chunk starts (ChunkMarks) and each warp's flag;
+// REDUCE: each warp's partials.
+template <int EB, int ND, bool RAW, bool CHUNKED, bool REDUCE = false>
 struct DecodeLowdimSmem {
   using S = LowdimShape<EB / 8, ND>;
   static constexpr int kOutWords = RAW && EB == 16 ? S::NR * ND / 2 : S::CW;
@@ -848,7 +983,8 @@ struct DecodeLowdimSmem {
   static constexpr int kImage = kWidths + round16(S::SPAN * ND);
   static constexpr int kWarp = kImage + 8 * kPadWords * LD_THREADS;
   static constexpr int kMarks = kWarp + 4 * LD_WARPS + 16;
-  static constexpr int kBytes = kMarks + (CHUNKED ? 4 * (S::SPAN + 3 + LD_WARPS) : 0);
+  static constexpr int kBytes =
+      kMarks + (CHUNKED ? 4 * (S::SPAN + 3 + LD_WARPS) : 0) + (REDUCE ? 4 * LD_WARPS * ND : 0);
 };
 
 // The segmented scan's step: (flag, value) of rows a, then of rows b after
@@ -860,14 +996,14 @@ __device__ __forceinline__ void seg_add(uint32_t& fa, uint32_t& va, uint32_t fb,
   fa |= fb;
 }
 
-template <int EB, int ND, bool RAW, bool CHUNKED>
+template <int EB, int ND, bool RAW, bool CHUNKED, bool REDUCE>
 __global__ void __launch_bounds__(LD_THREADS)
     decode_lowdim_kernel(const uint8_t* __restrict__ dense, const uint8_t* __restrict__ widths,
                          uint8_t* __restrict__ out, unsigned long long* __restrict__ status,
                          int64_t nb, const long long* __restrict__ first, int nchunks,
-                         const int32_t* __restrict__ cstate) {
+                         const int32_t* __restrict__ cstate, ReduceArgs ra) {
   using S = LowdimShape<EB / 8, ND>;
-  using L = DecodeLowdimSmem<EB, ND, RAW, CHUNKED>;
+  using L = DecodeLowdimSmem<EB, ND, RAW, CHUNKED, REDUCE>;
   constexpr int K = S::K, NR = S::NR, SPAN = S::SPAN;
   constexpr uint32_t kMask = (1u << EB) - 1u;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -901,6 +1037,14 @@ __global__ void __launch_bounds__(LD_THREADS)
   unsigned* s_wflag = s_marks + SPAN + 3;  // [LD_WARPS]
   const ChunkMarks cm{s_marks, s_marks + SPAN, reinterpret_cast<int*>(s_marks + SPAN + 1)};
   if (CHUNKED) mark_chunks(first, nchunks, b0, nbs, SPAN, cm, tid, LD_THREADS);
+  // REDUCE: the weight of each of the thread's blocks' last row in a sum
+  // (1 + its gap word), read while the copies land
+  uint32_t gw[REDUCE ? K : 1];
+#pragma unroll
+  for (int k = 0; k < (REDUCE ? K : 1); ++k) {
+    gw[k] = 1u;
+    if (REDUCE && ra.gap_after && tid * K + k < nbs) gw[k] += (uint32_t)ra.gap_after[b0 + tid * K + k];
+  }
   cp_async_wait_all();
   __syncthreads();
 
@@ -1051,13 +1195,64 @@ __global__ void __launch_bounds__(LD_THREADS)
     // 4. Values into the image.
 #pragma unroll
     for (int r = 0; r < NR; ++r) row[r] = vadd<EB>(base, row[r]);
+    if constexpr (REDUCE) {
+      // 5. The thread's rows of its blocks (not those past nb) folded lane by
+      // lane, then the warp's threads by shuffles; each warp's partials into
+      // shared memory for warp 0.
+      uint32_t rv[ND];
+#pragma unroll
+      for (int d = 0; d < ND; ++d) rv[d] = 0u;
+      if (ra.op == RED_SUM) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          if (tid * K + k < nbs) {
+#pragma unroll
+            for (int r8 = 0; r8 < BLOCK_SZ; ++r8) {
+#pragma unroll
+              for (int d = 0; d < ND; ++d) {
+                const uint32_t x = (row[k * BLOCK_SZ + r8] >> (d * EB)) & kMask;
+                rv[d] += r8 == BLOCK_SZ - 1 ? x * gw[k] : x;
+              }
+            }
+          }
+        }
+      } else {
+        const uint32_t flip = ra.op == RED_MIN ? kMask : 0u;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          if (tid * K + k < nbs) {
+#pragma unroll
+            for (int r8 = 0; r8 < BLOCK_SZ; ++r8) {
+#pragma unroll
+              for (int d = 0; d < ND; ++d) {
+                const uint32_t x = ((row[k * BLOCK_SZ + r8] >> (d * EB)) & kMask) ^ flip;
+                rv[d] = rv[d] > x ? rv[d] : x;
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 16; o; o >>= 1) {
+#pragma unroll
+        for (int d = 0; d < ND; ++d) {
+          const uint32_t y = __shfl_xor_sync(0xffffffffu, rv[d], o);
+          rv[d] = ra.op == RED_SUM ? rv[d] + y : (rv[d] > y ? rv[d] : y);
+        }
+      }
+      uint32_t* s_redw = reinterpret_cast<uint32_t*>(smem + L::kMarks);  // [LD_WARPS][ND]
+      if (lane == 0) {
+#pragma unroll
+        for (int d = 0; d < ND; ++d) s_redw[warp * ND + d] = rv[d];
+      }
+    }
   }
   if constexpr (RAW && EB == 16) {
 #pragma unroll
     for (int i = 0; i < L::kOutWords; ++i) {
       img[i] = (uint64_t)f32[2 * i + 1] << 32 | f32[2 * i];
     }
-  } else {
+  } else if (!REDUCE || ra.store) {
     put_rows<S::RB>(img, row);
   }
   __syncthreads();
@@ -1068,7 +1263,7 @@ __global__ void __launch_bounds__(LD_THREADS)
   const int nwords = nbs * WB;
   const uint64_t* s_words = reinterpret_cast<const uint64_t*>(s_img);
   uint64_t* dst = reinterpret_cast<uint64_t*>(out) + b0 * WB;
-  for (int q = 2 * tid; q < nwords; q += 2 * LD_THREADS) {
+  for (int q = 2 * tid; q < ((!REDUCE || ra.store) ? nwords : 0); q += 2 * LD_THREADS) {
     const uint64_t lo = s_words[q / W * WP + q % W];
     if (q + 1 < nwords) {
       const uint64_t hi = s_words[(q + 1) / W * WP + (q + 1) % W];
@@ -1079,6 +1274,22 @@ __global__ void __launch_bounds__(LD_THREADS)
     }
   }
   if (!RAW && warp == 0) {  // the last span to finish zeroes the status words
+    if constexpr (REDUCE) {  // the span's partials first (the 8 warps'), into the accumulators
+      const uint32_t* s_redw = reinterpret_cast<const uint32_t*>(smem + L::kMarks);
+      if (lane < ND) {
+        uint32_t v = s_redw[lane];
+        for (int w = 1; w < LD_WARPS; ++w) {
+          const uint32_t y = s_redw[w * ND + lane];
+          v = ra.op == RED_SUM ? v + y : (v > y ? v : y);
+        }
+        if (ra.op == RED_SUM) {
+          atomicAdd(ra.acc + lane, v);
+        } else {
+          atomicMax(ra.acc + lane, v);
+        }
+      }
+      __syncwarp();  // the lanes' atomics, then (the fence below) the count
+    }
     unsigned last = 0;
     if (lane == 0) {
       __threadfence();
@@ -1086,6 +1297,13 @@ __global__ void __launch_bounds__(LD_THREADS)
     }
     if (__shfl_sync(0xffffffffu, last, 0)) {
       for (int64_t i = lane; i <= nspans; i += 32) status[i] = 0;
+      if constexpr (REDUCE) {  // the result; the accumulators back to zero
+        __threadfence();
+        if (lane < ND) {
+          const uint32_t a = atomicExch(ra.acc + lane, 0u);
+          ra.out[lane] = ra.op == RED_MIN ? (ra.leading_gap ? 0u : a ^ kMask) : a;
+        }
+      }
     }
   }
 }
@@ -1128,28 +1346,33 @@ Plan unpack_plan(int ndims, int maxb, int es, int os, bool chunked) {
   return p;
 }
 
-// K2's tile: one image of the values, in place, and the tile's offsets.
-Plan finish_plan(int ndims, int es, bool chunked) {
+// K2's tile: one image of the values, in place, and the tile's offsets
+// (REDUCE: also the runs' partials and the tile's gap words).
+Plan finish_plan(int ndims, int es, bool chunked, bool reduce) {
   Plan p{};
   const int marks = chunked ? 4 * (RUNS + TILE_BLOCKS + 3) : 0;  // runs' last, ChunkMarks
+  auto red = [reduce](int dc) { return reduce ? 4 * RUNS * dc + round16(15 + 4 * TILE_BLOCKS) : 0; };
   p.w_off = round16(15 + (long long)TILE_ROWS * ndims * es);
   p.aux_off = p.w_off + round16(15 + 4LL * ndims);
-  p.smem = p.aux_off + 4 * RUNS * ndims + marks;
+  p.smem = p.aux_off + 4 * RUNS * ndims + marks + red(ndims);
   if (p.smem <= SMEM_BUDGET) {
     p.dc = ndims;
     p.contig = 1;
-    return p;
+  } else {
+    for (int dc = 32;; dc += 32) {
+      const int in_stride = round16(15 + dc * es);
+      const int smem =
+          TILE_ROWS * in_stride + round16(15 + 4 * dc) + 4 * RUNS * dc + marks + red(dc);
+      if (dc > 32 && (smem > SMEM_BUDGET || dc >= ndims)) break;
+      p.dc = dc;
+      p.in_stride = in_stride;
+      p.w_off = TILE_ROWS * in_stride;
+      p.aux_off = p.w_off + round16(15 + 4 * dc);
+      p.smem = smem;
+    }
   }
-  for (int dc = 32;; dc += 32) {
-    const int in_stride = round16(15 + dc * es);
-    const int smem = TILE_ROWS * in_stride + round16(15 + 4 * dc) + 4 * RUNS * dc + marks;
-    if (dc > 32 && (smem > SMEM_BUDGET || dc >= ndims)) break;
-    p.dc = dc;
-    p.in_stride = in_stride;
-    p.w_off = TILE_ROWS * in_stride;
-    p.aux_off = p.w_off + round16(15 + 4 * dc);
-    p.smem = smem;
-  }
+  p.red_off = p.aux_off + 4 * RUNS * p.dc + marks;
+  p.gap_off = p.red_off + 4 * RUNS * p.dc;
   return p;
 }
 
@@ -1195,54 +1418,65 @@ int launch_unpack(const uint8_t* dense, const uint8_t* widths, void* out, int32_
                                                            nb, ndims, maxb, p, ck, s);
 }
 
-template <int EB, bool CONTIG, bool CHUNKED>
+template <int EB, bool CONTIG, bool CHUNKED, bool REDUCE>
 int launch_finish(const void* bz, const int32_t* tile_off, void* out, long long rows, int ndims,
-                  const Plan& p, const ChunkArgs& ck, cudaStream_t s) {
+                  const Plan& p, const ChunkArgs& ck, const ReduceArgs& ra, cudaStream_t s) {
   using T = typename Narrow<EB>::type;
-  const cudaError_t err = allow_smem(prefix_finish_kernel<EB, CONTIG, CHUNKED>, p.smem);
+  const cudaError_t err = allow_smem(prefix_finish_kernel<EB, CONTIG, CHUNKED, REDUCE>, p.smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned ntiles = (unsigned)((rows + TILE_ROWS - 1) / TILE_ROWS);
-  prefix_finish_kernel<EB, CONTIG, CHUNKED><<<ntiles, THREADS, (size_t)p.smem, s>>>(
+  prefix_finish_kernel<EB, CONTIG, CHUNKED, REDUCE><<<ntiles, THREADS, (size_t)p.smem, s>>>(
       static_cast<const T*>(bz), tile_off, static_cast<T*>(out), rows, ndims, p, ck.first,
-      ck.nchunks, ck.state);
+      ck.nchunks, ck.state, ra);
   return (int)cudaGetLastError();
 }
 
-template <int EB, bool CHUNKED>
+template <int EB, bool CHUNKED, bool REDUCE>
 int launch_finish(const void* bz, const int32_t* tile_off, void* out, long long rows, int ndims,
-                  const ChunkArgs& ck, cudaStream_t s) {
-  const Plan p = finish_plan(ndims, EB / 8, CHUNKED);
-  return p.contig ? launch_finish<EB, true, CHUNKED>(bz, tile_off, out, rows, ndims, p, ck, s)
-                  : launch_finish<EB, false, CHUNKED>(bz, tile_off, out, rows, ndims, p, ck, s);
+                  const ChunkArgs& ck, const ReduceArgs& ra, cudaStream_t s) {
+  const Plan p = finish_plan(ndims, EB / 8, CHUNKED, REDUCE);
+  return p.contig
+             ? launch_finish<EB, true, CHUNKED, REDUCE>(bz, tile_off, out, rows, ndims, p, ck, ra, s)
+             : launch_finish<EB, false, CHUNKED, REDUCE>(bz, tile_off, out, rows, ndims, p, ck, ra,
+                                                         s);
 }
 
-template <int EB, int ND, bool RAW, bool CHUNKED>
+template <int EB, int ND, bool RAW, bool CHUNKED, bool REDUCE>
 int launch_lowdim(const uint8_t* dense, const uint8_t* widths, void* out,
                   unsigned long long* status, long long nb, const ChunkArgs& ck,
-                  cudaStream_t s) {
+                  const ReduceArgs& ra, cudaStream_t s) {
   constexpr int span = LowdimShape<EB / 8, ND>::SPAN;
-  constexpr int smem = DecodeLowdimSmem<EB, ND, RAW, CHUNKED>::kBytes;
+  constexpr int smem = DecodeLowdimSmem<EB, ND, RAW, CHUNKED, REDUCE>::kBytes;
   static_assert(smem <= SMEM_DEFAULT, "the lowdim decode stays in the default shared memory");
   // the status words are zero: the last span of every launch zeroes them
   const unsigned spans = (unsigned)((nb + span - 1) / span);
-  decode_lowdim_kernel<EB, ND, RAW, CHUNKED><<<spans, LD_THREADS, (size_t)smem, s>>>(
-      dense, widths, static_cast<uint8_t*>(out), status, nb, ck.first, ck.nchunks, ck.state);
+  decode_lowdim_kernel<EB, ND, RAW, CHUNKED, REDUCE><<<spans, LD_THREADS, (size_t)smem, s>>>(
+      dense, widths, static_cast<uint8_t*>(out), status, nb, ck.first, ck.nchunks, ck.state, ra);
   return (int)cudaGetLastError();
 }
 
-template <bool RAW, bool CHUNKED>
+template <bool RAW, bool CHUNKED, bool REDUCE = false>
 int launch_lowdim(const uint8_t* dense, const uint8_t* widths, void* out,
                   unsigned long long* status, long long nb, int ndims, int elem_bits,
-                  const ChunkArgs& ck, cudaStream_t s) {
+                  const ChunkArgs& ck, cudaStream_t s, const ReduceArgs& ra = ReduceArgs{}) {
   switch (elem_bits * 8 + ndims) {
-    case 8 * 8 + 1: return launch_lowdim<8, 1, RAW, CHUNKED>(dense, widths, out, status, nb, ck, s);
-    case 8 * 8 + 2: return launch_lowdim<8, 2, RAW, CHUNKED>(dense, widths, out, status, nb, ck, s);
-    case 8 * 8 + 3: return launch_lowdim<8, 3, RAW, CHUNKED>(dense, widths, out, status, nb, ck, s);
-    case 8 * 8 + 4: return launch_lowdim<8, 4, RAW, CHUNKED>(dense, widths, out, status, nb, ck, s);
-    case 16 * 8 + 1: return launch_lowdim<16, 1, RAW, CHUNKED>(dense, widths, out, status, nb, ck, s);
-    case 16 * 8 + 2: return launch_lowdim<16, 2, RAW, CHUNKED>(dense, widths, out, status, nb, ck, s);
+    case 8 * 8 + 1: return launch_lowdim<8, 1, RAW, CHUNKED, REDUCE>(dense, widths, out, status, nb, ck, ra, s);
+    case 8 * 8 + 2: return launch_lowdim<8, 2, RAW, CHUNKED, REDUCE>(dense, widths, out, status, nb, ck, ra, s);
+    case 8 * 8 + 3: return launch_lowdim<8, 3, RAW, CHUNKED, REDUCE>(dense, widths, out, status, nb, ck, ra, s);
+    case 8 * 8 + 4: return launch_lowdim<8, 4, RAW, CHUNKED, REDUCE>(dense, widths, out, status, nb, ck, ra, s);
+    case 16 * 8 + 1: return launch_lowdim<16, 1, RAW, CHUNKED, REDUCE>(dense, widths, out, status, nb, ck, ra, s);
+    case 16 * 8 + 2: return launch_lowdim<16, 2, RAW, CHUNKED, REDUCE>(dense, widths, out, status, nb, ck, ra, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The checks of a REDUCE launch's arguments (those of csrc/query.cu's
+// sprintz_reduce_cols): false where the kernel cannot take them.
+bool reduce_args_ok(long long rows, int ndims, const ReduceArgs& ra, const void* out) {
+  return rows >= 1 && ndims >= 1 && ndims <= 65535 && ra.op >= RED_SUM && ra.op <= RED_MIN &&
+         ra.acc && ra.out && (!ra.store || (out && !((uintptr_t)out & 15))) &&
+         (!ra.gap_after || (ra.op == RED_SUM && rows % BLOCK_SZ == 0 &&
+                            !((uintptr_t)ra.gap_after & 15)));
 }
 
 }  // namespace
@@ -1306,12 +1540,36 @@ int sprintz_prefix_finish(const void* bz, const void* tile_off, void* out, long 
   const int32_t* to = static_cast<const int32_t*>(tile_off);
   const ChunkArgs ck{static_cast<const long long*>(first), nchunks,
                      static_cast<const int32_t*>(state)};
+  const ReduceArgs none{};
   if (elem_bits == 8)
-    return first ? launch_finish<8, true>(bz, to, out, rows, ndims, ck, s)
-                 : launch_finish<8, false>(bz, to, out, rows, ndims, ck, s);
+    return first ? launch_finish<8, true, false>(bz, to, out, rows, ndims, ck, none, s)
+                 : launch_finish<8, false, false>(bz, to, out, rows, ndims, ck, none, s);
   if (elem_bits == 16)
-    return first ? launch_finish<16, true>(bz, to, out, rows, ndims, ck, s)
-                 : launch_finish<16, false>(bz, to, out, rows, ndims, ck, s);
+    return first ? launch_finish<16, true, false>(bz, to, out, rows, ndims, ck, none, s)
+                 : launch_finish<16, false, false>(bz, to, out, rows, ndims, ck, none, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2 with the reduce as its epilogue (serial only): bz, tile_off, out and
+// rows as sprintz_prefix_finish's (out unused and may be null without
+// store); op 0 the sum mod 2^32, 1 the max, 2 the min down each dim, into
+// red (ndims,) u32; gap_after null, or (rows / 8) i32, 16-byte aligned,
+// run rows after each block, counted in the sum as repeats of its last row
+// (rows a multiple of 8; sum only); leading_gap: min is 0; store: write the
+// values too; acc: ndims + 1 u32 words, zero on entry and left zero.
+int sprintz_prefix_finish_reduce(const void* bz, const void* tile_off, void* out, long long rows,
+                                 int ndims, int elem_bits, int op, const void* gap_after,
+                                 int leading_gap, int store, void* acc, void* red, void* stream) {
+  const ReduceArgs ra{static_cast<const int32_t*>(gap_after), static_cast<uint32_t*>(acc),
+                      static_cast<uint32_t*>(red), op, leading_gap, store};
+  if (((uintptr_t)bz | (uintptr_t)tile_off) & 15 || !reduce_args_ok(rows, ndims, ra, out)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* to = static_cast<const int32_t*>(tile_off);
+  const ChunkArgs none{nullptr, 0, nullptr};
+  if (elem_bits == 8) return launch_finish<8, false, true>(bz, to, out, rows, ndims, none, ra, s);
+  if (elem_bits == 16) return launch_finish<16, false, true>(bz, to, out, rows, ndims, none, ra, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1341,6 +1599,28 @@ int sprintz_decode_lowdim(const void* dense, const void* widths, void* out, void
   if (raw) return launch_lowdim<true, false>(dn, wd, out, st, nb, ndims, elem_bits, ck, s);
   return first ? launch_lowdim<false, true>(dn, wd, out, st, nb, ndims, elem_bits, ck, s)
                : launch_lowdim<false, false>(dn, wd, out, st, nb, ndims, elem_bits, ck, s);
+}
+
+// The lowdim decode with the reduce as its epilogue (serial only): dense,
+// widths, out and status as sprintz_decode_lowdim's with raw 0 (out unused
+// and may be null without store); op, gap_after (nb words), leading_gap,
+// store, acc and red as sprintz_prefix_finish_reduce's (acc's count word
+// unused: the decode's own finishing count publishes the result).
+int sprintz_decode_lowdim_reduce(const void* dense, const void* widths, void* out, void* status,
+                                 long long nb, int ndims, int elem_bits, int op,
+                                 const void* gap_after, int leading_gap, int store, void* acc,
+                                 void* red, void* stream) {
+  const ReduceArgs ra{static_cast<const int32_t*>(gap_after), static_cast<uint32_t*>(acc),
+                      static_cast<uint32_t*>(red), op, leading_gap, store};
+  if (nb < 1 || ((uintptr_t)dense | (uintptr_t)widths) & 15 || !status ||
+      !reduce_args_ok(nb * BLOCK_SZ, ndims, ra, out)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const ChunkArgs none{nullptr, 0, nullptr};
+  return launch_lowdim<false, false, true>(
+      static_cast<const uint8_t*>(dense), static_cast<const uint8_t*>(widths), out,
+      static_cast<unsigned long long*>(status), nb, ndims, elem_bits, none,
+      static_cast<cudaStream_t>(stream), ra);
 }
 
 // The message of a CUDA error code, for the errors of every library here.

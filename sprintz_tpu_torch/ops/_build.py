@@ -57,7 +57,12 @@ SIGNATURES = {
     "sprintz_huff_encode_sizes": ("huffman", (_P, _P, _P, _L, _I, _I, _P)),
     "sprintz_huff_encode_emit": ("huffman", (_P, _P, _P, _P, _P, _P, _L, _I,
                                              _I, _P)),
-    "sprintz_reduce_cols": ("query", (_P, _P, _P, _L, _I, _I, _I, _I, _P)),
+    "sprintz_prefix_finish_reduce": ("decode", (_P, _P, _P, _L, _I, _I, _I,
+                                                _P, _I, _I, _P, _P, _P)),
+    "sprintz_decode_lowdim_reduce": ("decode", (_P, _P, _P, _P, _L, _I, _I,
+                                                _I, _P, _I, _I, _P, _P, _P)),
+    "sprintz_reduce_cols": ("query", (_P, _P, _P, _L, _I, _I, _I, _I, _P,
+                                      _P)),
 }
 ERROR_STRING_LIB = "decode"  # the library that defines sprintz_error_string
 

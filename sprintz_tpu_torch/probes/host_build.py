@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build the delta decode's kernels (``csrc/decode.cu``: K1/K4/K5
 ``unpack_zz_kernel``, K2 ``prefix_finish_kernel`` and the lowdim decode
-``decode_lowdim_kernel``, serial and in chunks), the encode kernels
+``decode_lowdim_kernel``, serial, in chunks and with the query's reduce as
+their epilogue), the encode kernels
 (``csrc/pack.cu``: K3 ``pack_rows_kernel`` and the lowdim
 ``encode_lowdim_kernel``) and the FIRE kernels (``csrc/fire.cu``: the
 encode with and without its states, the decode serial, in long chunks on
@@ -10,8 +11,8 @@ host with g++, and the query pushdown's reduce (``csrc/query.cu``:
 ``reduce_cols_kernel``), and hold them to their plain versions at the cases
 of ``probes/unpack_cases.py`` (``UNPACK_CASES``, ``LOWDIM_CASES``,
 ``SEED_CASES``, ``CHUNK_CASES``), ``probes/encode_cases.py``
-(``PACK_CASES``, ``LOWDIM_PACK_CASES``) and ``FIRE_CASES`` and
-``QUERY_CASES`` below, with no card and no nvcc.
+(``PACK_CASES``, ``LOWDIM_PACK_CASES``) and ``FIRE_CASES``,
+``QUERY_CASES`` and ``EPILOGUE_CASES`` below, with no card and no nvcc.
 
     python3 sprintz_tpu_torch/probes/host_build.py [--resident 1 3] [--src FILE]
 
@@ -24,7 +25,9 @@ copies that land when a wait covers their group, and C++ atomics (an
 mbarrier is a word of pending arrivals, phase and expected count). Shared memory and every output
 start as garbage, so a byte the kernel fails to write, or reads before
 its copy lands, shows; the lowdim decode's status words start zeroed, as
-the wrapper keeps them, and must be zeroed again after each launch. The C
+the wrapper keeps them, and must be zeroed again after each launch, as
+must the reduce's kept accumulators and their count. The shim's card has
+2 SMs of 2 CTAs, so the reduce's one-wave grid strides over rows. The C
 entry points are called through ctypes as the wrappers call them. It
 prints one line a case and exits 1 on the first difference. Not imported
 by the port.
@@ -122,7 +125,9 @@ ENTRIES = {
     "sprintz_fire_scan": [P, P, P, P, P, L, I, I, I, I, P],
     "sprintz_fire_decode_chunks": [P, P, P, I, P, L, I, I, I, P],
     "sprintz_fire_decode_short": [P, P, P, I, L, P, L, I, I, I, P],
-    "sprintz_reduce_cols": [P, P, P, L, I, I, I, I, P],
+    "sprintz_prefix_finish_reduce": [P, P, P, L, I, I, I, P, I, I, P, P, P],
+    "sprintz_decode_lowdim_reduce": [P, P, P, P, L, I, I, I, P, I, I, P, P, P],
+    "sprintz_reduce_cols": [P, P, P, L, I, I, I, I, P, P],
 }
 # (elem_bits, ndims, blocks, chunks, truncated coefficient): FIRE's chunked
 # decode at chunk counts 1, 2, 7 and 33 of unequal lengths (empty ones
@@ -146,12 +151,32 @@ SHORT_CASES = [(8, 1, 300, 150, False), (8, 3, 50, 70, False),
                (16, 2, 200, 40, False), (8, 33, 48, 5, True),
                (8, 256, 6, 3, True), (16, 64, 96, [0, 32, 64, 96], True),
                (16, 7, 64, 9, True), (8, 64, 120, [0, 100, 120], True)]
-# (elem_bits, ndims, rows): the reduce at column tiles of 1, 4, 8 and 32
-# lanes (D 33 and 129 leave a ragged tile), one row, rows that end inside a
-# strip or a block, and u16 sums that wrap past 2^31 (40000 rows near 65535)
-QUERY_CASES = [(8, 1, 1), (8, 3, 2049), (8, 4, 4096), (8, 5, 808), (8, 64, 1000),
-               (8, 129, 264), (16, 1, 40000), (16, 2, 520), (16, 33, 3000),
-               (16, 64, 2048)]
+# (elem_bits, ndims, rows): the reduce's three loads. 16-byte vectors of
+# whole rows (a row's bytes divide 16: u8 D 1, 2, 4, 8, u16 D 1, 2, 4; a
+# short last vector where the bytes do not fill it, two blocks' last rows
+# in a vector at u8 D 1), 16-byte vectors of a row (its bytes a multiple of
+# 16: u8 D 16 and 64, u16 D 64; 3 vectors a row at u8 D 48 and u16 D 24,
+# 64 in two column tiles at u8 D 1024), a value at a time (D 3, 5, 33, 129:
+# ragged column tiles of 4, 8 and 32 lanes); one row, rows that end inside
+# a block, and u16 sums that wrap past 2^31 (40000 rows near 65535)
+QUERY_CASES = [(8, 1, 1), (8, 1, 1048), (8, 2, 4104), (8, 3, 2049), (8, 4, 4096),
+               (8, 5, 808), (8, 8, 1000), (8, 16, 808), (8, 48, 520), (8, 64, 1000),
+               (8, 129, 264), (8, 1024, 64), (16, 1, 40000), (16, 2, 520), (16, 4, 1000),
+               (16, 24, 72), (16, 33, 3000), (16, 64, 2048)]
+# (elem_bits, ndims, blocks, values): the reduce as the epilogue of K2 (every
+# row-major width, and lowdim widths up to 100 blocks) and of the lowdim
+# decode (u8 D <= 4, u16 D <= 2), values of a walk
+# or near the top of the range, each op with and without store, the sum
+# with gaps (some near 2^31 rows: u16 sums wrap) and min after a leading
+# run. K2: a short last tile (nb 100), one whole tile (nb 32, D 5: neither
+# a divisor nor a multiple of 16), one short tile (nb 7, D 33), rows past
+# a tile's shared memory (D 600: dims in chunks); the lowdim decode: spans
+# of 1024 blocks and a short second one (u8 D 1), K = 1 (u8 D 3), u16
+CASE_GAPS_TOP = (1 << 31) - 1
+EPILOGUE_CASES = [(8, 64, 100, "walk"), (8, 5, 32, "walk"), (8, 33, 7, "top"),
+                  (16, 3, 70, "walk"), (16, 64, 40, "top"), (8, 600, 40, "walk"),
+                  (8, 4, 300, "walk"), (8, 1, 1100, "top"), (8, 3, 257, "walk"),
+                  (16, 2, 400, "top"), (16, 1, 40, "walk")]
 
 
 def host_source(src: str, kernels: int, helpers: re.Pattern | None = HELPERS,
@@ -214,7 +239,11 @@ def build_query(src: pathlib.Path = QUERY_SRC, out: pathlib.Path = OUT) -> ctype
 
 
 class HostKernels:
-    """The wrappers' calls of the C entry points, on CPU tensors."""
+    """The wrappers' calls of the C entry points, on CPU tensors (the
+    query's on ``device``'s: ``probes/query_probe.py`` makes the same calls
+    on the card)."""
+
+    device = "cpu"
 
     def __init__(self, so: ctypes.CDLL, resident: int):
         import torch
@@ -372,20 +401,78 @@ class HostKernels:
         self.check(err)
         return out
 
+    def reduce_args(self, nd: int, gap_after):
+        """An output of garbage, zeroed kept accumulators (D words and a
+        count) and the gaps, 16-byte aligned, for a reduce launch."""
+        from sprintz_tpu_torch.ops import decode_kernels as dk
+
+        t = self.torch
+        gaps = None if gap_after is None else dk.aligned16(t.from_numpy(
+            np.ascontiguousarray(gap_after, dtype=np.int32)).to(self.device))
+        return (self.garbage((nd,), t.int32),
+                t.zeros(nd + 1, dtype=t.int32, device=self.device), gaps)
+
+    def check_cleared(self, acc):
+        if acc.any():
+            raise RuntimeError("host kernel: the reduce left its accumulators set")
+
     def reduce_cols(self, vals, op: str, gap_after, leading_gap: bool):
-        """The reduce into an output of garbage, which the entry point sets
-        before its launch."""
+        """The reduce into an output of garbage, from zeroed accumulators
+        that the launch must leave zeroed."""
+        from sprintz_tpu_torch.ops import decode_kernels as dk
+        from sprintz_tpu_torch.ops import query_kernels as qk
+
+        rows, nd = vals.shape
+        out, acc, gaps = self.reduce_args(nd, gap_after)
+        vals = dk.aligned16(vals)
+        self.check(self.so.sprintz_reduce_cols(
+            vals.data_ptr(), None if gaps is None else gaps.data_ptr(), out.data_ptr(),
+            rows, nd, 8 * vals.element_size(), qk.OPS.index(op), int(leading_gap),
+            acc.data_ptr(), None))
+        self.check_cleared(acc)
+        return out
+
+    def prefix_finish_reduce(self, bz, toff, elem_bits: int, op: str, gap_after,
+                             leading_gap: bool, store: bool):
+        """K2 with the reduce epilogue: (values into garbage, or None
+        without store, the result)."""
+        from sprintz_tpu_torch.ops import decode_kernels as dk
+        from sprintz_tpu_torch.ops import query_kernels as qk
+
+        rows, nd = bz.shape
+        vals = self.garbage(tuple(bz.shape), bz.dtype) if store else None
+        red, acc, gaps = self.reduce_args(nd, gap_after)
+        bz, toff = dk.aligned16(bz), dk.aligned16(toff)
+        self.check(self.so.sprintz_prefix_finish_reduce(
+            bz.data_ptr(), toff.data_ptr(), None if vals is None else vals.data_ptr(), rows,
+            nd, elem_bits, qk.OPS.index(op), None if gaps is None else gaps.data_ptr(),
+            int(leading_gap), int(store), acc.data_ptr(), red.data_ptr(), None))
+        self.check_cleared(acc)
+        return vals, red
+
+    def decode_lowdim_reduce(self, dense, widths, elem_bits: int, op: str, gap_after,
+                             leading_gap: bool, store: bool):
+        """The lowdim decode with the reduce epilogue, from zeroed status
+        words and accumulators that the launch must leave zeroed."""
+        from sprintz_tpu_torch.ops import decode_kernels as dk
         from sprintz_tpu_torch.ops import query_kernels as qk
 
         t = self.torch
-        rows, nd = vals.shape
-        out = self.garbage((nd,), t.int32)
-        gaps = None if gap_after is None else t.from_numpy(
-            np.ascontiguousarray(gap_after, dtype=np.int32))
-        self.check(self.so.sprintz_reduce_cols(
-            vals.data_ptr(), None if gaps is None else gaps.data_ptr(), out.data_ptr(),
-            rows, nd, 8 * vals.element_size(), qk.OPS.index(op), int(leading_gap), None))
-        return out
+        nb, nd, _ = dense.shape
+        vals = self.garbage((nb * 8, nd), dk.narrow_dtype(elem_bits)) if store else None
+        red, acc, gaps = self.reduce_args(nd, gap_after)
+        status = t.zeros(-(-nb // dk.lowdim_span_blocks(elem_bits, nd)) + 1, dtype=t.int64,
+                         device=self.device)
+        dense, widths = dk.aligned16(dense), dk.aligned16(widths)
+        self.check(self.so.sprintz_decode_lowdim_reduce(
+            dense.data_ptr(), widths.data_ptr(), None if vals is None else vals.data_ptr(),
+            status.data_ptr(), nb, nd, elem_bits, qk.OPS.index(op),
+            None if gaps is None else gaps.data_ptr(), int(leading_gap), int(store),
+            acc.data_ptr(), red.data_ptr(), None))
+        self.check_cleared(acc)
+        if status.any():
+            raise RuntimeError("host kernel: the lowdim decode left its status words set")
+        return vals, red
 
     def prefix_finish(self, bz, toff, elem_bits: int, chunks=None):
         from sprintz_tpu_torch.ops import decode_kernels as dk
@@ -666,7 +753,7 @@ def check_query_case(hk: HostKernels, eb: int, nd: int, rows: int) -> str | None
     top = 1 << eb
     x = rng.integers(top - top // 64, top, (rows, nd)).astype(np.int32)
     x[rng.integers(0, rows, 3), rng.integers(0, nd, 3)] = 0  # a few zeros for min
-    vals = dk.narrow(torch.from_numpy(x), eb)
+    vals = dk.narrow(torch.from_numpy(x), eb).to(hk.device)
     calls = [(op, None, False) for op in qk.OPS] + [("min", None, True)]
     if rows % 8 == 0:
         gaps = rng.integers(0, 1 << 20, rows // 8).astype(np.int32)
@@ -678,6 +765,79 @@ def check_query_case(hk: HostKernels, eb: int, nd: int, rows: int) -> str | None
         if got.dtype != want.dtype or not torch.equal(got, want):
             return f"reduce_cols {op}" + (" with gaps" if gaps is not None else "") + (
                 " after a leading run" if lead else "")
+    return None
+
+
+def epilogue_case(eb: int, nd: int, nb: int, values: str, device="cpu"):
+    """An ``EPILOGUE_CASES`` case: its values (nb * 8, D) (a walk from 0, or
+    near the top of the range, where a leading run moves min), K2's inputs for them (the
+    biased deltas and tile offsets), the lowdim payload where D fits it, and
+    gaps after the blocks (one near 2^31); tensors on ``device``."""
+    import torch
+
+    from sprintz_tpu_torch.ops import decode_kernels as dk
+    from sprintz_tpu_torch.ops import pack_kernels as pk
+    from sprintz_tpu_torch.probes import encode_cases as ec
+
+    rng = np.random.default_rng([eb, nd, nb])
+    top = 1 << eb
+    if values == "walk":
+        x = np.cumsum(rng.integers(-9, 10, (nb * 8, nd)), axis=0) % top
+    else:
+        x = rng.integers(top - top // 64, top, (nb * 8, nd))
+    d = (np.diff(x, axis=0, prepend=0) + top // 2) % top - top // 2
+    u = torch.from_numpy(((d << 1) ^ (d >> 63)).astype(np.int32)).reshape(nb, 8, nd)
+    bz, toff = (t.to(device) for t in dk.zz_and_offsets(u, eb))
+    lowdim = None
+    if nd * eb <= 32:
+        narrow = x.astype(np.uint8 if eb == 8 else np.uint16)
+        widths, _, dense, _ = pk.encode_lowdim_plain(ec.rows_tensor(narrow), eb // 8)
+        lowdim = (dense.to(device), widths.to(device))
+    gaps = rng.integers(0, 1 << 20, nb).astype(np.int32)
+    gaps[rng.integers(0, nb)] = CASE_GAPS_TOP
+    return x, (bz.reshape(-1, nd), toff), lowdim, gaps
+
+
+def check_epilogue_case(hk: HostKernels, eb: int, nd: int, nb: int,
+                        values: str) -> str | None:
+    """The host-built K2 and lowdim decode with the reduce epilogue at an
+    ``EPILOGUE_CASES`` case against their plain versions (the plain decode,
+    then ``reduce_cols_plain``), each op with and without store, the sum
+    with gaps, min after a leading run; the plain decode must give the
+    case's values. The name of the first that differs, or None."""
+    import torch
+
+    from sprintz_tpu_torch.ops import decode_kernels as dk
+    from sprintz_tpu_torch.ops import query_kernels as qk
+
+    x, (bz, toff), lowdim, gaps = epilogue_case(eb, nd, nb, values, hk.device)
+    calls = [("sum", None, False, True), ("sum", gaps, False, False),
+             ("sum", gaps, True, True), ("max", None, False, False),
+             ("max", None, True, True), ("min", None, False, True),
+             ("min", None, True, False)]
+    layouts = []
+    if lowdim is None or nb <= 100:
+        layouts.append(("K2", lambda *a: hk.prefix_finish_reduce(bz, toff, eb, *a),
+                        lambda *a: qk.prefix_finish_reduce_plain(bz, toff, eb, *a)))
+    if lowdim is not None:
+        layouts.append(("the lowdim decode",
+                        lambda *a: hk.decode_lowdim_reduce(*lowdim, eb, *a),
+                        lambda *a: qk.decode_lowdim_reduce_plain(*lowdim, eb, *a)))
+    for name, kern, plain in layouts:
+        got_x = plain("max", None, False, True)[0]
+        if not np.array_equal(dk.widen(got_x).cpu().numpy(), x):
+            return f"{name}'s plain decode of the case"
+        for op, g, lead, store in calls:
+            got, want = kern(op, g, lead, store), plain(op, g, lead, store)
+            what = (f"{name} with the reduce epilogue: {op}"
+                    + (" with gaps" if g is not None else "")
+                    + (" after a leading run" if lead else "")
+                    + (", store" if store else ""))
+            if (got[0] is None) != (want[0] is None) or (
+                    got[0] is not None and not torch.equal(got[0], want[0])):
+                return what + ": values"
+            if got[1].dtype != want[1].dtype or not torch.equal(got[1], want[1]):
+                return what + ": result"
     return None
 
 
@@ -762,6 +922,11 @@ def main() -> int:
             what = "reduce u{} D {} rows {}, {} resident".format(*case, resident)
             if report(what, check_query_case(hq, *case),
                       "every op equals its plain version"):
+                return 1
+        for case in EPILOGUE_CASES:
+            what = "reduce epilogue u{} D {} nb {} {}, {} resident".format(*case, resident)
+            if report(what, check_epilogue_case(hk, *case),
+                      "every op, store and gap setting equals its plain version"):
                 return 1
         hp = HostKernels(so_pack, resident)
         for nd, es in ec.PACK_CASES:

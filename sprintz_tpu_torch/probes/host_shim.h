@@ -52,6 +52,22 @@ inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   return cudaSuccess;
 }
 inline int cudaGetLastError() { return cudaSuccess; }
+// a card of 2 SMs that holds 2 CTAs a SM: a one-wave grid of 4 CTAs, so that
+// a kernel's loops over rows run more than once
+constexpr int cudaDevAttrMultiProcessorCount = 16;
+inline int cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline int cudaDeviceGetAttribute(int* v, int, int) {
+  *v = 2;
+  return cudaSuccess;
+}
+template <class K>
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 2;
+  return cudaSuccess;
+}
 inline const char* cudaGetErrorString(int) { return "host shim"; }
 
 constexpr int kCanary = 64;
@@ -133,6 +149,10 @@ inline T __shfl_xor_sync(unsigned mask, T v, int m, int width = 32) {
   return shim_exchange(mask, v, l ^ (m % width), true);
 }
 
+inline void __syncwarp(unsigned mask = 0xffffffffu) {
+  g_cta->lanes(threadIdx.x / 32, mask).arrive_and_wait();
+}
+
 // The lanes of `mask` whose `pred` holds, to each of them.
 inline unsigned __ballot_sync(unsigned mask, int pred) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
@@ -168,8 +188,15 @@ template <class T>
 inline T __ldg(const T* p) {
   return *p;
 }
+template <class T>
+inline T __ldcg(const T* p) {
+  return *p;
+}
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return std::atomic_ref<unsigned>(*p).fetch_add(v);
+}
+inline unsigned atomicExch(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).exchange(v);
 }
 inline unsigned atomicOr(unsigned* p, unsigned v) {
   return std::atomic_ref<unsigned>(*p).fetch_or(v);

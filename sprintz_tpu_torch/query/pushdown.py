@@ -4,8 +4,11 @@ Counterpart of ``sprintz_tpu/query/pushdown.py``: the reference's
 ``QueryParams{op, materialize}`` (query.hpp:22-29) and
 ``query_rowmajor_{delta,xff}_rle_{8,16}b``. The stream is walked and
 gathered on the host, decoded on the card by ``decoder.decode_device``, and
-reduced there by ``ops/query_kernels.reduce_cols`` (``csrc/query.cu``):
-with ``materialize=False`` only the (D,) result leaves the card.
+reduced there: a delta stream's by the decode itself
+(``ops/query_kernels.decode_reduce``: the reduce as the epilogue of K2 or
+of the lowdim decode), a FIRE stream's by ``ops/query_kernels.reduce_cols``
+(``csrc/query.cu``) after ``decoder.decode_device``. With
+``materialize=False`` only the (D,) result leaves the card.
 
 Two device passes, chosen as the JAX package chooses them (``last_path``
 names the one the last call took: "verbatim", "compact" or "fused"):
@@ -16,9 +19,13 @@ names the one the last call took: "verbatim", "compact" or "fused"):
   start), and runs carry zero delta, so the prefix over the data rows
   alone is the timeline's at those rows. Each block's following run
   counts its last row again, ``gap_after`` times, in the sum; a leading
-  run brings a 0 to min. Work is O(data blocks), not O(rows).
+  run brings a 0 to min. Work is O(data blocks), not O(rows). The values
+  never leave the chip (the epilogue's ``store=False``); the payload,
+  widths and gaps go up in one copy.
 - fused (xff, whose runs extrapolate row by row, or ``materialize=True``):
-  ``decode_device`` over the whole timeline, then the reduce.
+  the whole timeline (``decoder.place_blocks``), delta with the reduce as
+  its decode's epilogue (``store=True``), xff decoded by
+  ``decode_device``, then ``reduce_cols``.
 
 Sums are int32 on the card and wrap mod 2^32, as the reference's i32
 accumulators (query.hpp:283-291) and the JAX package's do; the host widens
@@ -39,12 +46,14 @@ from ..decoder import (
     decode_device,
     download_values,
     gather_payloads,
+    place_blocks,
     upload_payload,
     walk_headers,
 )
 from ..device import resolve_device
 from ..errors import CorruptStreamError
-from ..ops.query_kernels import reduce_cols
+from ..ops.decode_kernels import to_device_together
+from ..ops.query_kernels import decode_reduce, reduce_cols
 from ..stream_format import read_metadata_rle
 
 
@@ -126,22 +135,30 @@ def query(buf: bytes, params: QueryParams, codec: str = "delta",
     if compact:
         last_path = "compact"
         if ndata:  # else a pure-run stream: every row is 0
-            dense, widths, _ = upload_payload(gather_payloads(buf, idx), idx,
-                                              dev)
-            # the data blocks alone, as one run-free timeline
-            data_vals = decode_device(dense, widths, None, ndata * BLOCK_SZ,
-                                      elem_sz, "delta", lowdim)
-            gap_after = np.diff(idx.out_rows, append=idx.total_rows) - BLOCK_SZ
-            red = reduce_cols(data_vals, op, gap_after.astype(np.int32),
-                              leading_gap=bool(idx.out_rows[0] > 0))
+            gap_after = (np.diff(idx.out_rows, append=idx.total_rows)
+                         - BLOCK_SZ).astype(np.int32)
+            up = [gather_payloads(buf, idx), idx.widths, gap_after]
+            dense, widths, gaps = (
+                to_device_together(up, dev) if dev.type == "cuda"
+                else [torch.from_numpy(a) for a in up])
+            # the data blocks alone, as one run-free timeline, reduced as
+            # they are decoded
+            _, red = decode_reduce(dense, widths, 8 * elem_sz, op, gaps,
+                                   bool(idx.out_rows[0] > 0), store=False,
+                                   lowdim=lowdim)
     else:
         last_path = "fused"
         if idx.total_rows:
-            vals = decode_device(
-                *upload_payload(gather_payloads(buf, idx), idx, dev),
-                idx.total_rows, elem_sz, codec, lowdim)
-            if op is not None:
-                red = reduce_cols(vals, op)
+            up = upload_payload(gather_payloads(buf, idx), idx, dev)
+            if codec == "delta" and op is not None:
+                vals, red = decode_reduce(
+                    *place_blocks(*up, idx.total_rows), 8 * elem_sz, op,
+                    lowdim=lowdim)
+            else:
+                vals = decode_device(*up, idx.total_rows, elem_sz, codec,
+                                     lowdim)
+                if op is not None:
+                    red = reduce_cols(vals, op)
 
     tail = np.frombuffer(buf, dtype=udt, count=remaining_len,
                          offset=idx.tail_offset)

@@ -1,10 +1,15 @@
-"""The query pushdown's reduce (``ops/query_kernels.reduce_cols``): its
-plain version against numpy, exactly (integers: the tolerance is zero),
-and ``csrc/query.cu`` built with g++ on the host
+"""The query pushdown's reduce kernels: ``ops/query_kernels.reduce_cols``'s
+plain version against numpy, exactly (integers: the tolerance is zero);
+``csrc/query.cu`` built with g++ on the host
 (``sprintz_tpu_torch/probes/host_build.py``: one std::thread a CUDA thread,
 the output and shared memory filled with garbage first, 1 and 3 CTAs at a
-time) against the plain version at ``host_build.QUERY_CASES``. On the card,
-``chip_smoke.py`` holds the kernel built with nvcc to the plain version."""
+time) against the plain version at ``host_build.QUERY_CASES``; and the
+reduce as the epilogue of K2 and of the lowdim decode (``csrc/decode.cu``'s
+REDUCE instantiations, host-built) against theirs at
+``host_build.EPILOGUE_CASES``, the kept accumulators (and the lowdim
+decode's status words) zero again after every launch. On the card,
+``chip_smoke.py`` holds the kernels built with nvcc to the plain
+versions."""
 
 import shutil
 
@@ -94,3 +99,40 @@ def test_host_built_reduce_equals_plain(query_library, resident, eb, ndims,
                                         rows):
     hk = hb.HostKernels(query_library, resident)
     assert hb.check_query_case(hk, eb, ndims, rows) is None
+
+
+@pytest.fixture(scope="module")
+def decode_library(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this host: the kernels' host build needs it")
+    return hb.build(out=tmp_path_factory.mktemp("host"))
+
+
+@pytest.mark.parametrize("resident", [1, 3])
+@pytest.mark.parametrize("eb,ndims,nb,values", hb.EPILOGUE_CASES)
+def test_host_built_epilogue_equals_plain(decode_library, resident, eb, ndims,
+                                          nb, values):
+    hk = hb.HostKernels(decode_library, resident)
+    assert hb.check_epilogue_case(hk, eb, ndims, nb, values) is None
+
+
+def test_epilogue_refusals():
+    """The epilogue wrappers' argument checks (on the CPU, before the plain
+    version)."""
+    bz = torch.zeros((16, 4), dtype=torch.uint8)
+    toff = torch.zeros((1, 1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="op"):
+        qk.prefix_finish_reduce(bz, toff, 8, "mean")
+    with pytest.raises(ValueError, match="tile_offsets"):
+        qk.prefix_finish_reduce(bz, toff[:, :, :3], 8, "sum")
+    with pytest.raises(ValueError, match="gap_after"):
+        qk.prefix_finish_reduce(bz, toff, 8, "sum", np.zeros(3, np.int32))
+    with pytest.raises(ValueError, match="whole blocks"):
+        qk.prefix_finish_reduce(bz[:9], toff, 8, "sum", np.zeros(1, np.int32))
+    dense = torch.zeros((2, 4, 8), dtype=torch.uint8)
+    widths = torch.zeros((2, 4), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="elem_bits"):
+        qk.decode_lowdim_reduce(dense, widths, 16, "sum")
+    vals, red = qk.decode_reduce(dense, widths, 8, "min", store=False,
+                                 lowdim=True, leading_gap=True)
+    assert vals is None and red.tolist() == [0] * 4
