@@ -61,6 +61,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    chunks, starts mid-tile and at tile and span edges); the chunked decode
    and the states' encode at the ring shapes with 1, 2, 7 and 33 chunks of
    unequal lengths from random states;
+2e. FIRE's transform instantiations (``fire_encode`` / ``fire_decode`` with
+   ``transform=True``: the xff transform's head), bit-exact against their
+   plain version at the ring shapes of phase 2 (u8 and u16, D 1, 31, 33,
+   129) and on a u8 stream (D 33) whose learning counter wraps;
 3. main path: compress then decompress with device="cuda", every kernel's
    launch counter and every host entry point's call counter set to 0
    before that run and read after it (every kernel must have launched, and
@@ -150,6 +154,24 @@ Phases, each of which raises (exit code != 0) when it fails:
    own): ``mp_compress`` from each one's slice equals ``compress`` and
    ``mp_decompress`` gives the input, delta and xff, u8 and u16, runs
    across the process boundary, the 8 MiB u8 walk;
+3i. the other codec formats, each API call in a counting window of its own
+   (the launches it must make, and no other): ``simple.compress_simple`` /
+   ``decompress_simple`` with raw, delta and xff on the 8 MiB u8 and u16
+   walks (bytes equal the port's plain CPU run, values the input; a raw
+   decode launches K4 or K5 alone, a delta one K1 and K2, every encode K3);
+   FIRE's transform instantiations against their plain version over the
+   whole 8 MiB walks, at D 64 and at D 129 (the xff transform's head), the
+   plain run on the host's CPU, timed once; ``transform_encode`` /
+   ``transform_decode`` for every kind at D 64 (the walks as they are), 5
+   and 129 (the same elements): values equal the input; delta and
+   doubledelta launch nothing and equal their CPU run, xff launches the
+   transform instantiations alone (never the codec's FIRE) and equals its
+   plain version's bytes at D 64 and 129 and its CPU run on a 4096-row
+   prefix at D 5; ``univariate.compress_univariate(method="sprintz")`` on a 4
+   MiB 1-D u8 walk, delta and xff (the lowdim path at D 1; card bytes equal
+   CPU bytes on a 32k prefix), and every host method (the nine legacy
+   formats, dyndelta, sprintzpack, the nth-order deltas) on small u8 / u16
+   walks;
 4. timings: each kernel's wrapper, the time inside its kernel launches
    alone, its plain version and, where one exists, one PyTorch call of the
    same function, by CUDA events (median of 25 after warm-up, L2 flushed
@@ -187,7 +209,12 @@ Phases, each of which raises (exit code != 0) when it fails:
    ``dp_compress`` and ``dp_decompress`` at 1, 4 and 8 shards beside
    ``compress`` and ``decompress``, in turns, with their host / H2D /
    device / D2H splits (L2 flushed, medians); FIRE's serial scans with
-   their init and final carries beside the scans without, in turns.
+   their init and final carries beside the scans without, in turns; FIRE's
+   transform instantiations at the 8 MiB walks (rows beside the codec's,
+   chain bounds as theirs); ``compress_simple`` / ``decompress_simple``
+   and ``transform_encode`` / ``transform_decode`` beside ``compress`` /
+   ``decompress`` in turns (``[e2e simple]``, ``[e2e transform]``), with
+   the simple codecs' device passes beside the RLE codec's.
 
 The last two lines of standard output are the card's name and power limit
 followed by ``{"ok": true, "device": {...}}``; the line before them is
@@ -227,13 +254,19 @@ OPS_PER_ELEM = {"unpack_zz": 12, "unpack_rows": 9, "unpack_rows_narrow": 9,
                 "encode_lowdim": 12, "encode_lowdim_errs": 9, "decode_lowdim": 12,
                 "prefix_finish_reduce": 6, "decode_lowdim_reduce": 15,
                 "unpack_lowdim_raw": 5,
-                "fire_encode_full": 16, "fire_decode_full": 15}
+                "fire_encode_full": 16, "fire_decode_full": 15,
+                "fire_encode_transform": 18, "fire_decode_transform": 15}
 # FIRE's serial chain: dependent integer operations a block, by elem_bits
 # (the count is in csrc/fire.cu's header), and its tiling; the
 # full-precision coefficient is one shift where the truncated one is three
 CHAIN_OPS = {"fire_encode": {8: 15, 16: 14}, "fire_decode": {8: 16, 16: 20},
              "fire_encode_full": {8: 13, 16: 12},
-             "fire_decode_full": {8: 14, 16: 18}}
+             "fire_decode_full": {8: 14, 16: 18},
+             # the preprocessor's: a shift more at u16 encode; at u16 decode
+             # a multiply-high and a shift-add a row for the codec's shift
+             # and multiply-add
+             "fire_encode_transform": {8: 15, 16: 15},
+             "fire_decode_transform": {8: 16, 16: 20}}
 FIRE_TILE_BLOCKS = 16  # csrc/fire.cu TILE_BLOCKS
 FIRE_STAGES = 8  # csrc/fire.cu STAGES: tiles in the ring
 CHAIN_PROBE_ITERS = 1 << 20
@@ -305,6 +338,12 @@ KERNELS = {  # name -> (source, the TPU pass it replaces: file:line)
                              "sprintz_tpu/query/pushdown.py:139"),
     "decode_lowdim_reduce": ("sprintz_tpu_torch/csrc/decode.cu",
                              "sprintz_tpu/query/pushdown.py:139"),
+    # the standalone transforms' xff head: the same lax.scan with
+    # transform=True (sprintz_tpu/transforms.py:96-113 calls it)
+    "fire_encode_transform": ("sprintz_tpu_torch/csrc/fire.cu",
+                              "sprintz_tpu/models/forecasters.py:303"),
+    "fire_decode_transform": ("sprintz_tpu_torch/csrc/fire.cu",
+                              "sprintz_tpu/models/forecasters.py:303"),
 }
 # the kernels each main path must launch: the row-major one and the lowdim
 # one (u8 ndims <= 4, u16 ndims <= 2)
@@ -361,6 +400,35 @@ DIST_PATH = {"unpack_zz", "prefix_finish", "pack_rows", "unpack_rows",
              "decode_lowdim", "unpack_lowdim_raw", "fire_decode_full",
              "fire_decode_short", "fire_decode_short_full", "huff_encode",
              "huff_decode"}
+# the other codec formats (phase 3i): the kernels each call must launch,
+# and no other. The non-RLE codecs (simple.py): every encode K3 (xff after
+# FIRE), a raw decode K5 (u8) or K4 (u16) alone, a delta decode K1 and K2,
+# an xff decode K5 / K4 and FIRE; the transforms: xff's head on FIRE's
+# transform instantiations alone, delta and doubledelta on none; the
+# univariate "sprintz" method, the lowdim path at D 1
+SIMPLE_CALLS = {
+    ("raw", 1, "encode"): {"pack_rows"}, ("raw", 2, "encode"): {"pack_rows"},
+    ("raw", 1, "decode"): {"unpack_rows_narrow"},
+    ("raw", 2, "decode"): {"unpack_rows"},
+    ("delta", 1, "encode"): {"pack_rows"}, ("delta", 2, "encode"): {"pack_rows"},
+    ("delta", 1, "decode"): {"unpack_zz", "prefix_finish"},
+    ("delta", 2, "decode"): {"unpack_zz", "prefix_finish"},
+    ("xff", 1, "encode"): {"fire_encode", "pack_rows"},
+    ("xff", 2, "encode"): {"fire_encode", "pack_rows"},
+    ("xff", 1, "decode"): {"unpack_rows_narrow", "fire_decode"},
+    ("xff", 2, "decode"): {"unpack_rows", "fire_decode"}}
+TRANSFORM_CALLS = {"xff encode": {"fire_encode_transform"},
+                   "xff decode": {"fire_decode_transform"}}
+UNIVARIATE_CALLS = {("delta", "encode"): {"encode_lowdim"},
+                    ("delta", "decode"): {"decode_lowdim"},
+                    ("xff", "encode"): {"fire_encode_full", "encode_lowdim_errs"},
+                    ("xff", "decode"): {"unpack_lowdim_raw", "fire_decode_full"}}
+FORMATS_PATH = set().union(*SIMPLE_CALLS.values(), *TRANSFORM_CALLS.values(),
+                           *UNIVARIATE_CALLS.values())
+HOST_METHODS = ("delta_simple8b", "delta8b", "online8b", "delta_online8b",
+                "delta2_online8b", "delta_rle8b", "delta_rle28b",
+                "doubledelta8b", "dyndelta8b", "dyndelta", "sprintzpack",
+                "delta", "doubledelta", "tripledelta")
 HOST_DIST_PATH = {"walk_headers", "walk_headers_parallel", "gather_blocks",
                   "gather_dims", "build_plan", "assemble_stream"}
 DIST_SHARDS = (1, 2, 4, 8)
@@ -416,7 +484,8 @@ def main() -> int:
     try:
         import sprintz_tpu_torch
         from sprintz_tpu_torch import (SprintzCodec, checkpoint, decoder,
-                                       encoder, native_host, planner)
+                                       encoder, native_host, planner, simple,
+                                       transforms, univariate)
         from sprintz_tpu_torch.entropy import huffman as hf
         from sprintz_tpu_torch.models import forecasters as fc
         from sprintz_tpu_torch.ops import _build
@@ -435,7 +504,8 @@ def main() -> int:
         from sprintz_tpu_torch.probes import encode_cases as ec
         from sprintz_tpu_torch.probes import unpack_cases as uc
         from sprintz_tpu_torch.probes.host_build import (
-            FIRE_CASES, SHORT_CASES, chunk_cuts, chunk_states, short_case)
+            FIRE_CASES, SHORT_CASES, chunk_cuts, chunk_states, short_case,
+            wrapping_transform_rows)
         from sprintz_tpu_torch.stream_format import read_metadata_rle
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
@@ -485,10 +555,13 @@ def main() -> int:
         "reduce_cols": (qk.reduce_cols, "launches"),
         "prefix_finish_reduce": (qk.prefix_finish_reduce, "launches"),
         "decode_lowdim_reduce": (qk.decode_lowdim_reduce, "launches"),
+        "fire_encode_transform": (fc.fire_encode, "transform_launches"),
+        "fire_decode_transform": (fc.fire_decode, "transform_launches"),
     }
     assert set(counters) == set(KERNELS) == (LOWDIM_PATH | ROWMAJOR_PATH
                                              | SEEKABLE_PATH | BATCH_PATH
-                                             | QUERY_PATH | DIST_PATH)
+                                             | QUERY_PATH | DIST_PATH
+                                             | FORMATS_PATH)
 
     # ---------------------------------------------------------- 1. build
     t0 = time.perf_counter()
@@ -716,6 +789,52 @@ def main() -> int:
                                  f"carried state differs from the stream")
     log("[kernels] FIRE equals its plain version across the counter's and "
         "the coefficient's wraps")
+
+    # 2e. FIRE's transform instantiations at the ring shapes and on a u8
+    # stream whose learning counter wraps (their whole-stream check is in
+    # phase 3i, on its streams); a generator of their own, so that the
+    # main path's streams stay bench.py's
+    t_phase = time.perf_counter()
+    xrng = np.random.default_rng(SEED + 16)
+
+    def transform_raw(errs: torch.Tensor, eb: int) -> torch.Tensor:
+        """The transform encode's errors as a stream stores them: uint8,
+        or u16 as int16."""
+        if eb == 8:
+            return errs.to(torch.uint8)
+        return (errs - ((errs & 0x8000) << 1)).to(torch.int16)
+
+    def check_transform(what, vals, eb):
+        """The transform encode and decode against their plain versions on
+        (N, D) int32 values on the card; the decode must give them back."""
+        want = fc.fire_encode_plain(vals, eb, transform=True)
+        check("fire_encode_transform", fc.fire_encode(vals, eb, transform=True),
+              want, what)
+        raw = transform_raw(want, eb)
+        got = fc.fire_decode(raw, eb, transform=True)
+        check("fire_decode_transform", got,
+              fc.fire_decode_plain(raw, eb, transform=True), what)
+        if not torch.equal(dk.widen(got), vals):
+            raise AssertionError(f"FIRE transform {what}: the decode does not "
+                                 f"give the values back")
+
+    nxf = 0
+    for eb in (8, 16):
+        for nb in (1, FIRE_TILE_BLOCKS - 1, FIRE_TILE_BLOCKS + 1,
+                   ring_blocks // 3, ring_blocks + 1):
+            for nd in (1, 31, 33, 129):
+                vals = walk_stream(xrng, nb * 8, nd, eb // 8).astype(np.int32)
+                if nb == ring_blocks // 3:  # every delta, no forecast holds
+                    vals = xrng.integers(0, 1 << eb, vals.shape
+                                         ).astype(np.int32)
+                check_transform(f"u{eb} nb {nb} D {nd}",
+                                torch.from_numpy(vals).to(dev), eb)
+                nxf += 1
+    check_transform("u8 counter wrap (nb 1100, D 33)", torch.from_numpy(
+        wrapping_transform_rows(8, 33, 1100)).to(dev), 8)
+    log(f"[kernels] FIRE's transform instantiations equal their plain "
+        f"version at {nxf} ring shapes and across the u8 counter's wrap; "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
     def huff_inputs(data: np.ndarray, cs: int):
         """Device inputs of both Huffman kernels for the bytes ``data``: the
@@ -1977,6 +2096,157 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s; the phase "
         f"{time.perf_counter() - t_phase:.1f} s")
 
+    # ------------------------------------- 3i. the other codec formats
+    t_phase = time.perf_counter()
+    f_launches = {k: 0 for k in KERNELS}
+
+    def window(what: str, fn, needed: set):
+        """fn's result, its launches counted from 0: raise unless they are
+        exactly the kernels in ``needed``; they join the path's counts."""
+        zero_counts()
+        out = fn()
+        got = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+        ran = {k for k, v in got.items() if v}
+        if ran != needed:
+            raise AssertionError(f"{what}: launched {sorted(ran)}, must launch "
+                                 f"exactly {sorted(needed)}")
+        for k, v in got.items():
+            f_launches[k] += v
+        return out
+
+    simple_bufs = {}
+    for w in ("u8 walk 8 MiB", "u16 walk 8 MiB"):
+        x = streams[w]
+        es, flat = x.dtype.itemsize, x.reshape(-1)
+        for c in simple.CODECS:
+            buf = window(f"compress_simple {w} {c}",
+                         lambda: simple.compress_simple(flat, 64, c),
+                         SIMPLE_CALLS[(c, es, "encode")])
+            out = window(f"decompress_simple {w} {c}",
+                         lambda: simple.decompress_simple(buf, c, elem_sz=es),
+                         SIMPLE_CALLS[(c, es, "decode")])
+            if not np.array_equal(out, flat):
+                raise AssertionError(f"simple {w} {c}: round trip differs")
+            if simple.compress_simple(flat, 64, c, device="cpu") != buf:
+                raise AssertionError(f"simple {w} {c}: card bytes differ from "
+                                     f"the plain CPU run's")
+            simple_bufs[(w, c)] = buf
+            log(f"[formats] simple {w} {c}: {x.nbytes} B -> {len(buf)} B "
+                f"(ratio {x.nbytes / len(buf):.4f}), bytes == CPU's, exact")
+
+    # FIRE's transform instantiations over the whole walks against their
+    # plain version, run on the host's CPU (a Python loop of launch-bound
+    # steps: on an H100 it took about 5x the time of the host's CPU, 24 s
+    # for both walks), whose one run is its plain time in section 4's rows
+    # (host clock): at D 64 every row of the walk, at D 129 (odd: the u8
+    # operand's parity alternates across a warp's dims) the xff transform's
+    # head, the blocks that ``_xff_nblocks`` keeps
+    def host_once(fn):
+        c = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - c) * 1e3
+
+    xf_inputs = {}
+    for w in ("u8 walk 8 MiB", "u16 walk 8 MiB"):
+        x = streams[w]
+        es, flat = x.dtype.itemsize, x.reshape(-1)
+        eb = 8 * es
+        for nd in (64, 129):
+            nrows = (x.shape[0] if nd == 64 else 8 * transforms._xff_nblocks(
+                flat.size, nd, es))
+            r = encoder.upload_rows(flat[:nrows * nd].reshape(nrows, nd), dev)
+            r_host = r.cpu()
+            want_e, ms_e = host_once(lambda: fc.fire_encode_plain(
+                r_host, eb, transform=True))
+            what = f"{w} D {nd}"
+            check("fire_encode_transform",
+                  fc.fire_encode(r, eb, transform=True), want_e.to(dev), what)
+            raw_host = transform_raw(want_e, eb)
+            raw = raw_host.to(dev)
+            want_d, ms_d = host_once(lambda: fc.fire_decode_plain(
+                raw_host, eb, transform=True))
+            check("fire_decode_transform",
+                  fc.fire_decode(raw, eb, transform=True), want_d.to(dev), what)
+            if not torch.equal(dk.widen(want_d), r_host):
+                raise AssertionError(f"FIRE transform {what}: the plain decode "
+                                     f"does not give the stream back")
+            xf_inputs[(w, nd)] = dict(rows=r, raw=raw, eb=eb, plain_ms={
+                "fire_encode_transform": ms_e, "fire_decode_transform": ms_d})
+            log(f"[kernels] FIRE's transform instantiations equal their plain "
+                f"version over the whole {what} ({nrows // 8} blocks; plain "
+                f"encode {ms_e:.1f} ms, decode {ms_d:.1f} ms on the host's "
+                f"CPU)")
+
+    for w in ("u8 walk 8 MiB", "u16 walk 8 MiB"):
+        x = streams[w]
+        es, flat = x.dtype.itemsize, x.reshape(-1)
+        for tk in transforms.KINDS:
+            for nd in (64, 5, 129):
+                what = f"transform {tk} {w} D {nd}"
+                buf = window(what, lambda: transforms.transform_encode(
+                    flat, tk, ndims=nd),
+                    TRANSFORM_CALLS.get(f"{tk} encode", set()))
+                out = window(what, lambda: transforms.transform_decode(
+                    buf, tk, es), TRANSFORM_CALLS.get(f"{tk} decode", set()))
+                if not np.array_equal(out, flat):
+                    raise AssertionError(f"{what}: round trip differs")
+                if tk != "xff":
+                    same = buf == transforms.transform_encode(
+                        flat, tk, ndims=nd, device="cpu")
+                elif (w, nd) in xf_inputs:
+                    # the plain run's errors and the lag-D tail
+                    head = transforms._xff_nblocks(flat.size, nd, es) * 8 * nd
+                    body = flat.copy()
+                    body[:head] = decoder.download_values(
+                        xf_inputs[(w, nd)]["raw"]).view(flat.dtype)[:head]
+                    body[head:] = flat[head:] - flat[head - nd: flat.size - nd]
+                    same = buf == buf[:6] + body.tobytes()
+                else:  # a prefix of 4096 rows and a partial row
+                    m = 4096 * nd + nd // 2 + 1
+                    same = (transforms.transform_encode(flat[:m], tk, ndims=nd)
+                            == transforms.transform_encode(
+                                flat[:m], tk, ndims=nd, device="cpu"))
+                if not same:
+                    raise AssertionError(f"{what}: bytes differ from the "
+                                         f"plain version's")
+        log(f"[formats] transforms {w}: every kind at D 64, 5 and 129 exact, "
+            f"bytes == the plain version's")
+
+    # the univariate facade: "sprintz" (the lowdim path at D 1) on a 4 MiB
+    # walk, and every host method on small walks
+    x1 = walk_stream(xrng, 1 << 22, 1, 1).reshape(-1)
+    for c in ("delta", "xff"):
+        buf = window(f"compress_univariate {c}",
+                     lambda: univariate.compress_univariate(x1, codec=c),
+                     UNIVARIATE_CALLS[(c, "encode")])
+        out = window(f"decompress_univariate {c}",
+                     lambda: univariate.decompress_univariate(buf, codec=c),
+                     UNIVARIATE_CALLS[(c, "decode")])
+        if not np.array_equal(out, x1):
+            raise AssertionError(f"univariate sprintz {c}: round trip differs")
+        pre = x1[:1 << 15]
+        if (univariate.compress_univariate(pre, codec=c)
+                != univariate.compress_univariate(pre, codec=c, device="cpu")):
+            raise AssertionError(f"univariate sprintz {c}: card bytes differ "
+                                 f"from the CPU's on a 32k prefix")
+        log(f"[formats] univariate sprintz {c} 4 MiB: ratio "
+            f"{x1.nbytes / len(buf):.4f}, exact")
+    for m in HOST_METHODS:
+        es = 1 if m.endswith("8b") else 2
+        xs = walk_stream(xrng, 4099, 1, es).reshape(-1)
+        if not np.array_equal(univariate.decompress_univariate(
+                univariate.compress_univariate(xs, method=m), method=m,
+                elem_sz=es), xs):
+            raise AssertionError(f"univariate {m}: round trip differs")
+    log(f"[formats] univariate host methods {', '.join(HOST_METHODS)}: exact")
+    missing = [k for k in FORMATS_PATH if f_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the formats path never launched {missing}")
+    log(f"[formats] launches: {json.dumps(f_launches)}")
+    launches = {k: launches[k] + f_launches[k] for k in KERNELS}
+    log(f"[formats] every call launched exactly its kernels; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
     # -------------------------------------------------------- 4. timings
     flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
 
@@ -2057,7 +2327,7 @@ def main() -> int:
             "max_abs_err": max_err[name], "ms": time_ms(kern),
             "kernel_ms": launch_ms(kern),
             "plain_ms": time_ms(plain) if callable(plain) else plain,
-            "bound_ms": bounds[by] * 1e3, "bound_by": by,
+            "plain_on": "cuda", "bound_ms": bounds[by] * 1e3, "bound_by": by,
             "chain_bound_ms": bounds["chain"] * 1e3 if chain_steps else None,
             "bytes_bound_ms": bounds["bytes"] * 1e3,
             "library_ms": time_ms(lib) if lib else None, "bytes": nb_,
@@ -2157,6 +2427,7 @@ def main() -> int:
                 f"its launches {r['kernel_ms']:.4f} ms), plain "
                 + ("not timed at this size" if plain is None
                    else f"{plain:.4f} ms")
+                + (" on the host's CPU" if r["plain_on"] == "cpu" else "")
                 + f", bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}, "
                 f"{r['bytes']} B"
@@ -2401,6 +2672,29 @@ def main() -> int:
     for what, f in ld_fire.items():
         table[what + " sidecar"] = fire_states_full_rows(f)
         log_rows(what + " sidecar", table[what + " sidecar"])
+    # FIRE's transform instantiations at the 8 MiB walks (phase 3i's
+    # inputs; the plain time is its one full-size run there, on the host's
+    # CPU)
+    for w, what in (("u8 walk 8 MiB", "u8 main (nb 16384, D 64)"),
+                    ("u16 walk 8 MiB", "u16 main (nb 8192, D 64)")):
+        f = xf_inputs[(w, 64)]
+        eb, r, raw = f["eb"], f["rows"], f["raw"]
+        nblocks, nv = r.shape[0] // 8, r.numel()
+        out_v = fc.fire_decode(raw, eb, transform=True)
+        table[what + " transform"] = [
+            row("fire_encode_transform",
+                lambda: fc.fire_encode(r, eb, transform=True),
+                f["plain_ms"]["fire_encode_transform"], None, 2 * nbytes(r),
+                OPS_PER_ELEM["fire_encode_transform"] * nv,
+                chain_steps=nblocks * CHAIN_OPS["fire_encode_transform"][eb],
+                plain_on="cpu"),
+            row("fire_decode_transform",
+                lambda: fc.fire_decode(raw, eb, transform=True),
+                f["plain_ms"]["fire_decode_transform"], None,
+                nbytes(raw, out_v), OPS_PER_ELEM["fire_decode_transform"] * nv,
+                chain_steps=nblocks * CHAIN_OPS["fire_decode_transform"][eb],
+                plain_on="cpu")]
+        log_rows(what + " transform", table[what + " transform"])
     log("[timing] kernels " + json.dumps(table))
 
     class Split:
@@ -2986,9 +3280,103 @@ def main() -> int:
     log(f"[timing] the distribution rows took "
         f"{time.perf_counter() - t_phase:.1f} s")
 
+    # the other codec formats end to end: compress_simple beside compress
+    # (raw beside delta) and decompress_simple beside decompress, then the
+    # transforms beside delta's compress and decompress, in turns, the L2
+    # flushed before each run; and the simple codecs' device passes beside
+    # the RLE codec's (CUDA events, as the kernel rows)
+    t_phase = time.perf_counter()
+
+    def e2e_turns(fns: dict, pairs) -> dict:
+        t = {k: [] for k in fns}
+        for _ in range(E2E_REPS):
+            for a_, b_ in pairs:
+                for key in (a_, b_, b_, a_):
+                    flush.zero_()
+                    torch.cuda.synchronize()
+                    c0 = time.perf_counter()
+                    fns[key]()
+                    t[key].append(time.perf_counter() - c0)
+        return {k: statistics.median(v) for k, v in t.items()}
+
+    def gbs(nb_, sec):
+        return f"{sec * 1e3:.3f} ms ({nb_ / sec / 1e9:.4f} GB/s)"
+
+    s_e2e, t_e2e = {}, {}
+    for w in ("u8 walk 8 MiB", "u16 walk 8 MiB"):
+        x = streams[w]
+        es, flat = x.dtype.itemsize, x.reshape(-1)
+        eb = 8 * es
+        rows = encoder.upload_rows(x, dev)
+        rbuf = bufs[(w, "delta", "none")]
+        for c in simple.CODECS:
+            rc = "delta" if c == "raw" else c
+            cd = SprintzCodec(rc, es, device="cuda")
+            buf, sbuf = bufs[(w, rc, "none")], simple_bufs[(w, c)]
+            r = e2e_turns({
+                "compress": lambda: cd.compress(x),
+                "compress_simple": lambda: simple.compress_simple(flat, 64, c),
+                "decompress": lambda: cd.decompress(buf),
+                "decompress_simple": lambda: simple.decompress_simple(
+                    sbuf, c, elem_sz=es)},
+                (("compress", "compress_simple"),
+                 ("decompress", "decompress_simple")))
+            # the device passes: the simple encode's forecast and
+            # encode_errors beside the RLE encode's encode_device; each
+            # decode's kernels on its own stream's gathered payload
+            fore = {"raw": lambda: rows,
+                    "delta": lambda: fc.delta_encode(rows, eb),
+                    "xff": lambda: fc.fire_encode(rows, eb)}[c]
+            sidx = decoder.walk_headers(
+                sbuf, flat.size // (16 * 64), 64, es,
+                start=8 if c == "xff" else 6, runs=False)
+            sd, sw, _ = decoder.upload_payload(
+                decoder.gather_payloads(sbuf, sidx), sidx, dev)
+            ridx = decoder.walk_headers(buf, read_metadata_rle(buf)[0], 64, es)
+            rd, rw, ro = decoder.upload_payload(
+                decoder.gather_payloads(buf, ridx), ridx, dev)
+            sdec = {"raw": lambda: pk.unpack_rows(sd, sw, narrow=es == 1),
+                    "delta": lambda: dk.decode_delta_contiguous(sd, sw, eb),
+                    "xff": lambda: fc.fire_decode(decoder.fire_errors(
+                        sd, sw, es, False), eb)}[c]
+            r["device_s"] = {
+                "encode_simple": time_ms(lambda: encoder.encode_errors(
+                    fore(), es, False)) / 1e3,
+                "encode": time_ms(lambda: encoder.encode_device(
+                    rows, es, rc, False)) / 1e3,
+                "decode_simple": time_ms(sdec) / 1e3,
+                "decode": time_ms(lambda: decoder.decode_device(
+                    rd, rw, ro, ridx.total_rows, es, rc, False)) / 1e3}
+            r["bytes"], r["compressed"] = x.nbytes, len(sbuf)
+            key = f"{w} {c}"
+            s_e2e[key] = r
+            log(f"[e2e simple] {key} (beside {rc}): " + ", ".join(
+                f"{k} {gbs(x.nbytes, v)}" for k, v in r.items()
+                if isinstance(v, float)) + "; device passes " + ", ".join(
+                f"{k} {v * 1e3:.4f} ms" for k, v in r["device_s"].items()))
+        cd = SprintzCodec("delta", es, device="cuda")
+        for tk in transforms.KINDS:
+            tb = transforms.transform_encode(flat, tk, ndims=64)
+            r = e2e_turns({
+                "compress": lambda: cd.compress(x),
+                "transform_encode": lambda: transforms.transform_encode(
+                    flat, tk, ndims=64),
+                "decompress": lambda: cd.decompress(rbuf),
+                "transform_decode": lambda: transforms.transform_decode(
+                    tb, tk, es)},
+                (("compress", "transform_encode"),
+                 ("decompress", "transform_decode")))
+            key = f"{w} {tk}"
+            t_e2e[key] = {**r, "bytes": x.nbytes}
+            log(f"[e2e transform] {key} (beside delta): " + ", ".join(
+                f"{k} {gbs(x.nbytes, v)}" for k, v in r.items()))
+    log("[e2e simple] " + json.dumps({"card": smi, "streams": s_e2e}))
+    log("[e2e transform] " + json.dumps({"card": smi, "streams": t_e2e}))
+    log(f"[timing] the formats' rows took {time.perf_counter() - t_phase:.1f} s")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "chain_bound_ms")
+            "ms", "plain_ms", "plain_on", "bound_ms", "bound_by",
+            "library_ms", "chain_bound_ms")
     line = (table["u8 main (nb 16384, D 64)"] + table[huff_what]
             + [r for r in table["u8 d4 walk 4 MiB (nb 131072, D 4)"]
                if r["name"] in ("encode_lowdim", "encode_lowdim_errs",
@@ -3001,13 +3389,14 @@ def main() -> int:
                                 "decode_lowdim_chunks")]
             + table["u8 d4 walk 32k rows (nb 4096, D 4) sidecar"]
             + [reduce_json, epi_json["prefix_finish_reduce"],
-               epi_json["decode_lowdim_reduce"]])
+               epi_json["decode_lowdim_reduce"]]
+            + table["u8 main (nb 16384, D 64) transform"])
     assert sorted(r["name"] for r in line) == sorted(KERNELS)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in line]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -29,6 +29,11 @@ MIN_DATA_SIZE = 8 * BLOCK_SZ * GROUP_SZ_BLOCKS  # == 128 elements
 # {u32 ngroups, u16 remaining_len, u16 ndims}, little-endian (format.h:35-45).
 METADATA_LEN_RLE = 8
 
+# The non-RLE streams' headers: {u32 len, u16 ndims} (format.h:64-72), and
+# the legacy xff codec's {u48 len, u16 ndims} (sprintz_xff.cpp:64-69).
+METADATA_LEN_SIMPLE = 6
+METADATA_LEN_XFF = 8
+
 # Max dims handled by the column-major low-dimensional layout
 # (sprintz_delta_lowdim.cpp:64-70): sample row must fit in 32 bits.
 LOWDIM_MAX_NDIMS = {1: 4, 2: 2}  # elem_sz -> max ndims
@@ -38,6 +43,10 @@ LOWDIM_MAX_NDIMS = {1: 4, 2: 2}  # elem_sz -> max ndims
 # on every 2^FIRE_LOG2_LEARNING_DOWNSAMPLE-th row (the odd rows).
 FIRE_LEARNING_SHIFT = 1
 FIRE_LOG2_LEARNING_DOWNSAMPLE = 1
+
+# The standalone preprocessor's FIRE (transforms.py's xff head) takes its
+# own learning shift (predict.cpp:62): 1 for u8 streams, 3 for u16.
+TRANSFORM_LEARNING_SHIFT = {1: 1, 2: 3}  # elem_sz -> shift
 
 # Width of FIRE's learning counter: int16 for u8 streams, int32 for u16
 # (sprintz_xff_rle.cpp's counter_t).

@@ -1,6 +1,6 @@
 // FIRE (xff) forecaster scan for Hopper (sm_90a), bound with ctypes.
 //
-// fire_encode_kernel<EB, TRUNC>, fire_decode_kernel<EB, TRUNC>,
+// fire_encode_kernel<EB, TRUNC, STATES, XF>, fire_decode_kernel<EB, TRUNC, XF>,
 // fire_decode_short_kernel<EB, TRUNC>
 //   Replace the lax.scan of sprintz_tpu/models/forecasters.py:_fire_scan
 //   (forecasters.py:303-339) over _fire_block_step (:247-300). TRUNC is
@@ -102,6 +102,28 @@
 //   half of decode's dot-product multiplier. A chunk-parallel decode from
 //   sidecar states is the way past the chain; at D <= 4 (the lowdim layout)
 //   one CTA runs 1 to 4 live lanes of it.
+//
+//   XF: the standalone preprocessor's FIRE (sprintz_tpu/transforms.py's xff
+//   head, _fire_block_step(transform=True), forecasters.py:247-300), in
+//   the same two kernels, instantiated with TRUNC alone (no states, no
+//   carries, one chunk): the serial encode and decode of a stream from
+//   the zero state. It differs from the codec's FIRE in four ways: the
+//   errors are raw, not zigzag (encode writes err & mask as i32, decode
+//   reads the stored u8 or u16 errors); the learning shift is 3 at EB 16
+//   (Fire::kLearningShift); at EB 8 the even dims of the stream multiply
+//   the previous delta's low byte, zero-extended, where the odd dims
+//   sign-extend it; at EB 16 the prediction is
+//   sext16(((delta * coef) >> 16) << 2). Encode's chain is the codec's:
+//   at EB 8 the loaders store an even dim's deltas zero-extended (its
+//   operand; everything else the chain and the finishers do with a delta
+//   is mod 2^8), and at EB 16 each odd row's prediction adds a shift (one
+//   dependent operation more a block). Decode's chain is xf_decode_chain:
+//   at EB 8 an even dim's row is a two-way dot product that reads the
+//   delta's byte unsigned (dp2a_su), one instruction as the codec's, and a
+//   CTA takes 32 dims of one parity (ChunkLane's parity form) so that its
+//   chain warp runs one form; at EB 16 the word keeps the delta over zero
+//   low bits, so that a multiply-high gives (delta * coef) >> 16 and a
+//   shift-add the next word: two operations a row, as the codec's.
 
 #include <cstdint>
 #include <type_traits>
@@ -211,6 +233,14 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return ns;
 }
 
+// c + a's signed 16-bit halves times b's bytes 0 and 1 read UNSIGNED:
+// __dp2a_lo with unsigned bytes (the preprocessor's even dims at EB 8)
+__device__ __forceinline__ uint32_t dp2a_su(int32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("dp2a.lo.s32.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
 // ---- end of PTX
 
 // The low BITS of x, read as signed; a byte or short cast is one
@@ -227,27 +257,41 @@ __device__ __forceinline__ int32_t sext(uint32_t x) {
   }
 }
 
-template <int EB>
+// XF: the preprocessor's FIRE (see the header)
+template <int EB, bool XF = false>
 struct Fire {
   static constexpr int kCounterBits = EB == 8 ? 16 : 32;
   static constexpr int kShft = EB - 4;
+  // the coefficient's learning shift: the preprocessor's is 3 at EB 16
+  // (predict.cpp:62, sprintz_tpu/transforms.py:103)
+  static constexpr int kLearningShift = XF && EB == 16 ? 3 : LEARNING_SHIFT;
   static constexpr uint32_t kMask = (1u << EB) - 1u;
   using narrow_t = typename std::conditional<EB == 8, uint8_t, uint16_t>::type;
-  // decode reads u8 (EB 8) or i32 (EB 16) errors
-  using errs_t = typename std::conditional<EB == 8, uint8_t, int32_t>::type;
+  // decode reads zigzag errors, u8 (EB 8) or i32 (EB 16); the
+  // preprocessor's raw errors as stored, u8 or u16
+  using errs_t = typename std::conditional<
+      XF, narrow_t, typename std::conditional<EB == 8, uint8_t, int32_t>::type>::type;
+  // XF at EB 8: the loaders' mask of an even dim's deltas, whose prediction
+  // multiplies the previous delta's low byte, zero-extended
+  static constexpr bool kByteOperand = XF && EB == 8;
 
   template <bool TRUNC>
   __device__ static __forceinline__ int32_t coef(int32_t counter) {
     if constexpr (TRUNC) {
-      return sext<16>((uint32_t)(counter >> (LEARNING_SHIFT + kShft)) << kShft);
+      return sext<16>((uint32_t)(counter >> (kLearningShift + kShft)) << kShft);
     } else {
-      return counter >> LEARNING_SHIFT;
+      return counter >> kLearningShift;
     }
   }
   __device__ static __forceinline__ int32_t prediction(int32_t prev_delta,
                                                         int32_t c) {
-    return sext<EB>(
-        (uint32_t)((int32_t)((uint32_t)prev_delta * (uint32_t)c) >> EB));
+    if constexpr (XF && EB == 16) {
+      return sext<16>(
+          (uint32_t)((int32_t)((uint32_t)prev_delta * (uint32_t)c) >> 16) << 2);
+    } else {
+      return sext<EB>(
+          (uint32_t)((int32_t)((uint32_t)prev_delta * (uint32_t)c) >> EB));
+    }
   }
   __device__ static __forceinline__ int32_t next_counter(int32_t counter,
                                                           int32_t grad_shifted) {
@@ -362,11 +406,13 @@ __device__ __forceinline__ void write_block(uint4* cells, int b,
 // them exist; else `left` of them do. Where has_above is false (the
 // stream's first row) the value above is `above0`, the carried one.
 // STATES: also the value above each block, in word 1 of its aux cell.
-template <int EB, bool FULL, bool STATES>
+// BYTE_OPERAND: the deltas ANDed with `omask` (the preprocessor's even dims
+// at EB 8: 0xff).
+template <int EB, bool FULL, bool STATES, bool BYTE_OPERAND = false>
 __device__ __forceinline__ void load_deltas(const int32_t* __restrict__ p,
                                             uint32_t ndims, bool has_above,
                                             int32_t above0, long long left, uint4* cells,
-                                            uint4* aux, int b0) {
+                                            uint4* aux, int b0, uint32_t omask = ~0u) {
   int32_t v[LOAD_DEPTH + 1];
   v[0] = has_above ? (FULL || left >= 0 ? *(p - ndims) : 0) : above0;
 #pragma unroll
@@ -374,8 +420,10 @@ __device__ __forceinline__ void load_deltas(const int32_t* __restrict__ p,
     v[j + 1] = FULL || j < left ? p[(uint32_t)j * ndims] : 0;
   uint32_t dl[LOAD_DEPTH];
 #pragma unroll
-  for (int j = 0; j < LOAD_DEPTH; ++j)
+  for (int j = 0; j < LOAD_DEPTH; ++j) {
     dl[j] = (uint32_t)sext<EB>((uint32_t)v[j + 1] - (uint32_t)v[j]);
+    if constexpr (BYTE_OPERAND) dl[j] &= omask;
+  }
 #pragma unroll
   for (int q = 0; q < LOAD_BLOCKS; ++q) {
     write_block(cells, b0 + q, dl + q * BLOCK_SZ);
@@ -392,12 +440,14 @@ __device__ __forceinline__ void load_deltas(const int32_t* __restrict__ p,
 // all three in one 16-byte store: three 4-byte stores a (block, dim) made
 // the finishers the pipeline's slowest role (10% on the whole encode, in
 // probes/sidecar_probe.py's ablations).
-template <int EB, bool TRUNC, bool STATES>
+// XF: the preprocessor's FIRE, raw errors (err & mask) in place of zigzag
+// ones; at EB 8 the loaders zero-extend the deltas of even dims d.
+template <int EB, bool TRUNC, bool STATES, bool XF = false>
 __global__ void __launch_bounds__(32 * WARPS)
     fire_encode_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
                        int32_t* __restrict__ states, const int32_t* __restrict__ init,
                        int32_t* __restrict__ fin, long long nb, int ndims) {
-  using F = Fire<EB>;
+  using F = Fire<EB, XF>;
   extern __shared__ __align__(16) unsigned char fire_smem[];
   Ring ring(fire_smem);
   if (threadIdx.x == 0) ring.init();
@@ -450,17 +500,21 @@ __global__ void __launch_bounds__(32 * WARPS)
     const int b0 = (lw % TEAM_WARPS) * LOAD_BLOCKS;
     const int dsafe = active ? d : ndims - 1;  // loads stay in bounds
     const int32_t init_val = init != nullptr ? init[dsafe] : 0;
+    const uint32_t omask = (d & 1) == 0 ? 0xffu : ~0u;  // F::kByteOperand
     for (int t = lw / TEAM_WARPS; t < ntiles; t += LOAD_TEAMS) {
       const int s = Ring::slot(t);
       mbar_wait(ring.free_ + s, Ring::round_parity(t) ^ 1u);
       const long long row0 = (long long)t * TILE_ROWS + b0 * BLOCK_SZ;
       const int32_t* p = in + (row0 * ndims + dsafe);
       if ((long long)(t + 1) * TILE_ROWS <= nrows)
-        load_deltas<EB, true, STATES>(p, (uint32_t)ndims, row0 > 0, init_val, 0,
-                                      ring.data(s, lane), ring.aux(s, lane), b0);
+        load_deltas<EB, true, STATES, F::kByteOperand>(p, (uint32_t)ndims, row0 > 0,
+                                                       init_val, 0, ring.data(s, lane),
+                                                       ring.aux(s, lane), b0, omask);
       else
-        load_deltas<EB, false, STATES>(p, (uint32_t)ndims, row0 > 0, init_val, nrows - row0,
-                                       ring.data(s, lane), ring.aux(s, lane), b0);
+        load_deltas<EB, false, STATES, F::kByteOperand>(p, (uint32_t)ndims, row0 > 0,
+                                                        init_val, nrows - row0,
+                                                        ring.data(s, lane), ring.aux(s, lane),
+                                                        b0, omask);
       mbar_arrive(ring.loaded + s);
     }
   } else {
@@ -490,9 +544,12 @@ __global__ void __launch_bounds__(32 * WARPS)
         uint32_t zz[BLOCK_SZ];
 #pragma unroll
         for (int r = 0; r < BLOCK_SZ; ++r) {
-          const int32_t err =
-              sext<EB>(x[r] - (uint32_t)F::prediction((int32_t)prev, c));
-          zz[r] = (((uint32_t)err << 1) ^ (uint32_t)(err >> 31)) & F::kMask;
+          const int32_t err = sext<EB>(x[r] - (uint32_t)F::prediction((int32_t)prev, c));
+          if constexpr (XF) {
+            zz[r] = (uint32_t)err & F::kMask;  // raw
+          } else {
+            zz[r] = (((uint32_t)err << 1) ^ (uint32_t)(err >> 31)) & F::kMask;
+          }
           prev = x[r];
         }
         if (active) {
@@ -521,10 +578,10 @@ __global__ void __launch_bounds__(32 * WARPS)
 // the addend of the chain's multiply-add, in LOAD_BLOCKS blocks from block
 // b0 of `cells`, and each block's four odd rows' signs << 16, the
 // multipliers of its gradient terms, in its cell of `signs`. FULL: all rows
-// exist; else `left` of them do.
-template <int EB, bool FULL>
+// exist; else `left` of them do. XF: the errors are raw, not zigzag.
+template <int EB, bool FULL, bool XF = false>
 __device__ __forceinline__ void load_errors(
-    const typename Fire<EB>::errs_t* __restrict__ p, uint32_t ndims, long long left,
+    const typename Fire<EB, XF>::errs_t* __restrict__ p, uint32_t ndims, long long left,
     uint4* cells, uint4* signs, int b0) {
   uint32_t u[LOAD_DEPTH];
 #pragma unroll
@@ -533,7 +590,12 @@ __device__ __forceinline__ void load_errors(
   uint32_t sg[LOAD_DEPTH / 2];
 #pragma unroll
   for (int j = 0; j < LOAD_DEPTH; ++j) {
-    const int32_t err = sext<EB>((u[j] >> 1) ^ (0u - (u[j] & 1u)));
+    int32_t err;
+    if constexpr (XF) {
+      err = sext<EB>(u[j]);
+    } else {
+      err = sext<EB>((u[j] >> 1) ^ (0u - (u[j] & 1u)));
+    }
     u[j] = (uint32_t)err << EB;
     if (j & 1) sg[j >> 1] = err == 0 ? 0u : (err < 0 ? 0xffff0000u : 0x00010000u);
   }
@@ -581,16 +643,87 @@ struct ChunkLane {
     }
     cta_nblk = most;
   }
+
+  // The preprocessor's decode at EB 8 (one chunk of nb blocks): CTA i takes
+  // the 32 dims of one parity 2 * lane + (i & 1) from 64 * (i >> 1), so
+  // that its chain runs one form of the prediction (xf_decode_chain).
+  __device__ ChunkLane(long long nb, int ndims, int lane)
+      : chunk(0),
+        d(64 * (int)(blockIdx.x >> 1) + 2 * lane + (int)(blockIdx.x & 1)),
+        active(d < ndims),
+        b0(0),
+        nblk(nb),
+        cta_nblk(nb) {
+    if (d >= ndims) d = ndims - 1;
+  }
 };
 
-template <int EB, bool TRUNC>
+// The preprocessor's decode chain (XF, from the zero state): the ring
+// kernel's chain with the preprocessor's prediction. At EB 8 an odd dim's
+// row is the codec's (Fire::advance) and an even dim's reads the delta's
+// byte unsigned (dp2a_su, EVEN): one instruction a row either way, a CTA's
+// dims all of one parity. At EB 16 the word holds the delta in its high
+// half over zero low bits, so that the high word of word * coef is
+// (delta * coef) >> 16, and the next word is that << 18 plus the loaders'
+// err << 16: a multiply-high and a shift-add a row. The word then is the
+// delta times 2^16, so the value and the gradient terms take it as it is:
+// the value above the block runs in the high half of `val` (an add a row),
+// and a term is the word times the error's sign (no shift out of the word).
+template <int EB, bool EVEN>
+__device__ __forceinline__ void xf_decode_chain(const Ring& ring, int lane, int ntiles,
+                                                long long cta_nblk) {
+  using F = Fire<EB, true>;
+  uint32_t word = 0, val = 0;
+  int32_t counter = 0;
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = Ring::slot(t);
+    mbar_wait(ring.loaded + s, Ring::round_parity(t));
+    uint4* cells = ring.data(s, lane);
+    uint4* signs = ring.aux(s, lane);
+    const int nblk = blocks_in_tile(cta_nblk, t);
+    for (int b = 0; b < nblk; ++b) {
+      uint32_t e[BLOCK_SZ];
+      read_block(cells, b, e);
+      const uint4 sg = signs[b * GROUP];
+      signs[b * GROUP].x = EB == 8 ? val : val >> 16;  // the value above the block
+      // the odd rows' signs: << 16 (advance()'s multipliers) at EB 8, as
+      // they are at EB 16
+      const int sh = EB == 8 ? 0 : 16;
+      const int32_t m[BLOCK_SZ / 2] = {(int32_t)sg.x >> sh, (int32_t)sg.y >> sh,
+                                       (int32_t)sg.z >> sh, (int32_t)sg.w >> sh};
+      const int32_t c = F::template coef<true>(counter);
+      const int32_t cm = EB == 8 ? F::multiplier(c) : c;
+      uint32_t grad_sum = 0;
+#pragma unroll
+      for (int r = 0; r < BLOCK_SZ; ++r) {
+        // icopysign(err, prev_delta): the error's sign times prev_delta
+        if constexpr (EB == 8) {
+          if (r & 1) grad_sum = F::advance(word, m[r >> 1], grad_sum);
+          word = e[r] = EVEN ? dp2a_su(cm, word, e[r]) : F::advance(word, cm, e[r]);
+          val = F::advance(word, F::multiplier(1), val);  // val += the delta
+        } else {
+          if (r & 1) grad_sum += word * (uint32_t)m[r >> 1];
+          word = e[r] = ((uint32_t)__mulhi((int32_t)word, cm) << 18) + e[r];
+          val += word;
+        }
+      }
+      write_block(cells, b, e);
+      counter = F::next_counter(counter, F::grad_shifted(grad_sum));
+    }
+    mbar_arrive(ring.chained + s);
+  }
+}
+
+// XF: the preprocessor's FIRE (one chunk, no state, no fin): raw errors,
+// xf_decode_chain, and at EB 8 ChunkLane's parity form.
+template <int EB, bool TRUNC, bool XF = false>
 __global__ void __launch_bounds__(32 * WARPS)
-    fire_decode_kernel(const typename Fire<EB>::errs_t* __restrict__ in,
+    fire_decode_kernel(const typename Fire<EB, XF>::errs_t* __restrict__ in,
                        const int32_t* __restrict__ state, int32_t* __restrict__ fin,
-                       typename Fire<EB>::narrow_t* __restrict__ out,
+                       typename Fire<EB, XF>::narrow_t* __restrict__ out,
                        const long long* __restrict__ first, int nchunks, long long nb,
                        int ndims) {
-  using F = Fire<EB>;
+  using F = Fire<EB, XF>;
   extern __shared__ __align__(16) unsigned char fire_smem[];
   Ring ring(fire_smem);
   if (threadIdx.x == 0) ring.init();
@@ -599,14 +732,20 @@ __global__ void __launch_bounds__(32 * WARPS)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp != 0 && warp % SCHEDULERS == 0) return;  // spare
   const int helper = helpers_below(warp);
-  const ChunkLane cl(first, nchunks, nb, ndims, lane);
+  const ChunkLane cl = XF && EB == 8 ? ChunkLane(nb, ndims, lane)
+                                     : ChunkLane(first, nchunks, nb, ndims, lane);
   const int d = cl.d;  // in bounds, live or not
   const bool active = cl.active;
   const long long nrows = cl.nblk * BLOCK_SZ;  // of the lane's chunk
   const int ntiles = (int)((cl.cta_nblk + TILE_BLOCKS - 1) / TILE_BLOCKS);
   const long long row_base = cl.b0 * BLOCK_SZ;
 
-  if (warp == 0) {
+  if (XF && warp == 0) {
+    if (EB == 8 && (blockIdx.x & 1) == 0)
+      xf_decode_chain<EB, true>(ring, lane, ntiles, cl.cta_nblk);
+    else
+      xf_decode_chain<EB, false>(ring, lane, ntiles, cl.cta_nblk);
+  } else if (warp == 0) {
     // the delta, a multiply-add a row (Fire::advance), written in place of
     // the errors as the word that holds it; the counter once a block; and,
     // off the chain, the running value above each block, so that the
@@ -670,11 +809,11 @@ __global__ void __launch_bounds__(32 * WARPS)
       const long long row0 = (long long)t * TILE_ROWS + b0 * BLOCK_SZ;
       const typename F::errs_t* p = in + ((row_base + row0) * ndims + d);
       if ((long long)(t + 1) * TILE_ROWS <= nrows)
-        load_errors<EB, true>(p, (uint32_t)ndims, 0, ring.data(s, lane),
-                              ring.aux(s, lane), b0);
+        load_errors<EB, true, XF>(p, (uint32_t)ndims, 0, ring.data(s, lane),
+                                  ring.aux(s, lane), b0);
       else
-        load_errors<EB, false>(p, (uint32_t)ndims, nrows - row0, ring.data(s, lane),
-                               ring.aux(s, lane), b0);
+        load_errors<EB, false, XF>(p, (uint32_t)ndims, nrows - row0, ring.data(s, lane),
+                                   ring.aux(s, lane), b0);
       mbar_arrive(ring.loaded + s);
     }
   } else {
@@ -1018,30 +1157,34 @@ cudaError_t allow_ring(Kernel kernel, int bytes = SMEM_BYTES) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int EB, bool TRUNC, bool STATES>
+template <int EB, bool TRUNC, bool STATES, bool XF = false>
 cudaError_t launch_encode(const void* in, void* out, int32_t* states, const int32_t* init,
                           int32_t* fin, long long nb, int ndims, cudaStream_t s) {
   const unsigned groups = (unsigned)((ndims + GROUP - 1) / GROUP);
-  const cudaError_t err = allow_ring(fire_encode_kernel<EB, TRUNC, STATES>);
+  const cudaError_t err = allow_ring(fire_encode_kernel<EB, TRUNC, STATES, XF>);
   if (err != cudaSuccess) return err;
-  fire_encode_kernel<EB, TRUNC, STATES><<<groups, 32 * WARPS, SMEM_BYTES, s>>>(
+  fire_encode_kernel<EB, TRUNC, STATES, XF><<<groups, 32 * WARPS, SMEM_BYTES, s>>>(
       static_cast<const int32_t*>(in), static_cast<int32_t*>(out), states, init, fin, nb,
       ndims);
   return cudaGetLastError();
 }
 
-template <int EB, bool TRUNC>
+template <int EB, bool TRUNC, bool XF = false>
 cudaError_t launch_decode(const void* in, const int32_t* state, int32_t* fin, void* out,
                           const long long* first, int nchunks, long long nb, int ndims,
                           cudaStream_t s) {
-  using F = Fire<EB>;
+  using F = Fire<EB, XF>;
   const int per = ndims < GROUP ? ndims : GROUP;
+  // XF at EB 8: a CTA of 32 dims of one parity from each 64 (ChunkLane),
+  // none where a parity has no dim
   const long long ctas =
-      (long long)((nchunks + GROUP / per - 1) / (GROUP / per)) * ((ndims + per - 1) / per);
+      XF && EB == 8
+          ? 2LL * (ndims / 64) + (ndims % 64 < 2 ? ndims % 64 : 2)
+          : (long long)((nchunks + GROUP / per - 1) / (GROUP / per)) * ((ndims + per - 1) / per);
   if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const cudaError_t err = allow_ring(fire_decode_kernel<EB, TRUNC>);
+  const cudaError_t err = allow_ring(fire_decode_kernel<EB, TRUNC, XF>);
   if (err != cudaSuccess) return err;
-  fire_decode_kernel<EB, TRUNC><<<(unsigned)ctas, 32 * WARPS, SMEM_BYTES, s>>>(
+  fire_decode_kernel<EB, TRUNC, XF><<<(unsigned)ctas, 32 * WARPS, SMEM_BYTES, s>>>(
       static_cast<const typename F::errs_t*>(in), state, fin,
       static_cast<typename F::narrow_t*>(out), first, nchunks, nb, ndims);
   return cudaGetLastError();
@@ -1061,11 +1204,23 @@ cudaError_t launch_short(const void* in, const int32_t* states, void* out,
   return cudaGetLastError();
 }
 
+// sprintz_fire_scan's modes: the lowdim layout's full coefficient, the
+// row-major layout's truncated one, the preprocessor's FIRE (XF)
+constexpr int MODE_FULL = 0, MODE_TRUNC = 1, MODE_TRANSFORM = 2;
+
 // state: decode's chunk states, or the serial scans' init carry (one chunk)
 template <int EB>
 cudaError_t launch(const void* in, const int32_t* state, int32_t* fin, void* out,
                    int32_t* states, const long long* first, int nchunks, long long nb,
                    int ndims, int decode, int trunc, cudaStream_t s) {
+  if (trunc == MODE_TRANSFORM) {  // one chunk from the zero state
+    if (state || fin || states || first) return cudaErrorInvalidValue;
+    return decode ? launch_decode<EB, true, true>(in, nullptr, nullptr, out, nullptr, 1, nb,
+                                                  ndims, s)
+                  : launch_encode<EB, true, false, true>(in, out, nullptr, nullptr, nullptr, nb,
+                                                         ndims, s);
+  }
+  if (trunc != MODE_FULL && trunc != MODE_TRUNC) return cudaErrorInvalidValue;
   if (decode)
     return trunc ? launch_decode<EB, true>(in, state, fin, out, first, nchunks, nb, ndims, s)
                  : launch_decode<EB, false>(in, state, fin, out, first, nchunks, nb, ndims, s);
@@ -1087,8 +1242,11 @@ extern "C" {
 // i32 at 16, out u8/u16 values; states null. Both: init (3, ndims) i32,
 // the carry entering the first block (prev value, prev delta, counter), or
 // null (zeros); fin (3, ndims) i32, which receives the carry after the
-// last block, or null. trunc != 0: the row-major layout's truncated int16
-// coefficient; trunc == 0: the lowdim layout's full one.
+// last block, or null. trunc, the mode: 1 (MODE_TRUNC) the row-major
+// layout's truncated int16 coefficient, 0 (MODE_FULL) the lowdim layout's
+// full one, 2 (MODE_TRANSFORM) the preprocessor's FIRE: encode writes raw
+// errors (err & mask) as i32, decode reads the raw errors as stored, u8 or
+// u16; init, fin and states must be null.
 int sprintz_fire_scan(void* in, void* init, void* fin, void* states, void* out, long long nb,
                       int ndims, int elem_bits, int decode, int trunc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1137,6 +1295,7 @@ int sprintz_fire_decode_short(void* in, void* states, void* first, int nchunks, 
   const long long* f = static_cast<const long long*>(first);
   const ShortPlan p = short_plan(most, ndims, elem_bits);
   if (nb < 1 || nb > MAX_BLOCKS || ndims < 1 || nchunks < 1 || most < 0 || most > nb ||
+      (trunc != MODE_FULL && trunc != MODE_TRUNC) ||
       st == nullptr || f == nullptr || p.cpc < 1 || ((uintptr_t)in | (uintptr_t)out) & 15)
     return (int)cudaErrorInvalidValue;
   if (elem_bits == 8)

@@ -415,21 +415,30 @@ int64_t sprintz_build_plan(
 // format carries no checksum, so this is the only defense) or index more
 // than cap data blocks.
 //
+//
+// runs == 0: the non-RLE streams (sprintz_tpu_torch/simple.py): a block of
+// all-zero widths is a data block of width 0 with no payload, not a run.
+//
 // No read passes buf_len - 1, so the stream needs no padded copy: a
 // header's field loads read at most one byte past the header (2-byte
 // loads in the scalar path, 4-byte loads of 3 header bytes in the BMI2
-// one), and a header that ends the buffer is refused before it is read.
-// That refusal changes no result: each of a group's blocks takes at least
+// one). With runs, a header that ends the buffer is refused before it is
+// read, which changes no result: each of a group's blocks takes at least
 // one byte after the header (a run varint or a payload of width > 0).
+// Without runs a group of all-zero widths takes no byte after its header,
+// so the stream's last group may end the buffer with its header (an empty
+// tail): such a header is read from a zero-padded copy, and only a header
+// that runs past the buffer is refused.
 int64_t sprintz_walk_headers(
     const uint8_t* buf, int64_t buf_len, int64_t start, int64_t ngroups,
-    int32_t ndims, int32_t elem_sz, int32_t lowdim, int64_t cap,
+    int32_t ndims, int32_t elem_sz, int32_t lowdim, int32_t runs, int64_t cap,
     uint8_t* widths_out, int64_t* offsets_out, int64_t* out_rows_out,
     int32_t* row_bytes_out, int64_t* out_meta) {
   const int hdr_bits = elem_sz == 1 ? 3 : 4;
   const int elem_bits = 8 * elem_sz;
   const int64_t total_header_bytes =
       ((int64_t)ndims * hdr_bits * kGroupSzBlocks + 7) / 8;
+  std::vector<uint8_t> padded;  // runs == 0: a header that ends the buffer
 
   int64_t pos = start;
   int64_t row = 0;
@@ -446,13 +455,19 @@ int64_t sprintz_walk_headers(
 #endif
 
   for (int64_t g = 0; g < ngroups; g++) {
-    if (pos + total_header_bytes >= buf_len) return -1;
+    const bool ends = pos + total_header_bytes >= buf_len;
+    if (ends && (runs || pos + total_header_bytes > buf_len)) return -1;
     // the group advance is a serial pointer chase (pos depends on the
     // parsed widths), which defeats hardware prefetch across the group
     // stride: prefetch ahead in software
     __builtin_prefetch(buf + pos + 512);
     __builtin_prefetch(buf + pos + 1024);
     const uint8_t* hdr = buf + pos;
+    if (ends) {
+      padded.assign((size_t)total_header_bytes + 8, 0);
+      memcpy(padded.data(), hdr, (size_t)total_header_bytes);
+      hdr = padded.data();
+    }
     pos += total_header_bytes;
     int64_t bitpos = 0;
     for (int b = 0; b < kGroupSzBlocks; b++) {
@@ -496,7 +511,7 @@ int64_t sprintz_walk_headers(
         }
       }
       bitpos += (int64_t)ndims * hdr_bits;
-      if (wsum == 0) {
+      if (wsum == 0 && runs) {
         if (pos >= buf_len) return -1;
         const uint8_t low = buf[pos++];
         int32_t length = low & 0x7f;
@@ -570,7 +585,7 @@ int64_t sprintz_walk_headers_parallel(
       int64_t meta[3];
       const int64_t n = sprintz_walk_headers(
           buf, buf_len, byte_offsets[s], std::max<int64_t>(g1 - g0, 0), ndims, elem_sz,
-          lowdim, 2 * (g1 - g0), widths_out + at * ndims, offsets_out + at,
+          lowdim, 1, 2 * (g1 - g0), widths_out + at * ndims, offsets_out + at,
           out_rows_out + at, row_bytes_out + at, meta);
       if (n < 0) {
         bad[(size_t)s] = 1;
@@ -684,7 +699,9 @@ int64_t sprintz_histogram(const uint8_t* data, int64_t n, int64_t* counts) {
 // Final stream assembly: the 8-byte metadata, then for each group its
 // header and its two slots (a data block's payload, a run varint, or a
 // padding zero), then the verbatim tail. Returns the stream's length, or
-// -1 if out_cap is too small. With group_index, pass 1 also writes each
+// -1 if out_cap is too small. meta: null for the RLE metadata, else the
+// meta_len bytes that take its place (a non-RLE stream's header, or none:
+// sprintz_tpu_torch/simple.py). With group_index, pass 1 also writes each
 // group's byte offset and first row, which it knows anyway: a sidecar's
 // checkpoints are taken from them without a walk over the stream.
 //
@@ -705,22 +722,28 @@ int64_t sprintz_assemble_stream(
     const int32_t* wsums,  // optional (nb,) per-block width sums (the
                            // device pass computes them): skips the
                            // O(nslots * ndims) resum
-    int64_t* group_index) {  // optional (2, ng): each group's byte offset,
-                             // then its first row
+    int64_t* group_index,  // optional (2, ng): each group's byte offset,
+                           // then its first row
+    const uint8_t* meta, int64_t meta_len) {
   const int hdr_bits = elem_sz == 1 ? 3 : 4;
   const int64_t total_header_bytes =
       ((int64_t)ndims * hdr_bits * kGroupSzBlocks + 7) / 8;
 
-  if (out_cap < 8) return -1;
-  // metadata {u32 ngroups, u16 remaining, u16 ndims} LE
-  out[0] = (uint8_t)(ngroups);
-  out[1] = (uint8_t)(ngroups >> 8);
-  out[2] = (uint8_t)(ngroups >> 16);
-  out[3] = (uint8_t)(ngroups >> 24);
-  out[4] = (uint8_t)(remaining_elems);
-  out[5] = (uint8_t)(remaining_elems >> 8);
-  out[6] = (uint8_t)(ndims);
-  out[7] = (uint8_t)(ndims >> 8);
+  const int64_t head = meta ? meta_len : 8;
+  if (head < 0 || out_cap < head) return -1;
+  if (meta) {
+    memcpy(out, meta, (size_t)meta_len);
+  } else {
+    // metadata {u32 ngroups, u16 remaining, u16 ndims} LE
+    out[0] = (uint8_t)(ngroups);
+    out[1] = (uint8_t)(ngroups >> 8);
+    out[2] = (uint8_t)(ngroups >> 16);
+    out[3] = (uint8_t)(ngroups >> 24);
+    out[4] = (uint8_t)(remaining_elems);
+    out[5] = (uint8_t)(remaining_elems >> 8);
+    out[6] = (uint8_t)(ndims);
+    out[7] = (uint8_t)(ndims >> 8);
+  }
 
   // ---- pass 1: per-slot payload sizes -> per-group output offsets
   const int64_t ng = (nslots + kGroupSzBlocks - 1) / kGroupSzBlocks;
@@ -744,7 +767,7 @@ int64_t sprintz_assemble_stream(
     }
   }
   std::vector<int64_t> group_off(ng + 1);
-  int64_t pos = 8;
+  int64_t pos = head;
   for (int64_t g = 0; g < ng; g++) {
     group_off[g] = pos;
     pos += total_header_bytes;

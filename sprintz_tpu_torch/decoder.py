@@ -86,17 +86,20 @@ def _index(walk, elem_sz: int, lowdim: bool) -> StreamIndex:
 
 
 def walk_headers(buf: bytes, ngroups: int, ndims: int, elem_sz: int,
-                 lowdim: bool = False,
-                 start: int = METADATA_LEN_RLE) -> StreamIndex:
+                 lowdim: bool = False, start: int = METADATA_LEN_RLE,
+                 runs: bool = True) -> StreamIndex:
     """Sequential walk over ``ngroups`` group headers from byte ``start``
     (right after the stream's metadata, or a sidecar's checkpoint; rows
     count from there) to index payloads and runs, in the port's host
     library (``native_host.walk_headers``). A data block's payload is 8
     rows of ceil(sum(w) / 8) bytes, or sum(w) bytes in the lowdim layout
-    (each dim's 8 fields of w bits are w bytes). ``_walk_headers_py`` is
-    its plain version."""
+    (each dim's 8 fields of w bits are w bytes). ``runs=False`` walks a
+    non-RLE stream (``simple.py``): a block of all-zero widths is a data
+    block of width 0 with no payload. ``_walk_headers_py`` is its plain
+    version."""
     return _index(native_host.walk_headers(buf, ngroups, ndims, elem_sz,
-                                           lowdim, start), elem_sz, lowdim)
+                                           lowdim, start, runs),
+                  elem_sz, lowdim)
 
 
 def walk_headers_parallel(buf: bytes, ngroups: int, ndims: int,
@@ -151,8 +154,8 @@ def _walk_headers_parallel_py(buf: bytes, ngroups: int, ndims: int,
 
 
 def _walk_headers_py(buf: bytes, ngroups: int, ndims: int, elem_sz: int,
-                     lowdim: bool = False,
-                     start: int = METADATA_LEN_RLE) -> StreamIndex:
+                     lowdim: bool = False, start: int = METADATA_LEN_RLE,
+                     runs: bool = True) -> StreamIndex:
     """``walk_headers``' plain version: a Python loop over the groups."""
     hdr_bits = nbits_sz_bits(elem_sz)
     elem_bits = 8 * elem_sz
@@ -180,7 +183,7 @@ def _walk_headers_py(buf: bytes, ngroups: int, ndims: int, elem_sz: int,
         group_widths = header_to_width(hdr.astype(np.int64), elem_bits)
         for w in group_widths:
             wsum = int(w.sum())
-            if wsum == 0:
+            if wsum == 0 and runs:
                 if pos >= buf_len:
                     _overrun("a run varint")
                 low = buf[pos]

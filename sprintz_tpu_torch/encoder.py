@@ -40,7 +40,6 @@ from .constants import (
     BLOCK_SZ,
     GROUP_SZ_BLOCKS,
     LOWDIM_MAX_NDIMS,
-    METADATA_LEN_RLE,
     MIN_DATA_SIZE,
     nbits_sz_bits,
 )
@@ -261,7 +260,7 @@ def assemble_stream(plan: EmissionPlan, widths_np: np.ndarray,
                     hdr_np: np.ndarray, dense_np: np.ndarray, ndims: int,
                     elem_sz: int, tail: np.ndarray, lowdim: bool = False,
                     wsums: np.ndarray | None = None,
-                    group_index: bool = False):
+                    group_index: bool = False, meta: bytes | None = None):
     """Final stream assembly in the port's host library
     (``native_host.assemble_stream``): group g's header precedes slots 2g
     and 2g+1; a data slot's payload is 8 rows of ceil(sum(widths) / 8)
@@ -269,20 +268,25 @@ def assemble_stream(plan: EmissionPlan, widths_np: np.ndarray,
     all (lowdim); a run slot is a 1- or 2-byte varint. ``wsums``: the
     blocks' width sums, which the device pass computes; the library sums
     the widths itself without them. With ``group_index``, returns (stream,
-    each group's byte offset, each group's first row).
+    each group's byte offset, each group's first row). ``meta``: the bytes
+    that open the stream in place of the RLE metadata (a non-RLE stream's
+    header, or none: ``simple.py``).
     ``_assemble_stream_py`` is its plain version (``checkpoint``'s
     ``_group_index_py`` that of the group index)."""
     return native_host.assemble_stream(
         plan.kinds, plan.values, plan.ngroups, plan.remaining_elems,
         widths_np, hdr_np, dense_np, ndims, elem_sz, lowdim, tail, wsums,
-        group_index)
+        group_index, meta)
 
 
 def _assemble_stream_py(plan: EmissionPlan, widths_np: np.ndarray,
                         hdr_np: np.ndarray, dense_np: np.ndarray, ndims: int,
                         elem_sz: int, tail: np.ndarray,
-                        lowdim: bool = False) -> bytes:
+                        lowdim: bool = False,
+                        meta: bytes | None = None) -> bytes:
     """``assemble_stream``'s plain version, with numpy index arithmetic."""
+    head = (write_metadata_rle(plan.ngroups, plan.remaining_elems, ndims)
+            if meta is None else bytes(meta))
     hdr_bits = nbits_sz_bits(elem_sz)
     total_header_bytes = (ndims * hdr_bits * GROUP_SZ_BLOCKS + 7) // 8
 
@@ -302,14 +306,12 @@ def _assemble_stream_py(plan: EmissionPlan, widths_np: np.ndarray,
 
     # output offsets: META + headers before/within + payloads before
     cum_payload = np.concatenate([[0], np.cumsum(slot_len)])
-    slot_off = (METADATA_LEN_RLE
+    slot_off = (len(head)
                 + total_header_bytes * (np.arange(nslots) // GROUP_SZ_BLOCKS + 1)
                 + cum_payload[:-1])
-    total = int(slot_off[-1] + slot_len[-1]) if nslots else METADATA_LEN_RLE
+    total = int(slot_off[-1] + slot_len[-1]) if nslots else len(head)
     out = np.zeros(total + tail.nbytes, dtype=np.uint8)
-    out[:METADATA_LEN_RLE] = np.frombuffer(
-        write_metadata_rle(plan.ngroups, plan.remaining_elems, ndims),
-        dtype=np.uint8)
+    out[:len(head)] = np.frombuffer(head, dtype=np.uint8)
 
     # headers
     slot_headers = np.zeros((nslots, ndims), dtype=np.uint8)

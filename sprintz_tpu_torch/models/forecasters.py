@@ -38,6 +38,13 @@ so does ``fire_encode``. With ``final=True`` either also returns the carry
 after its last block, which the same launch writes: the JAX package's
 ``_fire_scan(init_state=..., return_final=True)``, the state that a
 sharded scan hands from one shard to the next (``parallel/shard.py``).
+``transform=True`` picks the standalone preprocessor's FIRE (the xff head
+of ``transforms.py``; the JAX package's ``_fire_scan(..., learning_shift,
+transform=True)``): raw errors in place of zigzag ones, a learning shift of
+3 at u16 (1 at u8, the codec's), at u8 the even dims' prediction from the
+previous delta's low byte zero-extended, and at u16 the prediction
+``sext16(((prev_delta * coef) >> 16) << 2)``. On CUDA it launches the same
+two kernels' transform instantiations, counted in ``transform_launches``.
 ``fire_encode(states=True)`` also returns the carry before every block, in
 the same pass (the JAX package's ``fire_encode_with_states`` runs a second
 scan for it), and ``fire_decode_chunks`` decodes a stream cut into chunks
@@ -63,6 +70,7 @@ from ..constants import (
     FIRE_LEARNING_SHIFT,
     FIRE_LOG2_LEARNING_DOWNSAMPLE,
     LOG2_BLOCK_SZ,
+    TRANSFORM_LEARNING_SHIFT,
 )
 from ..ops import _build
 from ..ops.bitmath import sign_extend, zigzag_decode, zigzag_encode
@@ -112,11 +120,13 @@ def _state_tensor(init_state, device: torch.device,
 
 
 def _fire_scan_plain(blocks: torch.Tensor, elem_bits: int, decode: bool,
-                     init_state=None,
-                     truncate_coeffs: bool = True) -> torch.Tensor:
+                     init_state=None, truncate_coeffs: bool = True,
+                     transform: bool = False) -> torch.Tensor:
     """FIRE over (nb, 8, D) int64 blocks of values (encode) or zigzag
     errors (decode) -> (nb, 8, D) int64 errors or values: a line-by-line
-    port of ``_fire_block_step`` in int64, one block at a time."""
+    port of ``_fire_block_step`` in int64, one block at a time. With
+    ``transform``, the preprocessor's variant: its errors are raw, in and
+    out, as the JAX package's (sign-extended)."""
     ndims = blocks.shape[2]
     if init_state is None:
         state = torch.zeros((3, ndims), dtype=torch.int64, device=blocks.device)
@@ -127,14 +137,17 @@ def _fire_scan_plain(blocks: torch.Tensor, elem_bits: int, decode: bool,
     counter_bits = FIRE_COUNTER_BITS[elem_bits // 8]
     downsample = 1 << FIRE_LOG2_LEARNING_DOWNSAMPLE
     out = torch.empty_like(blocks)
+    omask = _operand_mask(ndims, elem_bits, transform, blocks.device)
     for b in range(blocks.shape[0]):
-        coef = _fire_coef(counter, elem_bits, truncate_coeffs)
+        coef = _fire_coef(counter, elem_bits, truncate_coeffs, transform)
         grad_sum = torch.zeros_like(prev_delta)
         for i in range(BLOCK_SZ):
-            prediction = _sext((prev_delta * coef) >> elem_bits, elem_bits)
+            prediction = _sext(_predict(prev_delta, coef, elem_bits,
+                                        transform, omask), elem_bits)
             x = blocks[b, i]
             if decode:
-                err = _sext((x >> 1) ^ -(x & 1), elem_bits)
+                err = _sext(x if transform else (x >> 1) ^ -(x & 1),
+                            elem_bits)
                 delta = _sext(err + prediction, elem_bits)
                 val = (prev_val + delta) & mask
                 out[b, i] = val
@@ -142,7 +155,8 @@ def _fire_scan_plain(blocks: torch.Tensor, elem_bits: int, decode: bool,
                 val = x
                 delta = _sext(val - prev_val, elem_bits)
                 err = _sext(delta - prediction, elem_bits)
-                out[b, i] = ((err << 1) ^ (err >> 63)) & mask
+                out[b, i] = (err if transform
+                             else ((err << 1) ^ (err >> 63)) & mask)
             if i % downsample == downsample - 1:
                 # icopysign(err, prev_delta) (util.h:63-74)
                 grad = torch.where(err != 0,
@@ -169,13 +183,40 @@ def _fire_counter_step(counter: torch.Tensor, err_odd: torch.Tensor,
 
 
 def _fire_coef(counter: torch.Tensor, elem_bits: int,
-               truncate_coeffs: bool) -> torch.Tensor:
+               truncate_coeffs: bool, transform: bool = False
+               ) -> torch.Tensor:
     """The block's coefficient: the int16 of the counter's bits above
-    eb - 4 (truncated), or the counter >> 1 in full."""
+    eb - 4 (truncated), or the counter >> 1 in full. ``transform``: the
+    preprocessor's learning shift, 3 at u16 (``transforms.py``)."""
+    shift = (TRANSFORM_LEARNING_SHIFT[elem_bits // 8] if transform
+             else FIRE_LEARNING_SHIFT)
     if not truncate_coeffs:
-        return counter >> FIRE_LEARNING_SHIFT
+        return counter >> shift
     shft = elem_bits - 4
-    return _sext((counter >> (FIRE_LEARNING_SHIFT + shft)) << shft, 16)
+    return _sext((counter >> (shift + shft)) << shft, 16)
+
+
+def _operand_mask(ndims: int, elem_bits: int, transform: bool,
+                  device: torch.device) -> torch.Tensor | None:
+    """The preprocessor's u8 prediction multiplies the previous delta's low
+    byte, zero-extended, in the even dims: a (D,) int64 mask of 0xff there
+    and -1 in the odd dims, for ``_predict``; None elsewhere."""
+    if not (transform and elem_bits == 8):
+        return None
+    return torch.where(torch.arange(ndims, device=device) % 2 == 0, 0xFF, -1)
+
+
+def _predict(prev: torch.Tensor, coef: torch.Tensor, elem_bits: int,
+             transform: bool, omask: torch.Tensor | None) -> torch.Tensor:
+    """The prediction before its sign extension, from the previous deltas
+    ``prev`` (..., D) int64: bits eb and up of ``prev * coef``; with
+    ``transform``, the preprocessor's: at u8 ``prev`` masked by ``omask``
+    (``_operand_mask``), at u16 the product's bits 16 and up times 4."""
+    if omask is not None:
+        return ((prev & omask) * coef) >> 8
+    if transform:
+        return ((prev * coef) >> 16) << 2
+    return (prev * coef) >> elem_bits
 
 
 def _init_carry(init_state, ndims: int, device: torch.device) -> torch.Tensor:
@@ -187,18 +228,20 @@ def _init_carry(init_state, ndims: int, device: torch.device) -> torch.Tensor:
 
 def _fire_encode_blocks(blocks: torch.Tensor, elem_bits: int,
                         truncate_coeffs: bool, states: bool = False,
-                        init_state=None):
+                        init_state=None, transform: bool = False):
     """(nb, 8, D) int64 values -> ((nb, 8, D) int64 zigzag errors, with
     ``states`` the (nb, 3, D) int64 carry before each block else None, the
     (3, D) int64 carry after the last block), from ``init_state`` (zeros
     when None). The loop over blocks carries only the counter, through the
-    odd rows' errors; everything else is one pass over the stream."""
+    odd rows' errors; everything else is one pass over the stream.
+    ``transform``: the preprocessor's FIRE, raw errors masked to eb bits."""
     nb, _, ndims = blocks.shape
     rows = blocks.reshape(-1, ndims)
     init = _init_carry(init_state, ndims, blocks.device)
     deltas = _sext(rows - torch.cat([init[:1], rows[:-1]]), elem_bits)
     prev = torch.cat([init[1:2], deltas[:-1]]).reshape(nb, BLOCK_SZ, ndims)
     deltas = deltas.reshape(nb, BLOCK_SZ, ndims)
+    omask = _operand_mask(ndims, elem_bits, transform, blocks.device)
     downsample = 1 << FIRE_LOG2_LEARNING_DOWNSAMPLE
     odd = slice(downsample - 1, None, downsample)
     coefs = torch.empty((nb, 1, ndims), dtype=torch.int64,
@@ -208,13 +251,17 @@ def _fire_encode_blocks(blocks: torch.Tensor, elem_bits: int,
                            device=blocks.device)
     for b in range(nb):
         counters[b] = counter
-        coef = coefs[b, 0] = _fire_coef(counter, elem_bits, truncate_coeffs)
+        coef = coefs[b, 0] = _fire_coef(counter, elem_bits, truncate_coeffs,
+                                        transform)
         prev_odd = prev[b, odd]
-        err_odd = _sext(deltas[b, odd] - ((prev_odd * coef) >> elem_bits),
-                        elem_bits)
+        err_odd = _sext(deltas[b, odd]
+                        - _predict(prev_odd, coef, elem_bits, transform,
+                                   omask), elem_bits)
         counter = _fire_counter_step(counter, err_odd, prev_odd, elem_bits)
-    errs = _sext(deltas - ((prev * coefs) >> elem_bits), elem_bits)
-    zz = ((errs << 1) ^ (errs >> 63)) & ((1 << elem_bits) - 1)
+    errs = _sext(deltas - _predict(prev, coefs, elem_bits, transform, omask),
+                 elem_bits)
+    zz = (errs if transform else (errs << 1) ^ (errs >> 63)) & (
+        (1 << elem_bits) - 1)
     final = (torch.stack([rows[-1], deltas[-1, -1], counter]) if nb
              else init)
     if not states:
@@ -227,29 +274,33 @@ def _fire_encode_blocks(blocks: torch.Tensor, elem_bits: int,
 
 def _fire_decode_blocks(blocks: torch.Tensor, elem_bits: int,
                         init_state, truncate_coeffs: bool,
-                        final: bool = False):
+                        final: bool = False, transform: bool = False):
     """(nb, 8, D) int64 zigzag errors -> (nb, 8, D) int64 values, and with
     ``final`` the (3, D) int64 carry after the last block. The loop over
     rows carries only the delta, and the one over blocks the counter; the
     zigzag decode runs before them and the values are a cumulative sum
-    after them."""
+    after them. ``transform``: the preprocessor's FIRE, raw errors. A
+    block's rows are kept as a list of tensors and stacked once, so that a
+    row costs only its arithmetic's launches on a card."""
     nb, _, ndims = blocks.shape
     state = _init_carry(init_state, ndims, blocks.device)
     prev_val, prev_delta, counter = state[0], state[1], state[2]
-    errs = _sext((blocks >> 1) ^ -(blocks & 1), elem_bits)
+    errs = _sext(blocks if transform else (blocks >> 1) ^ -(blocks & 1),
+                 elem_bits)
+    omask = _operand_mask(ndims, elem_bits, transform, blocks.device)
     downsample = 1 << FIRE_LOG2_LEARNING_DOWNSAMPLE
     odd = slice(downsample - 1, None, downsample)
     deltas = torch.empty_like(errs)
-    prev = torch.empty((BLOCK_SZ, ndims), dtype=torch.int64,
-                       device=blocks.device)
     for b in range(nb):
-        coef = _fire_coef(counter, elem_bits, truncate_coeffs)
+        coef = _fire_coef(counter, elem_bits, truncate_coeffs, transform)
+        rows = [prev_delta]  # the delta above each row, then the last row's
         for i in range(BLOCK_SZ):
-            prev[i] = prev_delta
-            prev_delta = deltas[b, i] = _sext(
-                errs[b, i] + ((prev_delta * coef) >> elem_bits), elem_bits)
-        counter = _fire_counter_step(counter, errs[b, odd], prev[odd],
-                                     elem_bits)
+            rows.append(_sext(errs[b, i] + _predict(
+                rows[-1], coef, elem_bits, transform, omask), elem_bits))
+        prev_delta = rows[-1]
+        deltas[b] = torch.stack(rows[1:])
+        counter = _fire_counter_step(counter, errs[b, odd],
+                                     torch.stack(rows[:-1][odd]), elem_bits)
     vals = ((prev_val + torch.cumsum(deltas.reshape(-1, ndims), dim=0))
             & ((1 << elem_bits) - 1))
     if not final:
@@ -265,6 +316,11 @@ def _check_fire(name: str, x: torch.Tensor, elem_bits: int,
     if x.dim() != 2 or x.shape[0] % BLOCK_SZ:
         raise ValueError(f"{name}: input {tuple(x.shape)} is not (N, D) with "
                          f"N a multiple of {BLOCK_SZ}")
+
+
+# csrc/fire.cu's sprintz_fire_scan mode of the preprocessor's FIRE (its
+# other modes are the truncated coefficient, 1, and the full one, 0)
+MODE_TRANSFORM = 2
 
 
 def _count_launch(wrapper, truncate_coeffs: bool, kind: str = "") -> None:
@@ -287,10 +343,22 @@ def _check_init(name: str, init_state, ndims: int) -> None:
                          f" is not (3, {ndims})")
 
 
+def _check_transform(name: str, transform: bool, truncate_coeffs: bool,
+                     *unsupported) -> None:
+    """The preprocessor's FIRE runs from the zero state with the
+    truncated coefficient alone (the JAX package's ``transforms.py``)."""
+    if transform and (not truncate_coeffs or any(unsupported)):
+        raise ValueError(f"{name}: transform=True takes the truncated "
+                         f"coefficient and no states, init_state or final")
+
+
 def fire_encode_plain(rows: torch.Tensor, elem_bits: int,
                       truncate_coeffs: bool = True, states: bool = False,
-                      init_state=None, final: bool = False):
+                      init_state=None, final: bool = False,
+                      transform: bool = False):
     """Plain version of ``fire_encode``."""
+    _check_transform("fire_encode", transform, truncate_coeffs, states,
+                     init_state is not None, final)
     n, ndims = rows.shape
     if rows.numel() == 0:
         errs = rows.to(torch.int32)
@@ -299,7 +367,7 @@ def fire_encode_plain(rows: torch.Tensor, elem_bits: int,
                         final)
     zz, carries, fin = _fire_encode_blocks(
         rows.to(torch.int64).reshape(-1, BLOCK_SZ, ndims), elem_bits,
-        truncate_coeffs, states, init_state)
+        truncate_coeffs, states, init_state, transform)
     return _outputs(zz.reshape(n, ndims).to(torch.int32),
                     None if carries is None else carries.to(torch.int32),
                     fin.to(torch.int32), states, final)
@@ -307,7 +375,8 @@ def fire_encode_plain(rows: torch.Tensor, elem_bits: int,
 
 def fire_encode(rows: torch.Tensor, elem_bits: int,
                 truncate_coeffs: bool = True, states: bool = False,
-                init_state=None, final: bool = False):
+                init_state=None, final: bool = False,
+                transform: bool = False):
     """rows (N, D) int32 unsigned values, N a multiple of 8 -> zigzag
     errors (N, D) int32. ``truncate_coeffs``: the row-major layout's int16
     coefficient (True) or the lowdim layout's full-precision one (False).
@@ -317,13 +386,18 @@ def fire_encode(rows: torch.Tensor, elem_bits: int,
     state before each block, written by the same launch (on CUDA a view of
     (N / 8, D, 4) words, one a block and dim); with ``final``, also the
     (3, D) int32 carry after the last block (``init_state`` or zeros when
-    N is 0), in that order: (errors[, carries][, final])."""
+    N is 0), in that order: (errors[, carries][, final]). With
+    ``transform``, the preprocessor's FIRE from the zero state: its raw
+    errors masked to elem_bits bits, (N, D) int32 (no states, init_state
+    or final; the truncated coefficient)."""
     _check_fire("fire_encode", rows, elem_bits, torch.int32)
     n, ndims = rows.shape
     _check_init("fire_encode", init_state, ndims)
+    _check_transform("fire_encode", transform, truncate_coeffs, states,
+                     init_state is not None, final)
     if rows.device.type == "cpu":
         return fire_encode_plain(rows, elem_bits, truncate_coeffs, states,
-                                 init_state, final)
+                                 init_state, final, transform)
     errs = torch.empty_like(rows)
     # the kernel writes a carry as one 16-byte word (its 4th int unused):
     # the (nb, 3, D) carries are a view of (nb, D, 4)
@@ -343,8 +417,10 @@ def fire_encode(rows: torch.Tensor, elem_bits: int,
                   None if fin is None else fin.data_ptr(),
                   None if words is None else words.data_ptr(),
                   errs.data_ptr(), n // BLOCK_SZ, ndims, elem_bits, 0,
-                  int(truncate_coeffs))
-    if states:
+                  MODE_TRANSFORM if transform else int(truncate_coeffs))
+    if transform:
+        fire_encode.transform_launches += 1
+    elif states:
         _count_launch(fire_encode, truncate_coeffs, "states_")
     else:
         _count_launch(fire_encode, truncate_coeffs)
@@ -355,12 +431,15 @@ fire_encode.launches = 0
 fire_encode.full_launches = 0
 fire_encode.states_launches = 0
 fire_encode.states_full_launches = 0
+fire_encode.transform_launches = 0
 
 
 def fire_decode_plain(errs_zz: torch.Tensor, elem_bits: int,
                       init_state=None, truncate_coeffs: bool = True,
-                      final: bool = False):
+                      final: bool = False, transform: bool = False):
     """Plain version of ``fire_decode``."""
+    _check_transform("fire_decode", transform, truncate_coeffs,
+                     init_state is not None, final)
     n, ndims = errs_zz.shape
     if errs_zz.numel() == 0:
         vals = narrow(errs_zz.to(torch.int32), elem_bits)
@@ -368,14 +447,15 @@ def fire_decode_plain(errs_zz: torch.Tensor, elem_bits: int,
         return (vals, fin) if final else vals
     out = _fire_decode_blocks(
         errs_zz.to(torch.int64).reshape(-1, BLOCK_SZ, ndims), elem_bits,
-        init_state, truncate_coeffs, final)
+        init_state, truncate_coeffs, final, transform)
     vals, fin = out if final else (out, None)
     vals = narrow(vals.reshape(n, ndims).to(torch.int32), elem_bits)
     return (vals, fin.to(torch.int32)) if final else vals
 
 
 def fire_decode(errs_zz: torch.Tensor, elem_bits: int, init_state=None,
-                truncate_coeffs: bool = True, final: bool = False):
+                truncate_coeffs: bool = True, final: bool = False,
+                transform: bool = False):
     """Zigzag errors (N, D), N a multiple of 8 -> values (N, D) u8/u16.
 
     The errors are uint8 at elem_bits 8 (``unpack_rows(narrow=True)``) and
@@ -384,14 +464,21 @@ def fire_decode(errs_zz: torch.Tensor, elem_bits: int, init_state=None,
     zero state when None. ``truncate_coeffs`` as in ``fire_encode``. With
     ``final``, returns (values, the (3, D) int32 carry after the last
     block), from the same launch.
+
+    ``transform``: the preprocessor's FIRE from the zero state; the errors
+    are its raw ones as stored, uint8 at elem_bits 8 and u16 as int16 at
+    16 (no init_state or final; the truncated coefficient).
     """
     _check_fire("fire_decode", errs_zz, elem_bits,
-                torch.uint8 if elem_bits == 8 else torch.int32)
+                (torch.uint8 if elem_bits == 8 else torch.int16) if transform
+                else torch.uint8 if elem_bits == 8 else torch.int32)
     n, ndims = errs_zz.shape
     _check_init("fire_decode", init_state, ndims)
+    _check_transform("fire_decode", transform, truncate_coeffs,
+                     init_state is not None, final)
     if errs_zz.device.type == "cpu":
         return fire_decode_plain(errs_zz, elem_bits, init_state,
-                                 truncate_coeffs, final)
+                                 truncate_coeffs, final, transform)
     vals = torch.empty((n, ndims), dtype=narrow_dtype(elem_bits),
                        device=errs_zz.device)
     state = (None if init_state is None
@@ -406,13 +493,17 @@ def fire_decode(errs_zz: torch.Tensor, elem_bits: int, init_state=None,
                   None if state is None else state.data_ptr(),
                   None if fin is None else fin.data_ptr(), None,
                   vals.data_ptr(), n // BLOCK_SZ, ndims, elem_bits, 1,
-                  int(truncate_coeffs))
-    _count_launch(fire_decode, truncate_coeffs)
+                  MODE_TRANSFORM if transform else int(truncate_coeffs))
+    if transform:
+        fire_decode.transform_launches += 1
+    else:
+        _count_launch(fire_decode, truncate_coeffs)
     return (vals, fin) if final else vals
 
 
 fire_decode.launches = 0
 fire_decode.full_launches = 0
+fire_decode.transform_launches = 0
 
 
 # csrc/fire.cu's SHORT_MAX_DIMS and SHORT_CHUNK_BYTES: the short-chunk

@@ -40,15 +40,15 @@ GXX_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-shared", "-pthread",
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 SIGNATURES = {
-    "sprintz_walk_headers": (_P, _L, _L, _L, _I, _I, _I, _L, _P, _P, _P, _P,
-                             _P),
+    "sprintz_walk_headers": (_P, _L, _L, _L, _I, _I, _I, _I, _L, _P, _P, _P,
+                             _P, _P),
     "sprintz_walk_headers_parallel": (_P, _L, _P, _P, _L, _L, _L, _I, _I, _I,
                                       _L, _P, _P, _P, _P, _P),
     "sprintz_gather_blocks": (_P, _L, _P, _P, _L, _L, _P, _L),
     "sprintz_gather_dims": (_P, _L, _P, _P, _L, _I, _L, _P, _L),
     "sprintz_build_plan": (_P, _L, _I, _I, _P, _P, _P),
     "sprintz_assemble_stream": (_P, _P, _L, _L, _L, _P, _P, _P, _L, _I, _I,
-                                _I, _P, _L, _P, _L, _P, _P),
+                                _I, _P, _L, _P, _L, _P, _P, _P, _L),
     "sprintz_histogram": (_P, _L, _P),
 }
 
@@ -126,26 +126,30 @@ def _walk_outputs(cap: int, ndims: int):
 
 
 def walk_headers(buf, ngroups: int, ndims: int, elem_sz: int,
-                 lowdim: bool, start: int = METADATA_LEN_RLE):
+                 lowdim: bool, start: int = METADATA_LEN_RLE,
+                 runs: bool = True):
     """The header walk over ``ngroups`` groups from byte ``start`` (the
     first group, right after the stream's metadata, unless a sidecar's
     checkpoint says otherwise) ->
     (widths (ndata, D) uint8, payload offsets (ndata,) int64, first rows
     (ndata,) int64, row bytes (ndata,) int32, total rows, tail offset).
     Raises ``CorruptStreamError`` when the walk would overrun the buffer.
+    ``runs=False``: a non-RLE stream's walk (``simple.py``), where a block
+    of all-zero widths is a data block of width 0, not a run.
 
-    Every data block takes at least one payload byte, so a stream of n
-    bytes holds fewer than n of them: the outputs are sized by the smaller
-    of that and the metadata's 2 * ngroups, which a corrupt stream may set
-    to billions."""
+    With runs every data block takes at least one payload byte, so a
+    stream of n bytes holds fewer than n of them; without, every group
+    takes at least a header byte, so it holds at most 2n. The outputs are
+    sized by the smaller of that and the metadata's 2 * ngroups, which a
+    corrupt stream may set to billions."""
     data = _u8(buf)
-    cap = max(min(2 * int(ngroups), data.size), 1)
+    cap = max(min(2 * int(ngroups), data.size * (1 if runs else 2)), 1)
     widths, offsets, out_rows, row_bytes, meta = _walk_outputs(cap, ndims)
     walk_headers.calls += 1
     ndata = _library().sprintz_walk_headers(
         _ptr(data), data.size, start, ngroups, ndims, elem_sz, int(lowdim),
-        cap, _ptr(widths), _ptr(offsets), _ptr(out_rows), _ptr(row_bytes),
-        _ptr(meta))
+        int(runs), cap, _ptr(widths), _ptr(offsets), _ptr(out_rows),
+        _ptr(row_bytes), _ptr(meta))
     if ndata < 0:
         raise CorruptStreamError(
             f"stream walk overran the buffer (len {data.size}): truncated "
@@ -268,13 +272,15 @@ def assemble_stream(kinds: np.ndarray, values: np.ndarray, ngroups: int,
                     hdrvals: np.ndarray, dense: np.ndarray, ndims: int,
                     elem_sz: int, lowdim: bool, tail: np.ndarray,
                     wsums: np.ndarray | None = None,
-                    group_index: bool = False):
+                    group_index: bool = False, meta: bytes | None = None):
     """The final byte stream. ``widths`` and ``hdrvals`` are (nb, D)
     uint8, ``dense`` (nb, 8, maxb) or, ``lowdim``, (nb, D, maxb) uint8;
     ``wsums`` the (nb,) int32 width sums, which spare the library a pass
     over the widths. With ``group_index``, returns (stream, each group's
     byte offset, each group's first row), int64 arrays of the plan's
-    groups. Raises ``RuntimeError`` when the library refuses: the buffer
+    groups. ``meta``: the bytes that open the stream in place of the RLE
+    metadata (a non-RLE stream's header, or none), None for the RLE
+    metadata. Raises ``RuntimeError`` when the library refuses: the buffer
     is sized for any plan, so that is a bug, not a bad input."""
     kinds = np.ascontiguousarray(kinds, dtype=np.int8)
     values = np.ascontiguousarray(values, dtype=np.int32)
@@ -287,7 +293,11 @@ def assemble_stream(kinds: np.ndarray, values: np.ndarray, ngroups: int,
     # the metadata, a header of at most ndims + 1 bytes and at most 8 + 2
     # bytes of varints a slot, every payload (no larger than its dense
     # block), the tail
-    cap = (8 + dense.nbytes + kinds.size * (ndims + 11) + tail.size)
+    # one byte more, so that an empty header still has an address
+    head = (None if meta is None
+            else np.frombuffer(bytes(meta) + b"\0", dtype=np.uint8))
+    cap = ((8 if head is None else head.size) + dense.nbytes
+           + kinds.size * (ndims + 11) + tail.size)
     out = np.empty(cap, dtype=np.uint8)
     ng = (kinds.size + 1) // 2  # the library's groups: two slots each
     gidx = np.empty((2, ng), dtype=np.int64) if group_index else None
@@ -297,7 +307,8 @@ def assemble_stream(kinds: np.ndarray, values: np.ndarray, ngroups: int,
         _ptr(widths), _ptr(hdrvals), _ptr(dense), dense.shape[-1], ndims,
         elem_sz, int(lowdim), _ptr(tail), tail.size, _ptr(out), cap,
         None if wsums is None else _ptr(wsums),
-        None if gidx is None else _ptr(gidx))
+        None if gidx is None else _ptr(gidx),
+        None if head is None else _ptr(head), 0 if head is None else len(meta))
     if n < 0:
         raise RuntimeError(f"sprintz_assemble_stream refused its buffer of "
                            f"{cap} bytes")

@@ -135,7 +135,7 @@ def main() -> int:
                 plan.kinds.size, plan.ngroups, plan.remaining_elems,
                 w.ctypes.data, h.ctypes.data, d.ctypes.data, d.shape[-1], nd,
                 es, int(lowdim), tail.ctypes.data, tail.nbytes,
-                out.ctypes.data, out.size, ws.ctypes.data, None)
+                out.ctypes.data, out.size, ws.ctypes.data, None, None, 0)
             return n  # its bytes are the assemble step's, checked there
 
         steps = {

@@ -107,6 +107,12 @@ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
   while (((shim_bar(bar).load() >> 31) & 1u) == parity) std::this_thread::yield();
 }
 inline unsigned long long global_ns() { return 0; }
+// c + a's signed 16-bit halves times b's bytes 0 and 1, unsigned
+inline uint32_t dp2a_su(int32_t a, uint32_t b, uint32_t c) {
+  const uint32_t p0 = (uint32_t)(int32_t)(int16_t)(a & 0xffff) * (b & 0xffu);
+  const uint32_t p1 = (uint32_t)(int32_t)(int16_t)((uint32_t)a >> 16) * ((b >> 8) & 0xffu);
+  return c + p0 + p1;
+}
 """
 ENTRY = """
 extern "C" void sprintz_shim_set_resident(int n) { g_resident = n; }
@@ -140,6 +146,14 @@ ENTRIES = {
 FIRE_CASES = [(8, 4, 40, 7, False), (8, 3, 33, 33, False), (16, 2, 300, 2, False),
               (8, 1, 17, 1, False), (16, 1, 60, 33, False), (8, 33, 40, 7, True),
               (16, 31, 35, 2, True), (8, 64, 150, 3, True), (16, 5, 9, 1, True)]
+# (elem_bits, ndims, blocks, wraps): the preprocessor's FIRE (the transform
+# instantiations of the serial encode and decode): odd D (at u8 the even
+# and odd dims' CTAs of the decode, one with no dim of its parity at D 1
+# and 65), D 64 and 65 (a second CTA pair, a lone even dim), rings that
+# wrap (more than 8 tiles of 16 blocks), and with ``wraps`` a u8 stream
+# whose learning counter passes 32767 and wraps
+FIRE_TRANSFORM_CASES = [(8, 1, 40, False), (8, 5, 150, False), (8, 65, 20, False),
+                        (16, 3, 150, False), (16, 33, 17, False), (8, 2, 1100, True)]
 # FIRE's chunked decode at explicit chunk shapes: (elem_bits, ndims, blocks,
 # chunks: a count of chunk_cuts' or the chunk starts, truncated
 # coefficient). u8 D 1: 64 chunks a CTA of the short kernel, ragged and some
@@ -377,6 +391,21 @@ class HostKernels:
             n // 8, nd, elem_bits, 1, int(trunc), None))
         return (out, fin) if final else out
 
+    def fire_transform(self, x, elem_bits: int, decode: bool):
+        """The preprocessor's FIRE (sprintz_fire_scan's transform mode): x
+        the values (i32) to encode, or the raw errors (uint8, or int16 at
+        u16) to decode, into garbage."""
+        from sprintz_tpu_torch.models import forecasters as fc
+        from sprintz_tpu_torch.ops import decode_kernels as dk
+
+        t = self.torch
+        n, nd = x.shape
+        out = self.garbage((n, nd), dk.narrow_dtype(elem_bits) if decode else t.int32)
+        self.check(self.so.sprintz_fire_scan(
+            x.data_ptr(), None, None, None, out.data_ptr(), n // 8, nd, elem_bits,
+            int(decode), fc.MODE_TRANSFORM, None))
+        return out
+
     def fire_decode_chunks(self, errs, elem_bits: int, first, states, trunc: bool,
                            short: bool):
         """The chunked decode on the short-chunk kernel (``short``) or the
@@ -584,6 +613,67 @@ def check_fire_case(hk: HostKernels, eb: int, nd: int, nb: int, nchunks: int,
         if got.dtype != want.dtype or not torch.equal(got, want):
             return name
     return check_fire_carries(hk, eb, nd, nb, trunc, rows, zz, states[k])
+
+
+def wrapping_transform_rows(eb: int, nd: int, nb: int) -> np.ndarray:
+    """(nb * 8, D) values on which the preprocessor's FIRE at u8 drives
+    its learning counter up about 31 a block, past 32767 (so that it wraps)
+    within 1100 blocks: the even rows' deltas are 31 and the odd rows'
+    errors +1, so that every gradient term is +31. The values are made by
+    running the scan's own recurrence forward, row by row."""
+    assert eb == 8
+    vals = np.zeros((nb * 8, nd), np.int64)
+    prev_val = np.zeros(nd, np.int64)
+    prev_delta = np.zeros(nd, np.int64)
+    counter = np.zeros(nd, np.int64)
+    even = np.arange(nd) % 2 == 0
+
+    def sext(v, bits):
+        return ((v + (1 << (bits - 1))) & ((1 << bits) - 1)) - (1 << (bits - 1))
+
+    for b in range(nb):
+        coef = sext((counter >> 5) << 4, 16)
+        grad = np.zeros(nd, np.int64)
+        for r in range(8):
+            pd = np.where(even, prev_delta & 0xFF, prev_delta)
+            pred = sext((pd * coef) >> 8, 8)
+            delta = np.full(nd, 31) if r % 2 == 0 else sext(pred + 1, 8)
+            if r % 2:
+                grad = sext(grad + prev_delta, 8)
+            prev_val = (prev_val + delta) & 0xFF
+            vals[b * 8 + r] = prev_val
+            prev_delta = delta
+        counter = sext(counter + (grad >> 2), 16)
+    return vals.astype(np.int32)
+
+
+def check_fire_transform_case(hk: HostKernels, eb: int, nd: int, nb: int,
+                              wraps: bool) -> str | None:
+    """The host-built transform instantiations at a
+    ``FIRE_TRANSFORM_CASES`` case against their plain versions, encode
+    and decode over the whole stream: the name of the first that differs,
+    or None."""
+    import torch
+
+    from sprintz_tpu_torch.models import forecasters as fc
+
+    rng = np.random.default_rng(eb * 101 + nd * 13 + nb)
+    half = 1 << (eb - 1)
+    if wraps:
+        vals = wrapping_transform_rows(eb, nd, nb)
+    else:
+        vals = np.cumsum(rng.integers(-20, 21, (nb * 8, nd)), axis=0) % (2 * half)
+        vals[: nb * 4] = rng.integers(0, 2 * half, (nb * 4, nd))
+    rows = torch.from_numpy(vals.astype(np.int32))
+    errs = fc.fire_encode_plain(rows, eb, transform=True)
+    raw = errs.to(torch.uint8) if eb == 8 else (errs - ((errs & 0x8000) << 1)).to(torch.int16)
+    pairs = [("FIRE transform encode", hk.fire_transform(rows, eb, False), errs),
+             ("FIRE transform decode", hk.fire_transform(raw, eb, True),
+              fc.fire_decode_plain(raw, eb, transform=True))]
+    for name, got, want in pairs:
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            return name
+    return None
 
 
 def fire_chain_states(rng, eb: int, nd: int, n: int) -> np.ndarray:
@@ -916,6 +1006,11 @@ def main() -> int:
             what = "FIRE u{} D {} nb {} chunks {} trunc {}, {} resident".format(*case, resident)
             if report(what, check_fire_case(hf, *case),
                       "the encode (with states) and both decodes equal their plain versions"):
+                return 1
+        for case in FIRE_TRANSFORM_CASES:
+            what = "FIRE transform u{} D {} nb {} wraps {}, {} resident".format(*case, resident)
+            if report(what, check_fire_transform_case(hf, *case),
+                      "encode and decode equal their plain versions"):
                 return 1
         hq = HostKernels(so_query, resident)
         for case in QUERY_CASES:

@@ -119,6 +119,9 @@ inline int __dp2a_lo(int a, int b, int c) {
   return (int)((uint32_t)c + p0 + p1);
 }
 
+// the high 32 bits of a * b
+inline int __mulhi(int a, int b) { return (int)(((long long)a * b) >> 32); }
+
 // Each lane of `mask` posts v; returns what lane src_lane posted (take), or
 // v.
 template <class T>

@@ -191,7 +191,11 @@ def test_failed_build_raises(tmp_path, monkeypatch):
 
 
 def test_import_loads_neither_jax_nor_the_jax_package():
+    """The package and its modules that ``__init__`` does not import."""
     code = ("import sys, sprintz_tpu_torch\n"
+            "import sprintz_tpu_torch.simple, sprintz_tpu_torch.transforms\n"
+            "import sprintz_tpu_torch.univariate, sprintz_tpu_torch.univariate8b\n"
+            "import sprintz_tpu_torch.models.online\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'sprintz_tpu'))\n"
             "print(bad)\n")
