@@ -172,6 +172,33 @@ Phases, each of which raises (exit code != 0) when it fails:
    CPU bytes on a 32k prefix), and every host method (the nine legacy
    formats, dyndelta, sprintzpack, the nth-order deltas) on small u8 / u16
    walks;
+3j. the off-codec modules, each API call in a counting window of its own:
+   ``search`` at full width (X the 64 MiB u8 walk's 1M rows of 64 dims as
+   float32 with duplicated rows planted, 1024 queries each moved by +-1 in
+   3 dims): ``knn_batch`` (k 10), ``knn_tiled`` (tile 16384) and
+   ``onenn_batch`` agree, equal a float64 brute force on 16 queries
+   exactly (ties by the lower index), ``radius_batch`` equals numpy's lists
+   on 64; all again with TF32 switched on globally (the same answers, the
+   setting left as set, and a tile's distances unchanged where a bare
+   matmul changes); ``squared_dists`` / ``knn_batch`` / ``knn_tiled``
+   timed beside their bound; none launches a codec kernel. The
+   filter-bank search (``models.learning``) at the reference's defaults
+   (65536 candidates, chunk 4096, 65536 samples of the ``ucr_like``
+   corpus) for l2, l1 and linf at block 1 and 8: each round's pick's
+   objective within 1e-4 of a float64 recomputation and no sampled
+   candidate better, and at a reduced grid the picks of the CPU run
+   (the tests' rule); its rounds timed. ``frames.encode_measure_decode``
+   on a 1M-row stand-in frame (no pandas) through chains of Quantize,
+   Delta, Zigzag, CodecSearch, Zlib, DynamicDelta (64k rows), and
+   ``Sprintz("delta")`` / ``Sprintz("xff")`` (the lowdim path at D 1):
+   lossless, the Sprintz columns' bytes the CPU run's (xff on 32k rows).
+   The five synthetic corpora at 100k rows, u8 and u16, through
+   ``write_dat`` / ``read_dat`` and delta and xff on the card (either
+   layout): lossless, delta's bytes the CPU run's, ratios printed.
+   ``utils.timing.device_loop_time`` of K1's wrapper at the 8 MiB u8 walk
+   (held in section 4 to 0.5-3x its CUDA-event median) and
+   ``utils.trace.device_profile`` around a decompress of that walk in an
+   ``annotate`` range: the trace names K1's and K2's kernels and the range;
 4. timings: each kernel's wrapper, the time inside its kernel launches
    alone, its plain version and, where one exists, one PyTorch call of the
    same function, by CUDA events (median of 25 after warm-up, L2 flushed
@@ -228,6 +255,7 @@ from __future__ import annotations
 import json
 import os
 import pathlib
+import shutil
 import socket
 import statistics
 import subprocess
@@ -429,6 +457,15 @@ HOST_METHODS = ("delta_simple8b", "delta8b", "online8b", "delta_online8b",
                 "delta2_online8b", "delta_rle8b", "delta_rle28b",
                 "doubledelta8b", "dyndelta8b", "dyndelta", "sprintzpack",
                 "delta", "doubledelta", "tripledelta")
+# the off-codec modules (phase 3j): a frame's Sprintz columns and the
+# corpora take the codec's paths (the lowdim one at D 1, both layouts for
+# the corpora); search and the filter-bank search launch none of these
+OFFCODEC_PATH = set().union(
+    *UNIVARIATE_CALLS.values(),
+    *(SIMPLE_CALLS[(c, es, s)] for c in ("delta", "xff") for es in (1, 2)
+      for s in ("encode", "decode")))
+SEARCH_TILE = 16384  # knn_tiled's default row tile
+RADIUS_SQ = 1500.0  # about two walk steps in 64 dims: a few rows a query
 HOST_DIST_PATH = {"walk_headers", "walk_headers_parallel", "gather_blocks",
                   "gather_dims", "build_plan", "assemble_stream"}
 DIST_SHARDS = (1, 2, 4, 8)
@@ -465,6 +502,26 @@ def runs_stream(rng, nrows: int, ndims: int) -> np.ndarray:
     seg = rng.integers(-6, 7, (nrows, ndims))
     m = (np.arange(nrows) // 256 % 3 == 0)[:, None]
     return (np.cumsum(np.where(m, 0, seg), axis=0) % 256).astype(np.uint8)
+
+
+class Frame:
+    """A stand-in DataFrame for the frames phase: ``.columns`` and
+    ``frame[c].to_numpy()`` over a dict of numpy columns (no pandas)."""
+
+    class Column:
+        def __init__(self, values: np.ndarray):
+            self.values = values
+            self.dtype = values.dtype
+
+        def to_numpy(self) -> np.ndarray:
+            return self.values
+
+    def __init__(self, cols: dict):
+        self.cols = cols
+        self.columns = list(cols)
+
+    def __getitem__(self, c):
+        return self.Column(self.cols[c])
 
 
 def nvidia_smi() -> str:
@@ -507,6 +564,14 @@ def main() -> int:
             FIRE_CASES, SHORT_CASES, chunk_cuts, chunk_states, short_case,
             wrapping_transform_rows)
         from sprintz_tpu_torch.stream_format import read_metadata_rle
+        from sprintz_tpu_torch import frames as tframes
+        from sprintz_tpu_torch import search as tsearch
+        from sprintz_tpu_torch.data import corpus as tcorpus
+        from sprintz_tpu_torch.device import exact_fp32_matmul
+        from sprintz_tpu_torch.frames import codecs as fcodecs
+        from sprintz_tpu_torch.models import learning as tlearn
+        from sprintz_tpu_torch.utils import timing as ttiming
+        from sprintz_tpu_torch.utils import trace as ttrace
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -2098,11 +2163,12 @@ def main() -> int:
 
     # ------------------------------------- 3i. the other codec formats
     t_phase = time.perf_counter()
-    f_launches = {k: 0 for k in KERNELS}
+    p_launches = {k: 0 for k in KERNELS}
 
     def window(what: str, fn, needed: set):
         """fn's result, its launches counted from 0: raise unless they are
-        exactly the kernels in ``needed``; they join the path's counts."""
+        exactly the kernels in ``needed``; they join the current phase's
+        counts (``p_launches``)."""
         zero_counts()
         out = fn()
         got = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
@@ -2111,7 +2177,7 @@ def main() -> int:
             raise AssertionError(f"{what}: launched {sorted(ran)}, must launch "
                                  f"exactly {sorted(needed)}")
         for k, v in got.items():
-            f_launches[k] += v
+            p_launches[k] += v
         return out
 
     simple_bufs = {}
@@ -2239,12 +2305,338 @@ def main() -> int:
                 elem_sz=es), xs):
             raise AssertionError(f"univariate {m}: round trip differs")
     log(f"[formats] univariate host methods {', '.join(HOST_METHODS)}: exact")
-    missing = [k for k in FORMATS_PATH if f_launches[k] == 0]
+    missing = [k for k in FORMATS_PATH if p_launches[k] == 0]
     if missing:
         raise AssertionError(f"the formats path never launched {missing}")
-    log(f"[formats] launches: {json.dumps(f_launches)}")
-    launches = {k: launches[k] + f_launches[k] for k in KERNELS}
+    log(f"[formats] launches: {json.dumps(p_launches)}")
+    launches = {k: launches[k] + p_launches[k] for k in KERNELS}
     log(f"[formats] every call launched exactly its kernels; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # -------------------------------------------- 3j. the off-codec modules
+    # search, the filter-bank search, the DataFrame pipeline, the dataset
+    # layer, the device timer and the profiler hook; each call in a
+    # counting window of its own (``window``, into this phase's counts)
+    t_phase = time.perf_counter()
+    p_launches = {k: 0 for k in KERNELS}
+    orng = np.random.default_rng(SEED + 17)
+    off_dir = here / "build" / "offcodec_smoke"
+    shutil.rmtree(off_dir, ignore_errors=True)
+    off_dir.mkdir(parents=True)
+
+    def codec_calls(codec: str, es: int, ndims: int, side: str) -> set:
+        """The kernels one compress or decompress launches: the lowdim
+        ones at D <= LOWDIM_MAX_NDIMS (the univariate façade's), else the
+        row-major ones (the simple codecs launch the same)."""
+        if ndims <= LOWDIM_MAX_NDIMS[es]:
+            return UNIVARIATE_CALLS[(codec, side)]
+        return SIMPLE_CALLS[(codec, es, side)]
+
+    def ev_ms(fn, reps: int = 5) -> float:
+        """Median card time of fn over reps runs after a warm-up (CUDA
+        events; fn's own host reads inside)."""
+        fn()
+        return statistics.median(once_ms(fn)[1] for _ in range(reps))
+
+    # search at full width: X the 64 MiB u8 walk's rows as float32, with
+    # ties planted (256 of the query rows copied to 3 other rows each), Q
+    # 1024 of its rows, each moved by +-1 in 3 dims. Every distance is an
+    # integer below 2^24, exact in float32: the answers must equal a
+    # float64 brute force exactly, in lax.top_k's order (the lower index
+    # first among equal distances)
+    Xs = streams["u8 walk 64 MiB"].astype(np.float32)
+    n_x, n_q = Xs.shape[0], 1024
+    src = orng.choice(n_x, n_q, replace=False)
+    Xs[orng.choice(n_x, 3 * 256, replace=False)] = np.repeat(
+        Xs[src[:256]], 3, axis=0)
+    Qs = Xs[src].copy()
+    nudged = np.argsort(orng.random((n_q, Xs.shape[1])), axis=1)[:, :3]
+    Qs[np.arange(n_q)[:, None], nudged] += orng.choice([-1.0, 1.0], (n_q, 3))
+    Xd, Qd = torch.from_numpy(Xs).to(dev), torch.from_numpy(Qs).to(dev)
+    X64 = Xs.astype(np.float64)
+    xn64 = (X64 * X64).sum(axis=1)
+
+    def brute(nq: int) -> np.ndarray:
+        """float64 (N, nq) squared distances to the first nq queries."""
+        Q64 = Qs[:nq].astype(np.float64)
+        return (xn64[:, None] - 2.0 * (X64 @ Q64.T)
+                + (Q64 * Q64).sum(axis=1)[None, :])
+
+    def search_answers():
+        return (window("knn_batch", lambda: tsearch.knn_batch(
+                    Xd, Qd, 10), set()),
+                window("knn_tiled", lambda: tsearch.knn_tiled(
+                    Xd, Qd, 10, tile_rows=SEARCH_TILE), set()),
+                window("onenn_batch", lambda: tsearch.onenn_batch(Xd, Qd),
+                       set()),
+                window("radius_batch", lambda: tsearch.radius_batch(
+                    Xd, Qd[:64], RADIUS_SQ), set()))
+
+    answers = search_answers()
+    knn_b, knn_t, one, rad = answers
+    if knn_t != knn_b or one != [nb[0] for nb in knn_b]:
+        raise AssertionError("search: knn_batch, knn_tiled and onenn_batch "
+                             "disagree")
+    d64 = brute(16)
+    for j in range(16):
+        order = np.argsort(d64[:, j], kind="stable")[:10]
+        if knn_b[j] != [tsearch.Neighbor(int(i), float(d64[i, j]))
+                        for i in order]:
+            raise AssertionError(f"search: query {j}'s knn differs from the "
+                                 f"float64 brute force")
+    d64 = brute(64)
+    want = []
+    for j in range(64):
+        rows = np.flatnonzero(d64[:, j] < RADIUS_SQ)
+        want.append([tsearch.Neighbor(int(i), float(d64[i, j])) for i in
+                     rows[np.argsort(d64[rows, j], kind="stable")]])
+    if rad != want:
+        raise AssertionError("search: radius_batch differs from numpy's lists")
+    ties = sum(len({nb.dist for nb in q}) < len(q) for q in knn_b)
+    # again with TF32 switched on globally: the same answers, and the
+    # caller's setting as it was. The walk's values (< 2^11) are exact in
+    # TF32 too, so a tile of them divided by 3 shows that the pin acts: a
+    # bare matmul of it under TF32 differs from the exact one, the port's
+    # distances do not
+    Xf = Xd[:SEARCH_TILE] / 3
+    with exact_fp32_matmul():
+        exact = torch.matmul(Xf, Qd.T)
+    pinned = tsearch.squared_dists(Xf, Qd)
+    torch.set_float32_matmul_precision("high")
+    try:
+        inexact = int((torch.matmul(Xf, Qd.T) != exact).sum())
+        same_pinned = torch.equal(tsearch.squared_dists(Xf, Qd), pinned)
+        tf32_answers = search_answers()
+        setting = (torch.get_float32_matmul_precision(),
+                   torch.backends.cuda.matmul.allow_tf32)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    if (tf32_answers != answers or not same_pinned
+            or setting != ("high", True)):
+        raise AssertionError(f"search with TF32 on: answers or distances "
+                             f"differ, or the setting changed ({setting})")
+    s_ms = {"squared_dists": ev_ms(lambda: tsearch.squared_dists(Xd, Qd)),
+            "knn_batch": ev_ms(lambda: tsearch.knn_batch(Xd, Qd, 10)),
+            "knn_tiled": ev_ms(lambda: tsearch.knn_tiled(
+                Xd, Qd, 10, tile_rows=SEARCH_TILE))}
+    s_bounds = {"operations": 2 * n_x * n_q * Xs.shape[1] / CORE_OPS_PER_S,
+                "bytes": n_x * n_q * 4 / mem_rate}
+    s_by = max(s_bounds, key=s_bounds.get)
+    log(f"[offcodec] search X {n_x} x {Xs.shape[1]}, Q {n_q}, k 10: "
+        f"knn_batch == knn_tiled (tile {SEARCH_TILE}) == onenn_batch == the "
+        f"float64 brute force on 16 queries ({ties} of {n_q} lists with "
+        f"ties), radius_batch ({RADIUS_SQ}) == numpy on 64 "
+        f"({sum(map(len, rad))} neighbours); the same with TF32 on, and "
+        f"the distances of a tile / 3 bit for bit (a bare matmul of it then "
+        f"differs at {inexact} of {SEARCH_TILE * n_q} entries)")
+    log(f"[offcodec] search times on {smi}: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in s_ms.items())
+        + f"; bound {s_bounds[s_by] * 1e3:.4f} ms by {s_by} (operations "
+        f"{s_bounds['operations'] * 1e3:.4f}, the (N, Q) matrix's bytes "
+        f"{s_bounds['bytes'] * 1e3:.4f})")
+    del Xd, Qd, Xf, exact, pinned
+
+    # the filter-bank search at the reference's defaults (nbits 4, ntaps
+    # 4: 65536 candidates, chunk 4096) on 65536 samples of the ucr_like
+    # corpus; each round's pick's objective against a float64
+    # recomputation, and no sampled candidate better by more than 1e-4;
+    # at a reduced grid, the picks the CPU run's under the tests' rule
+    fx = tcorpus.synthetic_corpus("ucr_like", nrows=(1 << 16) + 4,
+                                  seed=SEED)[:, 0].astype(np.float32)
+    grid = tlearn.all_possible_filters(4, 4, 0.5)
+    sample = grid[orng.choice(len(grid), 64, replace=False)]
+
+    def same_picks(got, ref, kw) -> bool:
+        """The tests' rule: equal, or the first differing round's picks
+        within 1e-4 of each other by a float64 recomputation."""
+        cands = tlearn.all_possible_filters(kw["ntaps"], kw["nbits"], 0.5)
+        for i, (g, w) in enumerate(zip(got, ref)):
+            if not np.array_equal(g, w):
+                means = tlearn.candidate_means_plain(
+                    fx, ref[:i], cands, kw["ntaps"], kw["block_sz"],
+                    kw["loss"], kw["max_samples"])
+                mg, mw = (means[np.flatnonzero((cands == v).all(axis=1))[0]]
+                          for v in (g, w))
+                return abs(mg - mw) <= 1e-4 * abs(mw)
+        return True
+
+    learn_rows = {}
+    for loss in ("l2", "l1", "linf"):
+        for bs in (1, 8):
+            what = f"{loss} block {bs}"
+            f, obj, round_s = window(
+                f"greedy_search {what}",
+                lambda: tlearn.greedy_search(fx, block_sz=bs, loss=loss),
+                set())
+            for i in range(len(f)):
+                m = tlearn.candidate_means_plain(
+                    fx, f[:i], np.vstack([f[i:i + 1], sample]), 4, bs, loss)
+                if abs(obj[i] - m[0]) > 1e-4 * abs(m[0]):
+                    raise AssertionError(f"greedy_search {what} round {i}: "
+                                         f"objective {obj[i]} vs float64 "
+                                         f"{m[0]}")
+                if (m[1:] < m[0] * (1 - 1e-4)).any():
+                    raise AssertionError(f"greedy_search {what} round {i}: a "
+                                         f"sampled candidate beats the pick")
+            kw = dict(ntaps=3, nbits=3, max_samples=8192, block_sz=bs,
+                      loss=loss)
+            g = window(f"greedy_search {what} reduced",
+                       lambda: tlearn.greedy_search(fx, **kw), set())[0]
+            c = tlearn.greedy_search(fx, device="cpu", **kw)[0]
+            if not same_picks(g, c, kw):
+                raise AssertionError(f"greedy_search {what}: the reduced "
+                                     f"grid's picks differ from the CPU run's")
+            learn_rows[what] = [round(float(t) * 1e3, 4) for t in round_s]
+            log(f"[offcodec] filter-bank search {what}: filters "
+                f"{f.tolist()}, objective {obj.tolist()} (float64 within "
+                f"1e-4); rounds {learn_rows[what]} ms; reduced grid == CPU "
+                f"{'exactly' if np.array_equal(g, c) else 'within 1e-4'}")
+    log(f"[offcodec] filter-bank rounds (host clock, ms) on {smi}: "
+        + json.dumps(learn_rows))
+
+    # the DataFrame pipeline: a stand-in frame (``.columns``,
+    # ``frame[c].to_numpy()``, no pandas) of 1M rows through codec chains
+    # with encode_measure_decode; the Sprintz columns (u8 / u16: the
+    # walks, the quantized prices, the flags) take the lowdim path at D 1
+    # on the card, their bytes the CPU run's (xff: a 32k-row prefix);
+    # DynamicDelta, a host codec of about 11 us a sample, on a 64k-row
+    # prefix
+    n_f = 1 << 20
+    cols = {"u8 walk": walk_stream(orng, n_f, 1, 1)[:, 0],
+            "u16 walk": walk_stream(orng, n_f, 1, 2)[:, 0],
+            "i32 walk": np.cumsum(orng.integers(-100, 101, n_f)).astype(
+                np.int32),
+            "price": np.round(100 + np.cumsum(orng.normal(0, 0.05, n_f)), 2),
+            "flags": orng.integers(0, 2, n_f).astype(np.uint8)}
+    lowdim_calls = {c: codec_calls(c, 1, 1, "encode") | codec_calls(
+        c, 1, 1, "decode") for c in ("delta", "xff")}
+    chains = {
+        "quantize delta zigzag zlib": (lambda: [
+            fcodecs.Quantize(), fcodecs.Delta(), fcodecs.Zigzag(),
+            fcodecs.Zlib()], n_f, set()),
+        "codecsearch zlib": (lambda: [fcodecs.CodecSearch(), fcodecs.Zlib()],
+                             n_f, set()),
+        "quantize dynamicdelta zigzag zlib": (lambda: [
+            fcodecs.Quantize(), fcodecs.DynamicDelta(), fcodecs.Zigzag(),
+            fcodecs.Zlib()], 1 << 16, set()),
+        "quantize sprintz delta": (lambda: [
+            fcodecs.Quantize(), fcodecs.Sprintz("delta")], n_f,
+            lowdim_calls["delta"]),
+        "quantize sprintz xff": (lambda: [
+            fcodecs.Quantize(), fcodecs.Sprintz("xff")], n_f,
+            lowdim_calls["xff"]),
+    }
+    frame_rows = {}
+    for name, (chain, rows, needed) in chains.items():
+        fr = Frame({c: v[:rows] for c, v in cols.items()})
+        c0 = time.perf_counter()
+        res = window(f"frames {name}",
+                     lambda: tframes.encode_measure_decode([fr], chain()),
+                     needed)
+        sec = time.perf_counter() - c0
+        if not res.lossless:
+            raise AssertionError(f"frames {name}: not lossless")
+        frame_rows[name] = {"rows": rows, "bytes": res.orig_nbytes,
+                            "encoded": res.encoded_nbytes,
+                            "ratio": res.ratio, "e2e_s": sec}
+        log(f"[offcodec] frames {name} ({rows} rows): {res.orig_nbytes} B "
+            f"-> {res.encoded_nbytes} B (ratio {res.ratio:.4f}), lossless, "
+            f"encode + decode {sec * 1e3:.1f} ms")
+    for codec in ("delta", "xff"):
+        rows = n_f if codec == "delta" else FIRE_PLAIN_ROWS
+        fr = {"f": Frame({c: v[:rows] for c, v in cols.items()})}
+        card = window(f"frames encode sprintz {codec}", lambda: tframes.encode(
+            fr, [fcodecs.Quantize(), fcodecs.Sprintz(codec)]),
+            codec_calls(codec, 1, 1, "encode"))
+        cpu = tframes.encode(fr, [fcodecs.Quantize(),
+                                  fcodecs.Sprintz(codec, device="cpu")])
+        if json.dumps(card[1]) != json.dumps(cpu[1]) or any(
+                card[0]["f"][c].tobytes() != cpu[0]["f"][c].tobytes()
+                for c in cols):
+            raise AssertionError(f"frames sprintz {codec}: card bytes differ "
+                                 f"from the CPU run's")
+    log(f"[offcodec] frames: the Sprintz columns' bytes == the CPU run's "
+        f"(delta {n_f} rows, xff {FIRE_PLAIN_ROWS}); on {smi}: "
+        + json.dumps(frame_rows))
+
+    # the dataset layer: each synthetic corpus at 100k rows, u8 and u16,
+    # through write_dat / read_dat and the codec on the card
+    corpus_rows = {}
+    for name, prof in tcorpus.CORPUS_PROFILES.items():
+        for dt in (np.uint8, np.uint16):
+            mat = tcorpus.synthetic_corpus(name, nrows=100_000, dtype=dt,
+                                           seed=SEED)
+            es, nd = mat.dtype.itemsize, prof["ndims"]
+            back = tcorpus.read_dat(tcorpus.write_dat(
+                off_dir / "corpora", name, mat), dt, nd)
+            if not np.array_equal(back, mat):
+                raise AssertionError(f"corpus {name}: write_dat / read_dat "
+                                     f"round trip differs")
+            for codec in ("delta", "xff"):
+                what = f"{name} {np.dtype(dt).name} {codec}"
+                sc = SprintzCodec(codec, es, device="cuda")
+                c0 = time.perf_counter()
+                buf = window(f"compress {what}", lambda: sc.compress(mat),
+                             codec_calls(codec, es, nd, "encode"))
+                c1 = time.perf_counter()
+                out = window(f"decompress {what}", lambda: sc.decompress(buf),
+                             codec_calls(codec, es, nd, "decode"))
+                c2 = time.perf_counter()
+                if not np.array_equal(out, mat.reshape(-1)):
+                    raise AssertionError(f"corpus {what}: round trip differs")
+                if codec == "delta" and buf != SprintzCodec(
+                        codec, es, device="cpu").compress(mat):
+                    raise AssertionError(f"corpus {what}: card bytes differ "
+                                         f"from the CPU run's")
+                corpus_rows[what] = {"ndims": nd, "bytes": mat.nbytes,
+                                     "ratio": mat.nbytes / len(buf),
+                                     "compress_s": c1 - c0,
+                                     "decompress_s": c2 - c1}
+    log("[offcodec] corpora (100k rows; lossless, delta bytes == the CPU "
+        "run's, write_dat / read_dat exact), ratios: " + ", ".join(
+            f"{k} {v['ratio']:.4f}" for k, v in corpus_rows.items()))
+    log(f"[offcodec] corpora on {smi}: " + json.dumps(corpus_rows))
+
+    # the device timer: K1's wrapper at the 8 MiB u8 walk, 64 calls back to
+    # back (held to phase 4's CUDA-event median there); the profiler hook
+    # around one decompress of the 8 MiB u8 walk, in an annotated range
+    k1_in = inputs["u8 main (nb 16384, D 64)"]
+    loop_s = window("device_loop_time K1", lambda: ttiming.device_loop_time(
+        dk.unpack_zz, (k1_in["dense"], k1_in["dwidths"], k1_in["eb"]),
+        iters=64), {"unpack_zz"})
+    trace_dir = off_dir / "trace"
+    cd = SprintzCodec("delta", 1, device="cuda")
+    tbuf = bufs[("u8 walk 8 MiB", "delta", "none")]
+
+    def profiled():
+        with ttrace.device_profile(str(trace_dir)):
+            with ttrace.annotate("offcodec decompress"):
+                return cd.decompress(tbuf)
+
+    if not np.array_equal(window("device_profile decompress", profiled,
+                                 codec_calls("delta", 1, 64, "decode")),
+                          streams["u8 walk 8 MiB"].reshape(-1)):
+        raise AssertionError("profiled decompress: round trip differs")
+    traces = list(trace_dir.glob("*.pt.trace.json"))
+    events = json.loads(traces[0].read_text())["traceEvents"] if len(
+        traces) == 1 else []
+    kern = [e["name"] for e in events if e.get("cat") == "kernel"]
+    named = {k: any(k in e for e in kern) for k in
+             ("unpack_zz_kernel", "prefix_finish_kernel")}
+    ranges = [e.get("cat") for e in events
+              if e.get("name") == "offcodec decompress"]
+    if not all(named.values()) or "user_annotation" not in ranges:
+        raise AssertionError(f"device_profile: {len(traces)} traces, kernels "
+                             f"{kern[:8]}, the range's events {ranges}")
+    log(f"[offcodec] device_profile: {traces[0].name}, {len(events)} events, "
+        f"{len(kern)} kernel events (unpack_zz_kernel, prefix_finish_kernel "
+        f"among them), the annotated range as {sorted(set(ranges))}")
+    missing = [k for k in OFFCODEC_PATH if p_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the off-codec path never launched {missing}")
+    log(f"[offcodec] launches: {json.dumps(p_launches)}")
+    launches = {k: launches[k] + p_launches[k] for k in KERNELS}
+    log(f"[offcodec] every call launched exactly its kernels; the phase "
         f"{time.perf_counter() - t_phase:.1f} s")
 
     # -------------------------------------------------------- 4. timings
@@ -2443,6 +2835,16 @@ def main() -> int:
     for what in ("u8 main (nb 16384, D 64)", "u16 main (nb 8192, D 64)"):
         table[what] = kernel_rows(inputs[what])
         log_rows(what, table[what])
+    # phase 3j's device_loop_time of K1 beside its CUDA-event median here
+    k1_ms = next(r["ms"] for r in table["u8 main (nb 16384, D 64)"]
+                 if r["name"] == "unpack_zz")
+    loop_ratio = loop_s * 1e3 / k1_ms
+    log(f"[offcodec] device_loop_time of K1 at the 8 MiB u8 walk: "
+        f"{loop_s * 1e3:.4f} ms a call (64 back to back) beside the CUDA-event "
+        f"median {k1_ms:.4f} ms: {loop_ratio:.3f}x")
+    if not 0.5 <= loop_ratio <= 3.0:
+        raise AssertionError(f"device_loop_time of K1 is {loop_ratio:.3f}x the "
+                             f"CUDA-event median, outside 0.5-3x")
     # the Huffman rows at the headline's chunk size, and at 4096 on the
     # smooth stream's sprintz stream (whose plain decode takes 4096 Python
     # steps a call: timed once)

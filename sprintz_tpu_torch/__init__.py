@@ -9,6 +9,15 @@ RLE of zero blocks), the +Huf entropy stage, checkpoint sidecars
 (``query.query``) and a file CLI (``python -m sprintz_tpu_torch``); the
 kernels are CUDA C++ under ``csrc/``, built with nvcc at first use.
 Streams are byte-identical to the reference codec and to the JAX package.
+
+Beside the codec, as in the JAX package: ``search`` (nearest-neighbour
+search as one distance matmul and top-k on the card) and ``windows``;
+``models.learning`` (the filter-bank search, streamed matmuls on the
+card); ``frames`` (DataFrame codec chains, with the ``Sprintz`` column
+codec on the card; ``frames.storage`` alone needs pandas); ``data``
+(corpora, quantizers, the benchmark file layout); ``utils`` (debug dumps,
+host bit helpers, ``timing.device_loop_time``, ``trace.device_profile``
+and ``annotate``).
 """
 
 from . import query
