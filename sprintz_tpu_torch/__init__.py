@@ -16,8 +16,9 @@ search as one distance matmul and top-k on the card) and ``windows``;
 card); ``frames`` (DataFrame codec chains, with the ``Sprintz`` column
 codec on the card; ``frames.storage`` alone needs pandas); ``data``
 (corpora, quantizers, the benchmark file layout); ``utils`` (debug dumps,
-host bit helpers, ``timing.device_loop_time``, ``trace.device_profile``
-and ``annotate``).
+host bit helpers, ``timing.device_loop_time``, ``trace``: the profiler
+hook ``device_profile``, the codec's spans ``annotate`` and its
+``counters``).
 """
 
 from . import query

@@ -27,6 +27,7 @@ from . import encoder as _encoder
 from .checkpoint import Sidecar, compress_with_sidecar, decompress_parallel
 from .entropy.huffman import huff_compress, huff_decompress, is_container
 from .errors import CorruptStreamError
+from .utils.trace import annotate
 
 __all__ = ["CorruptStreamError", "Sidecar", "SprintzCodec", "compress",
            "decompress"]
@@ -73,6 +74,7 @@ class SprintzCodec:
             return data, 1
         raise ValueError("data must be 1-D (univariate) or 2-D (rows, dims)")
 
+    @annotate("sprintz.compress")
     def compress(self, data: np.ndarray, ndims: int | None = None) -> bytes:
         """Compress a (rows, ndims) array or flat row-major stream."""
         flat, inferred = self._as_flat(data)
@@ -95,6 +97,7 @@ class SprintzCodec:
             return stream
         return coded
 
+    @annotate("sprintz.decompress")
     def decompress(self, buf: bytes,
                    sidecar: Sidecar | None = None) -> np.ndarray:
         """Decompress a stream; returns the flat row-major element array.
@@ -113,6 +116,7 @@ class SprintzCodec:
         return _decoder.decompress(buf, codec=self.codec,
                                    elem_sz=self.elem_sz, device=self.device)
 
+    @annotate("sprintz.compress_seekable")
     def compress_seekable(self, data: np.ndarray, ndims: int | None = None,
                           every_groups: int = 16) -> tuple[bytes, Sidecar]:
         """Compress and build a checkpoint sidecar -> (stream, sidecar). The
@@ -128,6 +132,7 @@ class SprintzCodec:
             stream = self._entropy_wrap(stream)
         return stream, sc
 
+    @annotate("sprintz.compress_batch")
     def compress_batch(self, arrays: list[np.ndarray],
                        ndims: int | None = None) -> list[bytes]:
         """Compress S same-shape (rows, ndims) arrays in one device pass
@@ -147,6 +152,7 @@ class SprintzCodec:
                                            device=self.device)
         return [self.compress(a, ndims=ndims) for a in arrays]
 
+    @annotate("sprintz.decompress_batch")
     def decompress_batch(self, bufs: list[bytes]) -> list[np.ndarray]:
         """Decompress S streams in one device pass
         (``decoder.decompress_batch``), the counterpart of

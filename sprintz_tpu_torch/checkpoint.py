@@ -218,7 +218,7 @@ def decompress_parallel(buf: bytes, sidecar: Sidecar,
         *decoder.upload_payload(decoder.gather_payloads(buf, idx), idx, dev),
         idx.total_rows, elem_sz, sidecar.codec, lowdim,
         chunks=(ro // BLOCK_SZ, states))
-    return np.concatenate([decoder.download_values(vals), tail])
+    return decoder.join_tail(decoder.download_values(vals), tail)
 
 
 def decode_range(buf: bytes, sidecar: Sidecar, start_row: int, nrows: int,

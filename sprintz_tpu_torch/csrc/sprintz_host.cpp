@@ -19,6 +19,7 @@
 //                            each group's byte offset and first row (the
 //                            group index a sidecar is built from)
 //   sprintz_histogram        the +Huf table's byte counts
+//   sprintz_threads_started  the threads parallel_for has started, in all
 //
 // Semantics are those of the Python versions beside their callers
 // (decoder._walk_headers_py, decoder._walk_headers_parallel_py,
@@ -38,6 +39,7 @@
 
 #include <algorithm>
 #include <array>
+#include <atomic>
 #include <thread>
 #include <vector>
 
@@ -188,6 +190,10 @@ constexpr int64_t kHistogramBytes = 8 << 20;
 // split), and the threads' first touches of fresh output pages contend.
 constexpr int64_t kWalkBytes = 8 << 20;
 
+// Threads that parallel_for has started since the library was loaded
+// (sprintz_threads_started).
+std::atomic<int64_t> g_threads_started{0};
+
 // Run work(lo, hi) over [0, n) on up to the host's cores, one thread for
 // every `grain` items at least.
 template <typename F>
@@ -207,6 +213,7 @@ void parallel_for(int64_t n, int64_t grain, int max_threads, F&& work) {
     if (lo >= hi) break;
     ts.emplace_back([&work, lo, hi] { work(lo, hi); });
   }
+  g_threads_started.fetch_add((int64_t)ts.size(), std::memory_order_relaxed);
   for (auto& th : ts) th.join();
 }
 
@@ -806,6 +813,11 @@ int64_t sprintz_assemble_stream(
 
   memcpy(out + pos, tail, tail_nbytes);
   return pos + tail_nbytes;
+}
+
+// The threads parallel_for has started since the library was loaded.
+int64_t sprintz_threads_started() {
+  return g_threads_started.load(std::memory_order_relaxed);
 }
 
 }  // extern "C"

@@ -23,6 +23,13 @@ as the encoder did.
 
 The values come back narrow and the verbatim tail is appended on the host.
 
+Each stage carries its span (``utils.trace.annotate``): ``decode.walk``,
+``decode.gather``, ``decode.upload``, ``decode.device``,
+``decode.download``, ``decode.join``; and counters: the walks'
+``data_blocks`` and ``run_blocks``, the gather's ``bytes``, and each
+transfer's ``pageable_bytes`` and ``pinned_bytes`` on a CUDA device
+(``utils.trace.counters``).
+
 A checkpoint sidecar (``checkpoint.py``) splits the same pass into chunks:
 ``walk_headers_parallel`` walks the sidecar's segments on threads, and
 ``decode_device(chunks=...)`` decodes the whole timeline at once with each
@@ -62,6 +69,8 @@ from .ops.decode_kernels import (
 from .ops.pack_kernels import unpack_rows
 from .planner import unpack_headers
 from .stream_format import copy_ranges, read_metadata_rle
+from .utils import trace
+from .utils.trace import annotate
 
 
 @dataclasses.dataclass
@@ -85,6 +94,14 @@ def _index(walk, elem_sz: int, lowdim: bool) -> StreamIndex:
         section_bytes=8 * elem_sz if lowdim else 0)
 
 
+def _count_walk(walk, idx: StreamIndex) -> StreamIndex:
+    """Count a walk's data and run blocks into ``walk``'s counters."""
+    ndata = idx.widths.shape[0]
+    trace.count(walk, data_blocks=ndata,
+                run_blocks=idx.total_rows // BLOCK_SZ - ndata)
+    return idx
+
+
 def walk_headers(buf: bytes, ngroups: int, ndims: int, elem_sz: int,
                  lowdim: bool = False, start: int = METADATA_LEN_RLE,
                  runs: bool = True) -> StreamIndex:
@@ -97,9 +114,11 @@ def walk_headers(buf: bytes, ngroups: int, ndims: int, elem_sz: int,
     non-RLE stream (``simple.py``): a block of all-zero widths is a data
     block of width 0 with no payload. ``_walk_headers_py`` is its plain
     version."""
-    return _index(native_host.walk_headers(buf, ngroups, ndims, elem_sz,
-                                           lowdim, start, runs),
-                  elem_sz, lowdim)
+    with annotate("decode.walk"):
+        idx = _index(native_host.walk_headers(buf, ngroups, ndims, elem_sz,
+                                              lowdim, start, runs),
+                     elem_sz, lowdim)
+    return _count_walk(walk_headers, idx)
 
 
 def walk_headers_parallel(buf: bytes, ngroups: int, ndims: int,
@@ -117,9 +136,11 @@ def walk_headers_parallel(buf: bytes, ngroups: int, ndims: int,
     ``_walk_headers_parallel_py`` is its plain version."""
     if len(byte_offsets) <= 1 or ngroups <= every_groups:
         return walk_headers(buf, ngroups, ndims, elem_sz, lowdim)
-    return _index(native_host.walk_headers_parallel(
-        buf, byte_offsets, row_offsets, every_groups, ngroups, ndims,
-        elem_sz, lowdim), elem_sz, lowdim)
+    with annotate("decode.walk"):
+        idx = _index(native_host.walk_headers_parallel(
+            buf, byte_offsets, row_offsets, every_groups, ngroups, ndims,
+            elem_sz, lowdim), elem_sz, lowdim)
+    return _count_walk(walk_headers_parallel, idx)
 
 
 def _walk_headers_parallel_py(buf: bytes, ngroups: int, ndims: int,
@@ -232,12 +253,17 @@ def gather_payloads(buf: bytes, idx: StreamIndex, maxb: int | None = None,
     (ndata, D, EB) buffer, zero past each section's w bytes. ``out``: the
     buffer to gather into (a batch's slice), else a new one.
     ``_gather_payloads_py`` is its plain version."""
-    if idx.section_bytes:
-        return native_host.gather_dims(buf, idx.payload_offsets, idx.widths,
-                                       idx.section_bytes, out)
-    return native_host.gather_blocks(
-        buf, idx.payload_offsets, idx.row_bytes,
-        stream_maxb(idx) if maxb is None else maxb, out)
+    with annotate("decode.gather"):
+        if idx.section_bytes:
+            dense = native_host.gather_dims(buf, idx.payload_offsets,
+                                            idx.widths, idx.section_bytes,
+                                            out)
+        else:
+            dense = native_host.gather_blocks(
+                buf, idx.payload_offsets, idx.row_bytes,
+                stream_maxb(idx) if maxb is None else maxb, out)
+    trace.count(gather_payloads, bytes=dense.nbytes)
+    return dense
 
 
 def _gather_payloads_py(buf: bytes, idx: StreamIndex) -> np.ndarray:
@@ -291,6 +317,7 @@ def fire_errors(dense: torch.Tensor, widths: torch.Tensor, elem_sz: int,
     return errs.reshape(-1, widths.shape[1])
 
 
+@annotate("decode.device")
 def decode_device(dense: torch.Tensor, widths: torch.Tensor,
                   out_rows: torch.Tensor, total_rows: int,
                   elem_sz: int, codec: str = "delta",
@@ -378,7 +405,7 @@ def decompress(buf: bytes, codec: str = "delta", elem_sz: int = 1,
     dense = gather_payloads(buf, idx)
     vals = decode_device(*upload_payload(dense, idx, dev), idx.total_rows,
                          elem_sz, codec, lowdim)
-    return np.concatenate([download_values(vals), tail])
+    return join_tail(download_values(vals), tail)
 
 
 def decompress_batch(bufs: list[bytes], codec: str = "delta",
@@ -444,12 +471,12 @@ def decompress_batch(bufs: list[bytes], codec: str = "delta",
     if batch:
         dense, widths, out_rows, starts = gather_batch(
             bufs, batch, ndims, elem_sz, lowdim)
-        up = [torch.from_numpy(a).to(dev) for a in (dense, widths, out_rows)]
+        up = upload_batch(dense, widths, out_rows, dev)
         vals = download_values(decode_batch(*up, starts, elem_sz, codec,
                                             lowdim))
         for (i, idx, tail), row in zip(batch, starts):
             body = vals[row * ndims:(row + idx.total_rows) * ndims]
-            out[i] = np.concatenate([body, tail])
+            out[i] = join_tail(body, tail)
     return out
 
 
@@ -512,17 +539,48 @@ def decode_indexed(buf: bytes, idx: StreamIndex, ndims: int, elem_sz: int,
     return download_values(vals).reshape(-1, ndims)
 
 
+def _upload(counted, device: torch.device, *arrays: np.ndarray):
+    """Host arrays -> tensors on ``device``, counted in ``counted``'s
+    transfer counters."""
+    with annotate("decode.upload"):
+        up = tuple(torch.from_numpy(a).to(device) for a in arrays)
+    trace.count_transfer(counted, device, *arrays)
+    return up
+
+
 def upload_payload(dense: np.ndarray, idx: StreamIndex, device: torch.device):
     """Host payload and index -> (dense u8, widths u8, out_rows int64) on
     ``device``."""
-    return (torch.from_numpy(dense).to(device),
-            torch.from_numpy(idx.widths).to(device),
-            torch.from_numpy(idx.out_rows).to(device))
+    return _upload(upload_payload, device, dense, idx.widths, idx.out_rows)
+
+
+def upload_batch(dense: np.ndarray, widths: np.ndarray, out_rows: np.ndarray,
+                 device: torch.device):
+    """``upload_payload`` of a batch's joined payload and index
+    (``gather_batch``)."""
+    return _upload(upload_batch, device, dense, widths, out_rows)
 
 
 def download_values(vals: torch.Tensor) -> np.ndarray:
     """(rows, D) u8/u16 device values -> flat numpy array. u16 travels as
     int16 (torch's uint16 is a storage type) and is reinterpreted."""
-    if vals.dtype == torch.uint16:
-        return vals.view(torch.int16).cpu().numpy().view(np.uint16).reshape(-1)
-    return vals.cpu().numpy().reshape(-1)
+    with annotate("decode.download"):
+        if vals.dtype == torch.uint16:
+            out = vals.view(torch.int16).cpu().numpy().view(np.uint16)
+        else:
+            out = vals.cpu().numpy()
+    trace.count_transfer(download_values, vals.device, out)
+    return out.reshape(-1)
+
+
+def join_tail(values: np.ndarray, tail: np.ndarray) -> np.ndarray:
+    """A decode's flat values followed by the stream's verbatim tail."""
+    with annotate("decode.join"):
+        return np.concatenate([values, tail])
+
+
+for _fn in (walk_headers, walk_headers_parallel):
+    trace.count(_fn, data_blocks=0, run_blocks=0)
+trace.count(gather_payloads, bytes=0)
+for _fn in (upload_payload, upload_batch, download_values):
+    trace.count(_fn, pageable_bytes=0, pinned_bytes=0)

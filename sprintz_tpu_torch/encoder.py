@@ -20,6 +20,12 @@ Counterpart of ``sprintz_tpu/encoder.py`` for its two layouts: row-major
 
 Both host steps run in the port's host library (``native_host``, C++).
 
+Each stage carries its span (``utils.trace.annotate``): ``encode.upload``,
+``encode.device``, ``encode.download``, ``encode.plan``
+(``planner.build_plan``), ``encode.assemble``; the transfers count their
+``pageable_bytes`` and ``pinned_bytes`` on a CUDA device
+(``utils.trace.counters``).
+
 Output is byte-identical to the reference and to the JAX package.
 ``compress_with_layout`` also returns what a checkpoint sidecar is built
 from (``checkpoint.compress_with_sidecar``): the blocks the device pass
@@ -50,6 +56,8 @@ from .ops.pack_kernels import (encode_lowdim, pack_rows, rows_dtype,
                                widen_rows)
 from .planner import KIND_DATA, KIND_RUN, EmissionPlan, build_plan, pack_headers
 from .stream_format import copy_ranges, write_metadata_rle
+from .utils import trace
+from .utils.trace import annotate
 
 
 def upload_rows(rows: np.ndarray, device: torch.device,
@@ -58,13 +66,18 @@ def upload_rows(rows: np.ndarray, device: torch.device,
     ``narrow``, as transferred: uint8, or u16 as int16."""
     if not rows.flags.writeable:  # torch.from_numpy wants a writable array
         rows = rows.copy()
-    if rows.dtype == np.uint16:  # transferred as int16
-        t = torch.from_numpy(rows.view(np.int16)).to(device)
-        return t if narrow else t.to(torch.int32) & 0xFFFF
-    t = torch.from_numpy(rows).to(device)
-    return t if narrow else t.to(torch.int32)
+    with annotate("encode.upload"):
+        if rows.dtype == np.uint16:  # transferred as int16
+            t = torch.from_numpy(rows.view(np.int16)).to(device)
+            t = t if narrow else t.to(torch.int32) & 0xFFFF
+        else:
+            t = torch.from_numpy(rows).to(device)
+            t = t if narrow else t.to(torch.int32)
+    trace.count_transfer(upload_rows, device, rows)
+    return t
 
 
+@annotate("encode.device")
 def encode_device(rows: torch.Tensor, elem_sz: int, codec: str = "delta",
                   lowdim: bool = False, fire_states: bool = False):
     """Device pass: rows (N, D), N divisible by 8 ->
@@ -165,10 +178,8 @@ def compress_with_layout(flat: np.ndarray, ndims: int, codec: str = "delta",
     else:
         widths, hdr, dense, width_sums = encode_device(rows, elem_sz, codec,
                                                        lowdim)
-    widths_np = widths.to(torch.uint8).cpu().numpy()
-    hdr_np = hdr.to(torch.uint8).cpu().numpy()
-    dense_np = dense.cpu().numpy()
-    wsums_np = width_sums.cpu().numpy()
+    widths_np, hdr_np, dense_np, wsums_np = download_outputs(
+        widths, hdr, dense, width_sums)
 
     # lowdim FIRE takes delta's strict run comparator (encoder.py:346)
     plan = build_plan(wsums_np == 0, n, ndims, codec == "xff" and not lowdim)
@@ -222,10 +233,8 @@ def compress_batch(streams: np.ndarray, codec: str = "delta",
                     narrow=True)
     widths, hdr, dense, width_sums = encode_batch_device(
         x.reshape(nstreams, nr, ndims), elem_sz, codec, lowdim)
-    widths_np = widths.to(torch.uint8).cpu().numpy()
-    hdr_np = hdr.to(torch.uint8).cpu().numpy()
-    dense_np = dense.cpu().numpy()
-    wsums_np = width_sums.cpu().numpy()
+    widths_np, hdr_np, dense_np, wsums_np = download_outputs(
+        widths, hdr, dense, width_sums)
 
     out = []
     for s in range(nstreams):
@@ -239,6 +248,20 @@ def compress_batch(streams: np.ndarray, codec: str = "delta",
     return out
 
 
+def download_outputs(widths: torch.Tensor, hdr: torch.Tensor,
+                     dense: torch.Tensor, width_sums: torch.Tensor):
+    """The device pass's outputs -> numpy on the host: (widths uint8, hdr
+    uint8, dense uint8, width sums int32), each in one copy; a copy waits
+    for the device pass to finish."""
+    with annotate("encode.download"):
+        out = (widths.to(torch.uint8).cpu().numpy(),
+               hdr.to(torch.uint8).cpu().numpy(), dense.cpu().numpy(),
+               width_sums.cpu().numpy())
+    trace.count_transfer(download_outputs, dense.device, *out)
+    return out
+
+
+@annotate("encode.device")
 def encode_batch_device(x: torch.Tensor, elem_sz: int, codec: str,
                         lowdim: bool):
     """``compress_batch``'s device pass: narrow rows (S, nb * 8, D), as
@@ -256,6 +279,7 @@ def encode_batch_device(x: torch.Tensor, elem_sz: int, codec: str,
     return encode_errors(errs, elem_sz, lowdim)
 
 
+@annotate("encode.assemble")
 def assemble_stream(plan: EmissionPlan, widths_np: np.ndarray,
                     hdr_np: np.ndarray, dense_np: np.ndarray, ndims: int,
                     elem_sz: int, tail: np.ndarray, lowdim: bool = False,
@@ -353,3 +377,7 @@ def _assemble_stream_py(plan: EmissionPlan, widths_np: np.ndarray,
     if tail.nbytes:
         out[total:] = np.frombuffer(tail.tobytes(), dtype=np.uint8)
     return out.tobytes()
+
+
+for _fn in (upload_rows, download_outputs):
+    trace.count(_fn, pageable_bytes=0, pinned_bytes=0)

@@ -37,6 +37,7 @@ from ..device import resolve_device
 from ..errors import CorruptStreamError
 from ..ops.huffman_kernels import (MAX_CODE_LEN, decode_chunks, encode_chunks,
                                    flag_offset)
+from ..utils.trace import annotate
 
 # Chunk sizes of auto_chunk_symbols: small chunks (more decode lanes) for
 # streams of at least AUTO_CHUNK_MIN_BYTES, large ones (a slightly better
@@ -237,6 +238,7 @@ def encode_table(t: HuffmanTable, device: torch.device):
             torch.from_numpy(t.lengths.astype(np.int32)).to(device))
 
 
+@annotate("huf.compress")
 def huff_compress(data: np.ndarray | bytes,
                   chunk_symbols: int | None = None,
                   allow_stored: bool = True,
@@ -355,6 +357,7 @@ def decode_tables(t: HuffmanTable, device: torch.device):
                  for a in t.canonical_tables())
 
 
+@annotate("huf.decompress")
 def huff_decompress(buf: bytes,
                     device: str | torch.device | None = None) -> np.ndarray:
     """Decode a huff_compress container -> (n,) uint8.

@@ -15,7 +15,9 @@ versions, which stay beside their callers as the plain versions the tests
 hold this library to.
 
 Each wrapper counts its calls into the library in its ``calls`` attribute,
-as the kernel wrappers count their launches.
+as the kernel wrappers count their launches, and the threads the library
+started for them in ``threads``; ``threads_started`` reads the library's
+own count of them.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ SIGNATURES = {
     "sprintz_assemble_stream": (_P, _P, _L, _L, _L, _P, _P, _P, _L, _I, _I,
                                 _I, _P, _L, _P, _L, _P, _P, _P, _L),
     "sprintz_histogram": (_P, _L, _P),
+    "sprintz_threads_started": (),
 }
 
 
@@ -108,6 +111,25 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _call(wrapper, *args) -> int:
+    """The library's entry point of ``wrapper`` (``sprintz_<its name>``)
+    on ``args``, counted in the wrapper's ``calls`` and ``threads``."""
+    lib = _library()
+    before = lib.sprintz_threads_started()
+    wrapper.calls += 1
+    out = getattr(lib, "sprintz_" + wrapper.__name__)(*args)
+    wrapper.threads += lib.sprintz_threads_started() - before
+    return out
+
+
+def threads_started() -> int:
+    """The threads the library has started since it was loaded: 0 before
+    it is (reading it builds nothing)."""
+    if not _library.cache_info().currsize:
+        return 0
+    return int(_library().sprintz_threads_started())
+
+
 def _ptr(a: np.ndarray) -> int:
     return a.ctypes.data
 
@@ -145,11 +167,10 @@ def walk_headers(buf, ngroups: int, ndims: int, elem_sz: int,
     data = _u8(buf)
     cap = max(min(2 * int(ngroups), data.size * (1 if runs else 2)), 1)
     widths, offsets, out_rows, row_bytes, meta = _walk_outputs(cap, ndims)
-    walk_headers.calls += 1
-    ndata = _library().sprintz_walk_headers(
-        _ptr(data), data.size, start, ngroups, ndims, elem_sz, int(lowdim),
-        int(runs), cap, _ptr(widths), _ptr(offsets), _ptr(out_rows),
-        _ptr(row_bytes), _ptr(meta))
+    ndata = _call(
+        walk_headers, _ptr(data), data.size, start, ngroups, ndims, elem_sz,
+        int(lowdim), int(runs), cap, _ptr(widths), _ptr(offsets),
+        _ptr(out_rows), _ptr(row_bytes), _ptr(meta))
     if ndata < 0:
         raise CorruptStreamError(
             f"stream walk overran the buffer (len {data.size}): truncated "
@@ -182,11 +203,11 @@ def walk_headers_parallel(buf, byte_offsets: np.ndarray,
             f"stream of {data.size} bytes cannot hold {ngroups} groups")
     cap = max(2 * int(ngroups), 1)
     widths, offsets, out_rows, row_bytes, meta = _walk_outputs(cap, ndims)
-    walk_headers_parallel.calls += 1
-    ndata = _library().sprintz_walk_headers_parallel(
-        _ptr(data), data.size, _ptr(bo), _ptr(ro), bo.size, every_groups,
-        ngroups, ndims, elem_sz, int(lowdim), cap, _ptr(widths),
-        _ptr(offsets), _ptr(out_rows), _ptr(row_bytes), _ptr(meta))
+    ndata = _call(
+        walk_headers_parallel, _ptr(data), data.size, _ptr(bo), _ptr(ro),
+        bo.size, every_groups, ngroups, ndims, elem_sz, int(lowdim), cap,
+        _ptr(widths), _ptr(offsets), _ptr(out_rows), _ptr(row_bytes),
+        _ptr(meta))
     if ndata == -2:
         raise CorruptStreamError(
             "sidecar inconsistent with stream: segment row counts do not "
@@ -220,10 +241,8 @@ def gather_blocks(buf, offsets: np.ndarray, row_bytes: np.ndarray,
     offsets = np.ascontiguousarray(offsets, dtype=np.int64)
     row_bytes = np.ascontiguousarray(row_bytes, dtype=np.int32)
     out = _gather_out(out, (offsets.size, BLOCK_SZ, maxb))
-    gather_blocks.calls += 1
-    if _library().sprintz_gather_blocks(
-            _ptr(data), data.size, _ptr(offsets), _ptr(row_bytes),
-            offsets.size, maxb, _ptr(out), out.size) < 0:
+    if _call(gather_blocks, _ptr(data), data.size, _ptr(offsets),
+             _ptr(row_bytes), offsets.size, maxb, _ptr(out), out.size) < 0:
         raise CorruptStreamError("a block's payload lies outside the stream")
     return out
 
@@ -239,10 +258,9 @@ def gather_dims(buf, offsets: np.ndarray, widths: np.ndarray,
     widths = np.ascontiguousarray(widths, dtype=np.uint8)
     ndata, ndims = widths.shape
     out = _gather_out(out, (ndata, ndims, section_bytes))
-    gather_dims.calls += 1
-    if _library().sprintz_gather_dims(
-            _ptr(data), data.size, _ptr(offsets), _ptr(widths), ndata, ndims,
-            section_bytes, _ptr(out), out.size) < 0:
+    if _call(gather_dims, _ptr(data), data.size, _ptr(offsets),
+             _ptr(widths), ndata, ndims, section_bytes, _ptr(out),
+             out.size) < 0:
         raise CorruptStreamError("a block's payload lies outside the stream")
     return out
 
@@ -256,10 +274,9 @@ def build_plan(zero_flags: np.ndarray, n_elems: int, ndims: int,
     kinds = np.empty(cap, dtype=np.int8)
     values = np.empty(cap, dtype=np.int32)
     meta = np.zeros(4, dtype=np.int64)
-    build_plan.calls += 1
-    nslots = _library().sprintz_build_plan(
-        _ptr(zf), n_elems, ndims, int(run_cmp_allows_equal), _ptr(kinds),
-        _ptr(values), _ptr(meta))
+    nslots = _call(
+        build_plan, _ptr(zf), n_elems, ndims, int(run_cmp_allows_equal),
+        _ptr(kinds), _ptr(values), _ptr(meta))
     if not 0 <= nslots <= cap:
         raise RuntimeError(f"sprintz_build_plan returned {nslots} slots "
                            f"(capacity {cap})")
@@ -301,11 +318,11 @@ def assemble_stream(kinds: np.ndarray, values: np.ndarray, ngroups: int,
     out = np.empty(cap, dtype=np.uint8)
     ng = (kinds.size + 1) // 2  # the library's groups: two slots each
     gidx = np.empty((2, ng), dtype=np.int64) if group_index else None
-    assemble_stream.calls += 1
-    n = _library().sprintz_assemble_stream(
-        _ptr(kinds), _ptr(values), kinds.size, ngroups, remaining_elems,
-        _ptr(widths), _ptr(hdrvals), _ptr(dense), dense.shape[-1], ndims,
-        elem_sz, int(lowdim), _ptr(tail), tail.size, _ptr(out), cap,
+    n = _call(
+        assemble_stream, _ptr(kinds), _ptr(values), kinds.size, ngroups,
+        remaining_elems, _ptr(widths), _ptr(hdrvals), _ptr(dense),
+        dense.shape[-1], ndims, elem_sz, int(lowdim), _ptr(tail), tail.size,
+        _ptr(out), cap,
         None if wsums is None else _ptr(wsums),
         None if gidx is None else _ptr(gidx),
         None if head is None else _ptr(head), 0 if head is None else len(meta))
@@ -322,8 +339,7 @@ def histogram(data) -> np.ndarray:
     minlength=256)``."""
     data = _u8(data)
     counts = np.empty(256, dtype=np.int64)
-    histogram.calls += 1
-    _library().sprintz_histogram(_ptr(data), data.size, _ptr(counts))
+    _call(histogram, _ptr(data), data.size, _ptr(counts))
     return counts
 
 
@@ -331,3 +347,4 @@ ENTRY_POINTS = (walk_headers, walk_headers_parallel, gather_blocks,
                 gather_dims, build_plan, assemble_stream, histogram)
 for _fn in ENTRY_POINTS:
     _fn.calls = 0
+    _fn.threads = 0

@@ -23,6 +23,7 @@ import numpy as np
 
 from . import native_host
 from .constants import BLOCK_SZ, GROUP_SZ_BLOCKS, MAX_RUN_NBLOCKS
+from .utils.trace import annotate
 
 KIND_DATA = 0
 KIND_RUN = 1
@@ -42,6 +43,7 @@ class EmissionPlan:
         return len(self.kinds)
 
 
+@annotate("encode.plan")
 def build_plan(
     zero_flags: np.ndarray,
     n_elems: int,

@@ -214,10 +214,11 @@ def compress_simple(src: np.ndarray, ndims: int, codec: str,
                         values=np.arange(nslots, dtype=np.int32),
                         ngroups=ngroups, consumed_blocks=nslots,
                         remaining_elems=n - body)
+    widths_np, hdr_np, dense_np, wsums_np = _encoder.download_outputs(
+        widths, hdr, dense, wsums)
     return _encoder.assemble_stream(
-        plan, widths.to(torch.uint8).cpu().numpy(),
-        hdr.to(torch.uint8).cpu().numpy(), dense.cpu().numpy(), ndims,
-        elem_sz, src[body:], False, wsums.cpu().numpy(), meta=head)
+        plan, widths_np, hdr_np, dense_np, ndims, elem_sz, src[body:], False,
+        wsums_np, meta=head)
 
 
 def decompress_simple(buf: bytes, codec: str, layout: str = "rowmajor",
@@ -268,4 +269,4 @@ def decompress_simple(buf: bytes, codec: str, layout: str = "rowmajor",
     else:
         vals = fire_decode(_decoder.fire_errors(dense, widths, elem_sz, False),
                            eb, truncate_coeffs=True)
-    return np.concatenate([_decoder.download_values(vals), tail])
+    return _decoder.join_tail(_decoder.download_values(vals), tail)

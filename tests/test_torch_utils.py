@@ -1,10 +1,10 @@
 """The port's utilities (``sprintz_tpu_torch/utils``) against the JAX
 package's: debug dumps give the same strings and the host bit helpers the
-same values (tolerance 0); ``Timer`` the same report. The device timer and
-the profiler hook have no JAX counterpart to equal: here, on the CPU, the
-timer perturbs its input as the JAX loop perturbs its carry and puts it
-back, and the profiler writes a Chrome trace holding the annotated range;
-both need the card unless told otherwise."""
+same values (tolerance 0). The device timer and the profiler hook have no
+JAX counterpart to equal: here, on the CPU, the timer perturbs its input as
+the JAX loop perturbs its carry and puts it back, and the profiler writes a
+Chrome trace holding the annotated range; both need the card unless told
+otherwise."""
 
 import glob
 import json
@@ -15,7 +15,6 @@ import torch
 
 from sprintz_tpu.utils import bits as jb
 from sprintz_tpu.utils import debug as jd
-from sprintz_tpu.utils import trace as jt
 from sprintz_tpu_torch.utils import bits as pb
 from sprintz_tpu_torch.utils import debug as pd_
 from sprintz_tpu_torch.utils import timing as ptime
@@ -90,16 +89,6 @@ def test_run_varints_match_jax():
         buf = b"\x00" + enc + b"\x05"
         assert pb.decode_run_varint(buf, 1) == jb.decode_run_varint(buf, 1)
         assert pb.decode_run_varint(buf, 1) == (n, 1 + len(enc))
-
-
-def test_timer_report_matches_jax():
-    a, b = pt.Timer(), jt.Timer()
-    for t in (a, b):
-        with t.section("x"):
-            pass
-        t.totals.update({"x": 0.0123, "long name": 1.5, "y": 0.25})
-        t.counts.update({"x": 3, "long name": 1, "y": 2})
-    assert a.report() == b.report()
 
 
 @pytest.mark.parametrize("iters", [1, 7, 16])
