@@ -21,7 +21,19 @@ timeline of the JAX package's ``decoder.py:582-612``), and then takes the
 same kernels: a run block decodes as zero errors, which FIRE runs through
 as the encoder did.
 
-The values come back narrow and the verbatim tail is appended on the host.
+The values come back narrow and the verbatim tail is written after them
+on the host.
+
+``decompress`` runs as a pipeline of segments of whole groups
+(``segment_plan``): an xff stream of at least twice ``PIPE_BYTES`` and
+``PIPE_GROUPS`` groups takes several, every other stream one. Each segment is
+walked from where the one before stopped, gathered into a pinned upload
+slot and uploaded on a copy stream, decoded on the card from the FIRE
+carry that the segment before left there, and downloaded into a pinned
+slot on a second copy stream; the host walks and gathers the next segment
+while the card decodes this one, and waits only to reuse a slot and to
+copy a segment's values into the array it returns (``_Pipe``, one a
+device and thread; the counter ``segments``).
 
 Each stage carries its span (``utils.trace.annotate``): ``decode.walk``,
 ``decode.gather``, ``decode.upload``, ``decode.device``,
@@ -43,6 +55,8 @@ from a checkpoint's state (``checkpoint.decode_range``).
 from __future__ import annotations
 
 import dataclasses
+import math
+import threading
 
 import numpy as np
 import torch
@@ -321,7 +335,8 @@ def fire_errors(dense: torch.Tensor, widths: torch.Tensor, elem_sz: int,
 def decode_device(dense: torch.Tensor, widths: torch.Tensor,
                   out_rows: torch.Tensor, total_rows: int,
                   elem_sz: int, codec: str = "delta",
-                  lowdim: bool = False, chunks=None) -> torch.Tensor:
+                  lowdim: bool = False, chunks=None, init_state=None,
+                  final: bool = False):
     """Device pass: the gathered payload of the data blocks -> the stream's
     rows (total_rows, D), u8/u16, on the payload's device.
 
@@ -336,6 +351,11 @@ def decode_device(dense: torch.Tensor, widths: torch.Tensor,
     delta. Chunk c runs to the next chunk's first block, the last to the
     end of the timeline.
 
+    ``init_state``, ``final``: FIRE's carry (xff, without ``chunks``), as
+    ``fire_decode`` takes and returns it: the (3, D) state entering the
+    first block, and with ``final`` the values come with the state after
+    the last block, left on the device.
+
     With runs, the payload blocks are first placed on the block timeline
     (runs are whole blocks, so every block start is 8-aligned): a run
     block gets width 0 and zero bytes, which unpack to zero errors, which
@@ -344,6 +364,9 @@ def decode_device(dense: torch.Tensor, widths: torch.Tensor,
     and streams with runs then take the same kernels.
     """
     ndims = widths.shape[1]
+    if (init_state is not None or final) and (codec != "xff"
+                                              or chunks is not None):
+        raise ValueError("init_state and final take FIRE without chunks")
     dense, widths = place_blocks(dense, widths, out_rows, total_rows)
     if chunks is not None:
         first = np.append(np.asarray(chunks[0], dtype=np.int64),
@@ -354,12 +377,36 @@ def decode_device(dense: torch.Tensor, widths: torch.Tensor,
         if chunks is not None:
             return fire_decode_chunks(errs, 8 * elem_sz, first, states,
                                       truncate_coeffs=not lowdim)
-        return fire_decode(errs, 8 * elem_sz, truncate_coeffs=not lowdim)
+        return fire_decode(errs, 8 * elem_sz, init_state=init_state,
+                           truncate_coeffs=not lowdim, final=final)
     ck = None if chunks is None else delta_chunks(
         first, states[:, 0], total_rows // BLOCK_SZ, ndims, dense.device)
     if lowdim:
         return decode_delta_lowdim(dense, widths, 8 * elem_sz, ck)
     return decode_delta_contiguous(dense, widths, 8 * elem_sz, ck)
+
+
+# The pipeline of ``decompress``: an xff stream decodes in equal segments
+# of whole groups. A segment costs the host about a millisecond of calls of
+# its own on an H100 machine (launches, copies, events), and it gains its
+# host work (the walk and gather of its bytes, 4-8 ns a byte there), which
+# runs under the chain of the segment before. So a segment holds at least
+# PIPE_BYTES of the stream (1-1.5 ms of that work) and PIPE_GROUPS groups
+# (0.45 ms of FIRE's chain or more: a group has 16 rows or more), and there
+# are at most PIPE_SEGMENTS. Delta's device pass takes microseconds and
+# hides nothing: one segment.
+PIPE_BYTES = 192 << 10
+PIPE_GROUPS = 4096
+PIPE_SEGMENTS = 8
+
+
+def segment_plan(codec: str, ngroups: int, nbytes: int) -> list[int]:
+    """The groups of each of ``decompress``'s segments, in stream order,
+    for a stream of ``ngroups`` groups in ``nbytes`` bytes."""
+    n = (min(PIPE_SEGMENTS, nbytes // PIPE_BYTES, ngroups // PIPE_GROUPS)
+         if codec == "xff" else 1)
+    n = max(n, 1)
+    return [ngroups // n + (i < ngroups % n) for i in range(n)]
 
 
 def decompress(buf: bytes, codec: str = "delta", elem_sz: int = 1,
@@ -370,6 +417,11 @@ def decompress(buf: bytes, codec: str = "delta", elem_sz: int = 1,
 
     ``device``: where the device pass runs, CUDA by default (raises when
     CUDA is absent); ``"cpu"`` runs the kernels' plain versions (tests).
+
+    The stream decodes in segments of whole groups (``segment_plan``):
+    while the card decodes one, the host walks and gathers the next (the
+    module's docstring). FIRE's chain runs across them unbroken, carried on
+    the card, so the values are those of one pass.
     """
     if codec not in ("delta", "xff"):
         raise ValueError(f"codec must be 'delta' or 'xff', got {codec!r}")
@@ -391,21 +443,155 @@ def decompress(buf: bytes, codec: str = "delta", elem_sz: int = 1,
             buf, dtype=udt, count=remaining_len,
             offset=METADATA_LEN_RLE).copy()
     lowdim = ndims <= LOWDIM_MAX_NDIMS[elem_sz]
+    plan = segment_plan(codec, ngroups, len(buf))
+    trace.count(decompress, segments=len(plan))
+    chained = len(plan) > 1
+    pipe = _pipe(dev)
+    out = carry = pending = None
+    start, row, walked = METADATA_LEN_RLE, 0, 0
+    for k, groups in enumerate(plan):
+        idx = walk_headers(buf, groups, ndims, elem_sz, lowdim, start)
+        start, walked = idx.tail_offset, walked + groups
+        rows = row + idx.total_rows
+        if walked == ngroups and start + remaining_len * elem_sz > len(buf):
+            raise CorruptStreamError(
+                f"verbatim tail truncated: need "
+                f"{start + remaining_len * elem_sz} bytes, have {len(buf)}")
+        need = rows * ndims + remaining_len
+        out = _room(out, need, need if walked == ngroups else
+                    -(-rows * ngroups * 9 // (8 * walked)) * ndims
+                    + remaining_len, udt)
+        got = None
+        if idx.total_rows:
+            up_slot, down_slot = ((None, None) if pipe is None
+                                  else (pipe.up[k % 2], pipe.down[k % 2]))
+            dense = gather_payloads(buf, idx, out=None if pipe is None
+                                    else staged_payload(up_slot, idx))
+            vals = decode_device(
+                *upload_payload(dense, idx, dev, slot=up_slot),
+                idx.total_rows, elem_sz, codec, lowdim, init_state=carry,
+                final=chained)
+            if chained:
+                vals, carry = vals
+            got = (vals if pipe is None else queue_download(vals, down_slot),
+                   row * ndims)
+        if pending is not None:
+            _join(out, *pending)
+        pending, row = got, rows
+    vals, at = pending or (None, 0)
+    return _join(out, vals, at, tail=(row * ndims, np.frombuffer(
+        buf, dtype=udt, count=remaining_len, offset=start)))
 
-    idx = walk_headers(buf, ngroups, ndims, elem_sz, lowdim)
-    if idx.tail_offset + remaining_len * elem_sz > len(buf):
-        raise CorruptStreamError(
-            f"verbatim tail truncated: need "
-            f"{idx.tail_offset + remaining_len * elem_sz} bytes, "
-            f"have {len(buf)}")
-    tail = np.frombuffer(
-        buf, dtype=udt, count=remaining_len, offset=idx.tail_offset)
-    if idx.total_rows == 0:
-        return tail.copy()
-    dense = gather_payloads(buf, idx)
-    vals = decode_device(*upload_payload(dense, idx, dev), idx.total_rows,
-                         elem_sz, codec, lowdim)
-    return join_tail(download_values(vals), tail)
+
+def _room(out: np.ndarray | None, need: int, guess: int,
+          dtype) -> np.ndarray:
+    """``out``, or a larger array holding its elements, of at least
+    ``need`` elements and of ``guess`` where it must grow (``decompress``:
+    the rows so far scaled to all the stream's groups, and an eighth more,
+    so that a stream whose later segments hold more rows grows seldom; it
+    cuts the array to size at the end)."""
+    if out is not None and out.size >= need:
+        return out
+    grown = np.empty(max(need, guess), dtype)
+    if out is not None:
+        grown[:out.size] = out
+    return grown
+
+
+def _join(out: np.ndarray, vals, at: int, tail=None) -> np.ndarray:
+    """A segment's values (on the device, or a ``queue_download``; None:
+    none) into ``out`` from element ``at`` on; with ``tail``, (the element
+    after the stream's last row, its verbatim tail), the tail there too and
+    ``out`` cut to end with it. Returns ``out``."""
+    if vals is not None:
+        vals = download_values(vals)
+    with annotate("decode.join"):
+        if vals is not None:
+            out[at:at + vals.size] = vals
+        if tail is not None:
+            at, tail = tail
+            if out.size != at + tail.size:
+                out.resize(at + tail.size, refcheck=False)
+            out[at:] = tail
+    return out
+
+
+class _Slot:
+    """A pinned host buffer that one copy at a time goes through on
+    ``stream``, grown to the largest copy it has carried (to a power of
+    two), and the event that marks its last copy's end."""
+
+    def __init__(self, stream: torch.cuda.Stream):
+        self.stream = stream
+        self.buf: torch.Tensor | None = None
+        self.done = torch.cuda.Event()
+
+    def take(self, nbytes: int) -> torch.Tensor:
+        """The buffer's first ``nbytes``, once its last copy is over."""
+        self.wait()
+        if self.buf is None or self.buf.numel() < nbytes:
+            self.buf = None
+            self.buf = torch.empty(1 << max(nbytes - 1, 0).bit_length(),
+                                   dtype=torch.uint8, pin_memory=True)
+            trace.count(_Slot.take, pinned_allocs=1)
+        return self.buf[:nbytes]
+
+    def wait(self) -> None:
+        self.done.synchronize()
+
+
+class _Pipe:
+    """``decompress``'s copies on one CUDA device, for one thread: two
+    pinned upload slots on an upload stream and two pinned download slots
+    on a download stream, segment k in slots k % 2, so that neither copy
+    queues behind the chain on the compute stream."""
+
+    def __init__(self, device: torch.device):
+        up, down = torch.cuda.Stream(device), torch.cuda.Stream(device)
+        self.up = (_Slot(up), _Slot(up))
+        self.down = (_Slot(down), _Slot(down))
+
+
+_pipes = threading.local()
+
+
+def _pipe(device: torch.device) -> _Pipe | None:
+    """This thread's ``_Pipe`` on ``device``; None off CUDA."""
+    if device.type != "cuda":
+        return None
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    by_device = _pipes.__dict__.setdefault("by_device", {})
+    if index not in by_device:
+        by_device[index] = _Pipe(torch.device("cuda", index))
+    return by_device[index]
+
+
+# the parts of an upload slot start aligned as tensors of their own would
+# (the unpack kernels load 16 bytes at a time)
+_ALIGN = 256
+
+
+def _staging(idx: StreamIndex):
+    """An upload slot's layout for a walk: (payload shape, byte offset of
+    the first rows, how many go up, byte offset of the widths, total
+    bytes), the payload first. The first rows go up only where the walk
+    has runs: ``place_blocks`` reads them only there."""
+    ndata, ndims = idx.widths.shape
+    shape = ((ndata, ndims, idx.section_bytes) if idx.section_bytes
+             else (ndata, BLOCK_SZ, stream_maxb(idx)))
+    nrows = ndata if idx.total_rows != ndata * BLOCK_SZ else 0
+    rows_at = -(-math.prod(shape) // _ALIGN) * _ALIGN
+    widths_at = -(-(rows_at + 8 * nrows) // _ALIGN) * _ALIGN
+    return shape, rows_at, nrows, widths_at, widths_at + ndata * ndims
+
+
+def staged_payload(slot: _Slot, idx: StreamIndex) -> np.ndarray:
+    """The walk's payload buffer at the start of an upload slot (the
+    ``out`` of ``gather_payloads``), which then has room for its widths
+    and first rows (``upload_payload(..., slot=slot)``)."""
+    shape, _, _, _, total = _staging(idx)
+    return slot.take(total)[:math.prod(shape)].numpy().reshape(shape)
 
 
 def decompress_batch(bufs: list[bytes], codec: str = "delta",
@@ -548,10 +734,39 @@ def _upload(counted, device: torch.device, *arrays: np.ndarray):
     return up
 
 
-def upload_payload(dense: np.ndarray, idx: StreamIndex, device: torch.device):
+def upload_payload(dense: np.ndarray, idx: StreamIndex, device: torch.device,
+                   slot: _Slot | None = None):
     """Host payload and index -> (dense u8, widths u8, out_rows int64) on
-    ``device``."""
-    return _upload(upload_payload, device, dense, idx.widths, idx.out_rows)
+    ``device``.
+
+    ``slot``: an upload slot whose ``staged_payload`` ``dense`` is. The
+    widths and first rows join the payload there, the three go up in one
+    copy on the slot's stream, and the current stream waits for it."""
+    if slot is None:
+        return _upload(upload_payload, device, dense, idx.widths, idx.out_rows)
+    shape, rows_at, nrows, widths_at, total = _staging(idx)
+    if dense.shape != shape or (dense.size and dense.ctypes.data
+                                != slot.buf.data_ptr()):
+        raise ValueError("upload_payload(slot=) takes the slot's "
+                         "staged_payload")
+    ndata, ndims = idx.widths.shape
+    with annotate("decode.upload"):
+        host = slot.buf[:total]
+        flat = host.numpy()
+        flat[rows_at:rows_at + 8 * nrows].view(np.int64)[:] = \
+            idx.out_rows[:nrows]
+        flat[widths_at:] = idx.widths.reshape(-1)
+        compute = torch.cuda.current_stream(device)
+        with torch.cuda.stream(slot.stream):
+            up = torch.empty(total, dtype=torch.uint8, device=device)
+            up.copy_(host, non_blocking=True)
+            slot.done.record()
+        compute.wait_event(slot.done)
+        up.record_stream(compute)
+    trace.count_transfer(upload_payload, device, host)
+    return (up[:dense.nbytes].view(shape),
+            up[widths_at:].view(ndata, ndims),
+            up[rows_at:rows_at + 8 * nrows].view(torch.int64))
 
 
 def upload_batch(dense: np.ndarray, widths: np.ndarray, out_rows: np.ndarray,
@@ -561,9 +776,41 @@ def upload_batch(dense: np.ndarray, widths: np.ndarray, out_rows: np.ndarray,
     return _upload(upload_batch, device, dense, widths, out_rows)
 
 
-def download_values(vals: torch.Tensor) -> np.ndarray:
+@dataclasses.dataclass
+class Queued:
+    """A download queued through a pinned slot (``queue_download``): the
+    values land in ``host`` once the slot's copy is done."""
+
+    host: np.ndarray
+    slot: _Slot
+
+
+def queue_download(vals: torch.Tensor, slot: _Slot) -> Queued:
+    """Queue the copy of (rows, D) u8/u16 device values into a download
+    slot, on its stream behind the current stream's work so far;
+    ``download_values`` of the result waits for it."""
+    with annotate("decode.download"):
+        host = slot.take(vals.nbytes)
+        slot.done.record(torch.cuda.current_stream(vals.device))
+        slot.stream.wait_event(slot.done)
+        with torch.cuda.stream(slot.stream):
+            host.copy_(vals.reshape(-1).view(torch.uint8), non_blocking=True)
+            slot.done.record()
+        vals.record_stream(slot.stream)
+    trace.count_transfer(download_values, vals.device, host)
+    return Queued(host.numpy().view(np.uint16 if vals.dtype == torch.uint16
+                                    else np.uint8), slot)
+
+
+def download_values(vals: torch.Tensor | Queued) -> np.ndarray:
     """(rows, D) u8/u16 device values -> flat numpy array. u16 travels as
-    int16 (torch's uint16 is a storage type) and is reinterpreted."""
+    int16 (torch's uint16 is a storage type) and is reinterpreted. A
+    ``Queued`` download -> its values once they have landed (a view of
+    its pinned slot, until the slot's next copy)."""
+    if isinstance(vals, Queued):
+        with annotate("decode.download"):
+            vals.slot.wait()
+        return vals.host
     with annotate("decode.download"):
         if vals.dtype == torch.uint16:
             out = vals.view(torch.int16).cpu().numpy().view(np.uint16)
@@ -581,6 +828,8 @@ def join_tail(values: np.ndarray, tail: np.ndarray) -> np.ndarray:
 
 for _fn in (walk_headers, walk_headers_parallel):
     trace.count(_fn, data_blocks=0, run_blocks=0)
+trace.count(decompress, segments=0)
+trace.count(_Slot.take, pinned_allocs=0)
 trace.count(gather_payloads, bytes=0)
 for _fn in (upload_payload, upload_batch, download_values):
     trace.count(_fn, pageable_bytes=0, pinned_bytes=0)

@@ -11,9 +11,12 @@ import pytest
 from conftest import KINDS, make_stream
 from sprintz_tpu import decoder as jdec
 from sprintz_tpu import encoder as jenc
-from sprintz_tpu.golden.rowmajor import compress_rowmajor_rle
+from sprintz_tpu.golden.lowdim import decompress_lowdim_rle
+from sprintz_tpu.golden.rowmajor import (compress_rowmajor_rle,
+                                         decompress_rowmajor_rle)
 import sprintz_tpu_torch
 from sprintz_tpu_torch import decoder, encoder
+from sprintz_tpu_torch.constants import LOWDIM_MAX_NDIMS, METADATA_LEN_RLE
 from sprintz_tpu_torch.stream_format import read_metadata_rle
 from test_torch_stream import runs_stream
 
@@ -90,3 +93,78 @@ def test_xff_lowdim_matches_jax():
         want, codec="xff", device="cpu"), x.reshape(-1))
     np.testing.assert_array_equal(
         jdec.decompress(got, codec="xff", elem_sz=1), x.reshape(-1))
+
+
+def walk_stream(rng, rows: int, ndims: int, elem_sz: int) -> np.ndarray:
+    steps = rng.integers(-6, 7, (rows, ndims))
+    walk = np.cumsum(steps, axis=0) % (1 << (8 * elem_sz))
+    return walk.astype(np.uint8 if elem_sz == 1 else np.uint16).reshape(-1)
+
+
+def run_edges(buf: bytes, plan: list[int], ndims: int, elem_sz: int,
+              lowdim: bool) -> int:
+    """The segment edges with a run block on either side."""
+    start, edges = METADATA_LEN_RLE, 0
+    for k, groups in enumerate(plan):
+        idx = decoder.walk_headers(buf, groups, ndims, elem_sz, lowdim, start)
+        start = idx.tail_offset
+        first = idx.out_rows[0] if idx.out_rows.size else idx.total_rows
+        last = idx.out_rows[-1] + 8 if idx.out_rows.size else 0
+        edges += (k > 0 and first > 0) + (k < len(plan) - 1
+                                          and last < idx.total_rows)
+    return edges
+
+
+@pytest.mark.parametrize("elem_sz,ndims,codec,rows,extra,seg,consts", [
+    pytest.param(1, 1, "xff", 16 * 48, 0, 0, (1, 8, 6), id="u8-lowdim-d1"),
+    pytest.param(2, 3, "xff", 16 * 48, 0, 0, (1, 8, 6),
+                 id="u16-rowmajor-d3"),
+    pytest.param(1, 4, "xff", 16 * 48, 0, 24, (1, 4, 9),
+                 id="run-at-a-segment-edge"),
+    pytest.param(2, 2, "xff", 16 * 20, 0, 0, (1, 1, 12),
+                 id="last-segment-of-one-group"),
+    pytest.param(1, 5, "xff", 16 * 40 + 9, 3, 0, (1, 8, 6),
+                 id="verbatim-tail"),
+    pytest.param(1, 1, "xff", 16 * 40, 0, 0, (1, 21, 6),
+                 id="under-the-threshold"),
+    pytest.param(2, 3, "xff", 16 * 48, 0, 0, (1 << 20, 1, 6),
+                 id="under-the-bytes"),
+    pytest.param(2, 3, "delta", 16 * 48, 0, 0, (1, 8, 6), id="delta"),
+])
+def test_segmented_decode(rng, monkeypatch, elem_sz, ndims, codec, rows,
+                          extra, seg, consts):
+    """``decompress`` in segments, its constants lowered so that small
+    streams split: the values of the one-segment decode, of the golden
+    codec and of the input, FIRE's chain carried across every edge;
+    delta streams and xff streams under either threshold take one
+    segment."""
+    x = (runs_stream(rng, rows, ndims, elem_sz, seg) if seg
+         else walk_stream(rng, rows, ndims, elem_sz))
+    x = np.concatenate([x, x[:extra]])
+    lowdim = ndims <= LOWDIM_MAX_NDIMS[elem_sz]
+    buf = encoder.compress(x, ndims, codec=codec, device="cpu")
+    one = decoder.decompress(buf, codec=codec, elem_sz=elem_sz, device="cpu")
+    golden = (decompress_lowdim_rle if lowdim else decompress_rowmajor_rle)(
+        buf, codec=codec, elem_sz=elem_sz)
+    for name, value in zip(("PIPE_BYTES", "PIPE_GROUPS", "PIPE_SEGMENTS"),
+                           consts):
+        monkeypatch.setattr(decoder, name, value)
+    ngroups, remaining, _ = read_metadata_rle(buf)
+    plan = decoder.segment_plan(codec, ngroups, len(buf))
+    before = decoder.decompress.segments
+    got = decoder.decompress(buf, codec=codec, elem_sz=elem_sz, device="cpu")
+    assert decoder.decompress.segments - before == len(plan)
+    np.testing.assert_array_equal(got, one)
+    np.testing.assert_array_equal(got, golden)
+    np.testing.assert_array_equal(got, x)
+    if (codec == "delta" or len(buf) < 2 * consts[0]
+            or ngroups < 2 * consts[1]):
+        assert plan == [ngroups]
+        return
+    assert len(plan) > 1 and sum(plan) == ngroups
+    if seg:
+        assert run_edges(buf, plan, ndims, elem_sz, lowdim) > 0
+    if extra:
+        assert remaining > ndims
+    if consts[1] == 1:
+        assert plan[-1] == 1
