@@ -38,9 +38,9 @@ device and thread; the counter ``segments``).
 Each stage carries its span (``utils.trace.annotate``): ``decode.walk``,
 ``decode.gather``, ``decode.upload``, ``decode.device``,
 ``decode.download``, ``decode.join``; and counters: the walks'
-``data_blocks`` and ``run_blocks``, the gather's ``bytes``, and each
-transfer's ``pageable_bytes`` and ``pinned_bytes`` on a CUDA device
-(``utils.trace.counters``).
+``data_blocks`` and ``run_blocks``, the gather's and the join's
+``bytes``, and each transfer's ``pageable_bytes`` and ``pinned_bytes``
+on a CUDA device (``utils.trace.counters``).
 
 A checkpoint sidecar (``checkpoint.py``) splits the same pass into chunks:
 ``walk_headers_parallel`` walks the sidecar's segments on threads, and
@@ -502,17 +502,20 @@ def _join(out: np.ndarray, vals, at: int, tail=None) -> np.ndarray:
     """A segment's values (on the device, or a ``queue_download``; None:
     none) into ``out`` from element ``at`` on; with ``tail``, (the element
     after the stream's last row, its verbatim tail), the tail there too and
-    ``out`` cut to end with it. Returns ``out``."""
+    ``out`` cut to end with it. Returns ``out``; counts the bytes it
+    writes there (``bytes``)."""
     if vals is not None:
         vals = download_values(vals)
     with annotate("decode.join"):
         if vals is not None:
             out[at:at + vals.size] = vals
+            trace.count(_join, bytes=vals.nbytes)
         if tail is not None:
             at, tail = tail
             if out.size != at + tail.size:
                 out.resize(at + tail.size, refcheck=False)
             out[at:] = tail
+            trace.count(_join, bytes=tail.nbytes)
     return out
 
 
@@ -831,5 +834,6 @@ for _fn in (walk_headers, walk_headers_parallel):
 trace.count(decompress, segments=0)
 trace.count(_Slot.take, pinned_allocs=0)
 trace.count(gather_payloads, bytes=0)
+trace.count(_join, bytes=0)
 for _fn in (upload_payload, upload_batch, download_values):
     trace.count(_fn, pageable_bytes=0, pinned_bytes=0)
