@@ -19,6 +19,8 @@
 //                            each group's byte offset and first row (the
 //                            group index a sidecar is built from)
 //   sprintz_histogram        the +Huf table's byte counts
+//   sprintz_copy             a copy of n bytes on threads (the decode's join
+//                            into the array it returns)
 //   sprintz_threads_started  the threads parallel_for has started, in all
 //
 // Semantics are those of the Python versions beside their callers
@@ -813,6 +815,22 @@ int64_t sprintz_assemble_stream(
 
   memcpy(out + pos, tail, tail_nbytes);
   return pos + tail_nbytes;
+}
+
+// dst[0, n) = src[0, n), the two apart: one thread for every kThreadBytes
+// at least (the gathers' grain), up to max_threads, each on whole pages.
+// The caller sets max_threads lower where dst's pages are fresh: their
+// first touches contend (decoder.FRESH_COPY_THREADS). Returns 0.
+int64_t sprintz_copy(uint8_t* dst, const uint8_t* src, int64_t n,
+                     int32_t max_threads) {
+  if (n <= 0) return 0;
+  constexpr int64_t kPage = 4096;
+  parallel_for((n + kPage - 1) / kPage, kThreadBytes / kPage,
+               std::max(max_threads, 1), [&](int64_t lo, int64_t hi) {
+    const int64_t a = lo * kPage, b = std::min(n, hi * kPage);
+    memcpy(dst + a, src + a, (size_t)(b - a));
+  });
+  return 0;
 }
 
 // The threads parallel_for has started since the library was loaded.

@@ -33,14 +33,20 @@ carry that the segment before left there, and downloaded into a pinned
 slot on a second copy stream; the host walks and gathers the next segment
 while the card decodes this one, and waits only to reuse a slot and to
 copy a segment's values into the array it returns (``_Pipe``, one a
-device and thread; the counter ``segments``).
+device and thread; the counter ``segments``). That array lies over a
+block of host memory that the module recycles (``_room``, ``_OutPool``):
+a block whose last array has died serves a later call with its pages
+mapped; the join copies a large result into it on the host library's
+threads.
 
 Each stage carries its span (``utils.trace.annotate``): ``decode.walk``,
 ``decode.gather``, ``decode.upload``, ``decode.device``,
 ``decode.download``, ``decode.join``; and counters: the walks'
 ``data_blocks`` and ``run_blocks``, the gather's and the join's
-``bytes``, and each transfer's ``pageable_bytes`` and ``pinned_bytes``
-on a CUDA device (``utils.trace.counters``).
+``bytes``, ``_room``'s ``fresh_bytes`` and ``recycled_bytes`` (the output
+blocks allocated anew and served from the pool), and each transfer's
+``pageable_bytes`` and ``pinned_bytes`` on a CUDA device
+(``utils.trace.counters``).
 
 A checkpoint sidecar (``checkpoint.py``) splits the same pass into chunks:
 ``walk_headers_parallel`` walks the sidecar's segments on threads, and
@@ -54,6 +60,7 @@ from a checkpoint's state (``checkpoint.decode_range``).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 import threading
@@ -422,6 +429,12 @@ def decompress(buf: bytes, codec: str = "delta", elem_sz: int = 1,
     while the card decodes one, the host walks and gathers the next (the
     module's docstring). FIRE's chain runs across them unbroken, carried on
     the card, so the values are those of one pass.
+
+    The array returned is a view of a block of host memory that the module
+    recycles (``_room``): its values, dtype, flat shape and writability are
+    a fresh array's, but it does not own its data (``flags.owndata`` is
+    False). The block goes back to the pool when the last array over it
+    dies, never before.
     """
     if codec not in ("delta", "xff"):
         raise ValueError(f"codec must be 'delta' or 'xff', got {codec!r}")
@@ -474,13 +487,104 @@ def decompress(buf: bytes, codec: str = "delta", elem_sz: int = 1,
             if chained:
                 vals, carry = vals
             got = (vals if pipe is None else queue_download(vals, down_slot),
-                   row * ndims)
+                   row * ndims, rows * ndims)
         if pending is not None:
             _join(out, *pending)
         pending, row = got, rows
-    vals, at = pending or (None, 0)
-    return _join(out, vals, at, tail=(row * ndims, np.frombuffer(
+    vals, at, end = pending or (None, 0, 0)
+    return _join(out, vals, at, end, tail=(row * ndims, np.frombuffer(
         buf, dtype=udt, count=remaining_len, offset=start)))
+
+
+# The blocks of host memory that ``decompress``'s results are carved from
+# (``_room``). A result of tens of megabytes lies above glibc's largest mmap
+# threshold (32 MB), so a fresh array of it is mapped anew on every call,
+# and its first touches, inside the join's copy, cost more than the copy.
+# A block whose last array has died serves a later call with its pages
+# mapped. At most OUT_FREE_BLOCKS free blocks wait; the rest go back to the
+# allocator. A copy of THREAD_COPY_BYTES or more (two of the host library's
+# 2 MiB grains) runs on the library's threads: into a recycled block up to
+# the host's cores, into a fresh one up to FRESH_COPY_THREADS, past which
+# its first touches contend. On the host of an H100 machine
+# (probes/join_probe.py, 57,548,800 bytes) a fresh block took 25-27 ms on
+# numpy's one thread, 12-14 on 4 threads and 13-16 on 8; a recycled one
+# 14-15, 4.9-5.4 and 4.1-4.4. A smaller copy would run on one thread there
+# anyway, and numpy's is the cheaper: through the library the FIRE decodes'
+# 0.5-2.1 MB segments cost 0.8-1.8% of their calls.
+OUT_FREE_BLOCKS = 2
+THREAD_COPY_BYTES = 4 << 20
+FRESH_COPY_THREADS = 4
+
+
+class _OutPool:
+    """``_room``'s blocks: plain pageable uint8 arrays, process-wide. A
+    block comes back (``give``) from whatever thread drops the last array
+    over it, the garbage collector's included, which may run inside
+    ``take`` on the thread that holds the lock: so ``give`` queues it
+    without waiting for the lock, and whoever holds the lock files the
+    queue on the way out (``_settle``)."""
+
+    def __init__(self, keep: int):
+        self.keep = keep
+        self.free: list[np.ndarray] = []  # the newest last
+        self._back: collections.deque[np.ndarray] = collections.deque()
+        self._lock = threading.Lock()
+
+    def take(self, need: int, want: int) -> np.ndarray | None:
+        """The smallest free block of ``need`` to ``2 * want`` bytes, taken
+        out of the pool; None where there is none."""
+        with self._lock:
+            self._file()
+            sizes = [b.nbytes for b in self.free]
+            fit = min((i for i, n in enumerate(sizes)
+                       if need <= n <= 2 * want),
+                      key=sizes.__getitem__, default=None)
+            block = None if fit is None else self.free.pop(fit)
+        self._settle()
+        return block
+
+    def give(self, block: np.ndarray) -> None:
+        self._back.append(block)
+        self._settle()
+
+    def _settle(self) -> None:
+        while self._back and self._lock.acquire(blocking=False):
+            try:
+                self._file()
+            finally:
+                self._lock.release()
+
+    def _file(self) -> None:
+        """Under the lock: the blocks given back into the free list, and
+        all but the newest ``keep`` dropped."""
+        while self._back:
+            self.free.append(self._back.popleft())
+        del self.free[:max(len(self.free) - self.keep, 0)]
+
+
+_OUT = _OutPool(OUT_FREE_BLOCKS)
+
+
+class _Lease:
+    """A block of the pool handed out: the array over it (``np.asarray``
+    of the lease) and every view of that array hold the lease as their
+    base, and the lease gives the block back when the last of them dies.
+    ``recycled``: the block came from the pool, so its pages are mapped."""
+
+    __slots__ = ("block", "dtype", "recycled", "pool")
+
+    def __init__(self, block: np.ndarray, dtype, recycled: bool):
+        self.block, self.dtype = block, np.dtype(dtype)
+        self.recycled, self.pool = recycled, _OUT
+
+    @property
+    def __array_interface__(self):
+        return {"shape": (self.block.nbytes // self.dtype.itemsize,),
+                "typestr": self.dtype.str, "version": 3,
+                "data": (self.block.__array_interface__["data"][0], False)}
+
+    def __del__(self):
+        self.pool.give(self.block)
 
 
 def _room(out: np.ndarray | None, need: int, guess: int,
@@ -489,31 +593,64 @@ def _room(out: np.ndarray | None, need: int, guess: int,
     ``need`` elements and of ``guess`` where it must grow (``decompress``:
     the rows so far scaled to all the stream's groups, and an eighth more,
     so that a stream whose later segments hold more rows grows seldom; it
-    cuts the array to size at the end)."""
+    cuts the array to size at the end). A grown array lies over a block of
+    the pool (``_OutPool.take``: up to twice the bytes asked for), or over
+    a fresh block of exactly those bytes; it counts the block's bytes in
+    ``recycled_bytes`` or ``fresh_bytes``."""
     if out is not None and out.size >= need:
         return out
-    grown = np.empty(max(need, guess), dtype)
+    item = np.dtype(dtype).itemsize
+    want = max(need, guess) * item
+    block = _OUT.take(need * item, want)
+    recycled = block is not None
+    if recycled:
+        trace.count(_room, recycled_bytes=block.nbytes)
+    else:
+        block = np.empty(want, np.uint8)
+        trace.count(_room, fresh_bytes=want)
+    grown = np.asarray(_Lease(block, dtype, recycled))
     if out is not None:
-        grown[:out.size] = out
+        _copy(grown[:out.size], out)
     return grown
 
 
-def _join(out: np.ndarray, vals, at: int, tail=None) -> np.ndarray:
+def _copy(dst: np.ndarray, src: np.ndarray) -> None:
+    """``dst[...] = src`` into a part of a ``_room`` array: from
+    ``THREAD_COPY_BYTES`` on, on the host library's threads
+    (``native_host.copy``: one a 2 MiB at least), up to the host's cores
+    where its block was recycled and up to ``FRESH_COPY_THREADS`` where it
+    is fresh; below, numpy's copy."""
+    if dst.nbytes < THREAD_COPY_BYTES:
+        dst[...] = src
+        return
+    lease = dst.base
+    while isinstance(lease, np.ndarray):  # views keep their array as base
+        lease = lease.base
+    native_host.copy(dst, np.ascontiguousarray(src),
+                     64 if getattr(lease, "recycled", False)
+                     else FRESH_COPY_THREADS)
+
+
+def _join(out: np.ndarray, vals, at: int, end: int,
+          tail=None) -> np.ndarray:
     """A segment's values (on the device, or a ``queue_download``; None:
-    none) into ``out`` from element ``at`` on; with ``tail``, (the element
-    after the stream's last row, its verbatim tail), the tail there too and
-    ``out`` cut to end with it. Returns ``out``; counts the bytes it
-    writes there (``bytes``)."""
+    none) into ``out[at:end]``; with ``tail``, (the element after the
+    stream's last row, its verbatim tail), the tail there too. Returns
+    ``out``, with ``tail`` the view of it that ends with the tail; counts
+    the bytes it writes there (``bytes``)."""
     if vals is not None:
         vals = download_values(vals)
     with annotate("decode.join"):
-        if vals is not None:
-            out[at:at + vals.size] = vals
+        got = 0 if vals is None else vals.size
+        if got:
+            _copy(out[at:at + got], vals)
             trace.count(_join, bytes=vals.nbytes)
+        # a recycled block holds an earlier result: values that come up
+        # short leave zeros there, as fresh pages would, never its values
+        out[at + got:end] = 0
         if tail is not None:
             at, tail = tail
-            if out.size != at + tail.size:
-                out.resize(at + tail.size, refcheck=False)
+            out = out[:at + tail.size]
             out[at:] = tail
             trace.count(_join, bytes=tail.nbytes)
     return out
@@ -835,5 +972,6 @@ trace.count(decompress, segments=0)
 trace.count(_Slot.take, pinned_allocs=0)
 trace.count(gather_payloads, bytes=0)
 trace.count(_join, bytes=0)
+trace.count(_room, fresh_bytes=0, recycled_bytes=0)
 for _fn in (upload_payload, upload_batch, download_values):
     trace.count(_fn, pageable_bytes=0, pinned_bytes=0)

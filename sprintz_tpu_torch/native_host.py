@@ -5,7 +5,8 @@ The stream format's per-block bookkeeping runs on the host whatever the
 device: the decode's header walk (serial, or split at a sidecar's
 checkpoints over threads) and payload gather, the encode's emission plan
 and stream assembly (which also gives the group index a sidecar is built
-from), and the +Huf table's byte histogram. At first use
+from), the +Huf table's byte histogram, and the decode's copy of its
+values into the array it returns, on threads. At first use
 the source is compiled with g++ into ``build/sprintz_tpu_torch/`` at the
 root of the checkout (``ops/_build.BUILD_DIR``), under a name keyed by the
 source, the flags and the compiler's target (``-march=native``), so an
@@ -52,6 +53,7 @@ SIGNATURES = {
     "sprintz_assemble_stream": (_P, _P, _L, _L, _L, _P, _P, _P, _L, _I, _I,
                                 _I, _P, _L, _P, _L, _P, _P, _P, _L),
     "sprintz_histogram": (_P, _L, _P),
+    "sprintz_copy": (_P, _P, _L, _I),
     "sprintz_threads_started": (),
 }
 
@@ -343,8 +345,20 @@ def histogram(data) -> np.ndarray:
     return counts
 
 
+def copy(dst: np.ndarray, src: np.ndarray, threads: int = 64) -> None:
+    """``dst[...] = src`` for two C-contiguous arrays of the same bytes,
+    ``dst`` writable: on one thread for every 2 MiB at least, up to
+    ``threads`` and the host's cores (the decode's join)."""
+    if (dst.nbytes != src.nbytes or not dst.flags.c_contiguous
+            or not src.flags.c_contiguous or not dst.flags.writeable):
+        raise ValueError(f"copy of {src.nbytes} bytes into {dst.nbytes}: "
+                         f"both must be C-contiguous, the target writable")
+    _call(copy, _ptr(dst), _ptr(src), dst.nbytes, threads)
+
+
+# the stream format's entry points; ``copy``, a plain copy, counts apart
 ENTRY_POINTS = (walk_headers, walk_headers_parallel, gather_blocks,
                 gather_dims, build_plan, assemble_stream, histogram)
-for _fn in ENTRY_POINTS:
+for _fn in (*ENTRY_POINTS, copy):
     _fn.calls = 0
     _fn.threads = 0
